@@ -1,0 +1,423 @@
+"""ArchesSession: one declarative entry point for a campaign.
+
+    spec = CampaignSpec(path="closed_loop", scenario="good_poor_good",
+                        n_ues=4, n_slots=30, policies=(PolicySpec(kind="tree"),))
+    hist = ArchesSession(spec, device="cuda").run()   # -> BatchedRunHistory
+
+``CampaignSpec`` and its parts keep every field of the reference's spec
+tree with the same names and defaults, so ``to_json`` and ``spec_hash``
+are identical for the same campaign and one JSON spec drives both
+packages.  ``use_pallas_switch`` keeps its name and means "use the
+hand-written switch kernel"; ``SwitchSpec.backend`` takes the reference's
+values, with ``"pallas"`` meaning the hand-written tree kernel.
+
+This slice runs the ``closed_loop`` and ``batched`` paths on a CONCURRENT
+bank.  A spec that sets ``topology``, ``churn`` or ``faults`` raises at
+construction; the ``host``, ``gated`` and ``perturbed`` paths and GATED
+banks raise in ``ArchesSession`` (each names its ROADMAP item).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import hashlib
+import json
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import random as jr
+from repro_torch.core.closed_loop import SwitchConfig, per_ue_policy
+from repro_torch.core.expert_bank import ExecutionMode, coerce_enum
+from repro_torch.core.runtime import BatchedRunHistory
+from repro_torch.core.telemetry import SELECTED_KPMS
+from repro_torch.device import resolve_device
+
+
+class ExecutionPath(enum.Enum):
+    """The campaign shapes of the reference; this slice runs two of them."""
+
+    HOST = "host"
+    BATCHED = "batched"
+    CLOSED_LOOP = "closed_loop"
+    GATED = "gated"
+    PERTURBED = "perturbed"
+
+    @classmethod
+    def coerce(cls, value: "ExecutionPath | str") -> "ExecutionPath":
+        return coerce_enum(cls, value, "execution path")
+
+
+_PATH_ITEMS = {
+    ExecutionPath.HOST: "Queue 1 item 6: host-loop path",
+    ExecutionPath.GATED: "Queue 1 item 2: GATED path",
+    ExecutionPath.PERTURBED: "Queue 1 item 6: methodology",
+}
+
+
+def _tuplify(x):
+    """Recursively normalize to the spec's JSON-stable form: lists, arrays
+    and tensors become tuples, numpy scalars become Python scalars."""
+    if isinstance(x, (list, tuple)):
+        return tuple(_tuplify(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        return _tuplify(x.detach().cpu().numpy().tolist())
+    if isinstance(x, np.ndarray):
+        return _tuplify(x.tolist())
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertBankSpec:
+    """Expert-bank + AI-estimator configuration (one bank per campaign)."""
+
+    execution_mode: str = "concurrent"
+    gated_capacity: int | None = None
+    use_pallas_switch: bool = True
+    channels: int = 8
+    n_res_blocks: int = 1
+    params_seed: int = 0
+    fused: bool = False
+    dtype: str = "float32"
+    audit_nmse_threshold: float | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "execution_mode",
+                           ExecutionMode.coerce(self.execution_mode).value)
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype {self.dtype!r}; one of 'float32', 'bfloat16'")
+        mode = ExecutionMode.coerce(self.execution_mode)
+        if self.fused and mode is not ExecutionMode.GATED:
+            raise ValueError("fused=True requires execution_mode='gated'")
+        if self.audit_nmse_threshold is not None:
+            if mode is not ExecutionMode.GATED:
+                raise ValueError("audit_nmse_threshold requires execution_mode='gated'")
+            if not self.audit_nmse_threshold > 0:
+                raise ValueError(
+                    f"audit_nmse_threshold {self.audit_nmse_threshold} must be > 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicySpec:
+    """One switching policy: a profiled Gini ``tree`` or a ``threshold`` gate."""
+
+    kind: str = "tree"
+    depth: int = 2
+    train_slots: int | None = None
+    train_ues: int = 2
+    train_scenario: str | None = None
+    train_scenario_args: tuple = ()
+    feature: str = "snr"
+    threshold: float = 18.0
+    hysteresis: float = 0.0
+    mode_above: int = 1
+    mode_below: int = 0
+
+    def __post_init__(self):
+        if self.kind not in ("tree", "threshold"):
+            raise ValueError(f"unknown policy kind {self.kind!r}")
+        object.__setattr__(self, "train_scenario_args",
+                           _tuplify(self.train_scenario_args))
+
+
+@dataclasses.dataclass(frozen=True)
+class SwitchSpec:
+    """Declarative form of ``SwitchConfig``."""
+
+    window_slots: int = 8
+    hysteresis_slots: int = 1
+    period_slots: int = 1
+    default_mode: int = 1
+    backend: str = "auto"
+    ttl_slots: int = 16
+
+    def __post_init__(self):
+        if self.backend not in ("auto", "pallas", "cuda", "ref"):
+            raise ValueError(f"unknown switch backend {self.backend!r}")
+
+    def to_config(self, feature_names: Sequence[str]) -> SwitchConfig:
+        return SwitchConfig(
+            feature_names=tuple(feature_names),
+            window_slots=self.window_slots,
+            hysteresis_slots=self.hysteresis_slots,
+            period_slots=self.period_slots,
+            default_mode=self.default_mode,
+            backend=self.backend,
+            ttl_slots=self.ttl_slots,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CampaignSpec:
+    """A whole campaign as data: serialize it, hash it, run it.
+
+    Same fields, defaults and normalization as the reference's spec.
+    ``topology``, ``churn`` and ``faults`` are kept so the JSON form and
+    hash agree, but setting any of them raises until its slice is ported.
+    """
+
+    path: str = "batched"
+    scenario: str = "good_poor_good"
+    scenario_args: tuple = ()
+    n_ues: int = 4
+    n_slots: int = 30
+    n_prb: int = 24
+    seed: int = 0
+    modes: Any = 1
+    bank: ExpertBankSpec = dataclasses.field(default_factory=ExpertBankSpec)
+    policies: tuple = ()
+    policy_assignment: tuple | None = None
+    switch: SwitchSpec = dataclasses.field(default_factory=SwitchSpec)
+    feature_names: tuple = SELECTED_KPMS
+    rho: tuple | None = None
+    topology: Any = None
+    churn: Any = None
+    faults: Any = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "path", ExecutionPath.coerce(self.path).value)
+        for name, item in (("topology", "Queue 1 item 4"),
+                           ("churn", "Queue 1 item 3"),
+                           ("faults", "Queue 1 item 3")):
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"CampaignSpec.{name} is not ported yet (ROADMAP, {item})")
+        for name in ("scenario_args", "policies", "feature_names"):
+            object.__setattr__(self, name, _tuplify(getattr(self, name)))
+        object.__setattr__(self, "modes", _tuplify(self.modes))
+        for name in ("policy_assignment", "rho"):
+            v = getattr(self, name)
+            if v is not None:
+                object.__setattr__(self, name, _tuplify(v))
+        if self.n_ues < 1 or self.n_slots < 1:
+            raise ValueError("n_ues and n_slots must be >= 1")
+        for k, _ in self.scenario_args:
+            if not isinstance(k, str):
+                raise ValueError("scenario_args must be (name, value) pairs")
+        if self.policy_assignment is not None:
+            if not self.policies:
+                raise ValueError("policy_assignment indexes spec.policies, which is empty")
+            if len(self.policy_assignment) != self.n_ues:
+                raise ValueError(
+                    f"policy_assignment has {len(self.policy_assignment)} "
+                    f"entries for n_ues={self.n_ues}")
+            if not all(0 <= int(i) < len(self.policies) for i in self.policy_assignment):
+                raise ValueError("policy_assignment indexes out of range")
+
+    @property
+    def execution_path(self) -> ExecutionPath:
+        return ExecutionPath.coerce(self.path)
+
+    @property
+    def scenario_kwargs(self) -> dict:
+        return dict(self.scenario_args)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CampaignSpec":
+        d = dict(d)
+        if "bank" in d and not isinstance(d["bank"], ExpertBankSpec):
+            d["bank"] = ExpertBankSpec(**d["bank"])
+        if "switch" in d and not isinstance(d["switch"], SwitchSpec):
+            d["switch"] = SwitchSpec(**d["switch"])
+        if "policies" in d:
+            d["policies"] = tuple(p if isinstance(p, PolicySpec) else PolicySpec(**p)
+                                  for p in d["policies"])
+        return cls(**d)
+
+    def to_json(self) -> str:
+        """Canonical JSON (sorted keys) -- the provenance string."""
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "CampaignSpec":
+        return cls.from_dict(json.loads(s))
+
+
+def spec_hash(spec: CampaignSpec) -> str:
+    """Short stable fingerprint of a spec's canonical JSON."""
+    return hashlib.sha256(spec.to_json().encode()).hexdigest()[:16]
+
+
+class ArchesSession:
+    """Compile a ``CampaignSpec`` into runnable components and run it.
+
+    ``device`` defaults to the card.  AI weights are drawn from
+    ``bank.params_seed`` with the ported PRNG on the host (so every device
+    gets the same weights) unless ``ai_params`` (the port's weight dict,
+    e.g. from ``repro_torch.convert``) is given; ``host_policies``
+    overrides the trained/built policy objects; ``engine`` reuses a built
+    engine.  ``run()`` returns a ``BatchedRunHistory``.
+    """
+
+    def __init__(self, spec: CampaignSpec, *, device: torch.device | str = "cuda",
+                 ai_params: Any = None, host_policies: Sequence | None = None,
+                 engine: Any = None):
+        from repro_torch.phy.nr import SlotConfig
+        from repro_torch.phy.scenario import get_scenario
+
+        self.spec = spec
+        self.path = spec.execution_path
+        self.device = resolve_device(device)
+        self._validate()
+        self.cfg = SlotConfig(n_prb=spec.n_prb)
+        scenario = get_scenario(spec.scenario)
+        self.schedule = scenario.schedule(
+            n_ues=spec.n_ues if scenario.per_ue else None, **spec.scenario_kwargs)
+        self._ai_params = ai_params
+        self._host_policies = tuple(host_policies) if host_policies is not None else None
+        self._engine = engine
+        self._device_policy = None
+
+    def _validate(self) -> None:
+        spec, path = self.spec, self.path
+        if path in _PATH_ITEMS:
+            raise NotImplementedError(
+                f"path={spec.path!r} is not ported yet (ROADMAP, {_PATH_ITEMS[path]})")
+        if ExecutionMode.coerce(spec.bank.execution_mode) is not ExecutionMode.CONCURRENT:
+            raise NotImplementedError(
+                f"a {spec.bank.execution_mode!r} bank is not ported yet "
+                "(ROADMAP, Queue 1 item 2: GATED path)")
+        if len(spec.policies) > 1 and spec.policy_assignment is None:
+            raise ValueError("several policies need an explicit policy_assignment "
+                             "(which UE runs which table)")
+        if path is ExecutionPath.CLOSED_LOOP and not spec.policies:
+            raise ValueError("closed_loop needs at least one PolicySpec")
+        self.bank_spec = spec.bank
+
+    # -- compiled components ---------------------------------------------------
+
+    @property
+    def net(self):
+        from repro_torch.phy.ai_estimator import AiEstimatorConfig
+
+        return AiEstimatorConfig(channels=self.bank_spec.channels,
+                                 n_res_blocks=self.bank_spec.n_res_blocks)
+
+    @property
+    def ai_params(self):
+        if self._ai_params is None:
+            from repro_torch.phy.ai_estimator import init_params
+
+            self._ai_params = init_params(jr.PRNGKey(self.bank_spec.params_seed),
+                                          self.cfg, self.net)
+        return self._ai_params
+
+    @property
+    def engine(self):
+        """The batched multi-UE engine configured per the bank spec."""
+        if self._engine is None:
+            from repro_torch.phy.pipeline import BatchedPuschPipeline
+
+            bank = self.bank_spec
+            self._engine = BatchedPuschPipeline(
+                self.cfg, self.ai_params, net=self.net,
+                execution_mode=ExecutionMode.coerce(bank.execution_mode),
+                use_pallas_switch=bank.use_pallas_switch,
+                expert_dtype=bank.dtype, device=self.device,
+            )
+        return self._engine
+
+    def _train_schedule(self, ps: PolicySpec):
+        from repro_torch.phy.scenario import get_scenario, good_poor_good_schedule
+
+        if ps.train_scenario is not None:
+            sc = get_scenario(ps.train_scenario)
+            if sc.per_ue:
+                raise ValueError(
+                    f"train_scenario {ps.train_scenario!r} is per-UE; "
+                    "policies train on one labelled condition stream")
+            return sc.schedule(**dict(ps.train_scenario_args))
+        if callable(self.schedule):
+            return self.schedule
+        n = ps.train_slots or self.spec.n_slots
+        return good_poor_good_schedule(poor_start=n // 3, poor_end=2 * n // 3)
+
+    @property
+    def host_policies(self) -> tuple:
+        """The host policy objects, trained/built per ``spec.policies``."""
+        if self._host_policies is None:
+            from repro_torch.core.policy import ThresholdPolicy, profile_and_fit_tree
+
+            built = []
+            for ps in self.spec.policies:
+                if ps.kind == "threshold":
+                    built.append(ThresholdPolicy(
+                        feature_idx=self.spec.feature_names.index(ps.feature),
+                        threshold=ps.threshold, hysteresis=ps.hysteresis,
+                        mode_above=ps.mode_above, mode_below=ps.mode_below))
+                else:
+                    built.append(profile_and_fit_tree(
+                        self.engine, self._train_schedule(ps),
+                        n_slots=ps.train_slots or self.spec.n_slots,
+                        n_ues=ps.train_ues, depth=ps.depth,
+                        feature_names=self.spec.feature_names))
+            self._host_policies = tuple(built)
+        return self._host_policies
+
+    @property
+    def device_policy(self):
+        """Exported device tables: one table, or a per-UE ``PerUEPolicy``."""
+        if self._device_policy is None:
+            spec = self.spec
+            tables = tuple(p.to_device(self.device) for p in self.host_policies)
+            if len(tables) == 1 and spec.policy_assignment is None:
+                self._device_policy = tables[0]
+            else:
+                if spec.policy_assignment is None:
+                    raise ValueError("several policies need an explicit policy_assignment")
+                self._device_policy = per_ue_policy(tables, spec.policy_assignment,
+                                                    self.device)
+        return self._device_policy
+
+    def host_replay(self, hist: BatchedRunHistory) -> dict:
+        """Replay a closed-loop history through the host policy objects;
+        compare ``hist.modes`` with ``result["active_mode"]``."""
+        from repro_torch.core.closed_loop import host_replay_closed_loop
+
+        spec = self.spec
+        feats = np.stack([hist.kpms[n] for n in spec.feature_names],
+                         axis=-1).astype(np.float32)
+        sw_cfg = spec.switch.to_config(spec.feature_names)
+        if len(self.host_policies) == 1 and spec.policy_assignment is None:
+            return host_replay_closed_loop(self.host_policies[0], feats, sw_cfg)
+        assignment = (spec.policy_assignment if spec.policy_assignment is not None
+                      else (0,) * spec.n_ues)
+        return host_replay_closed_loop(list(self.host_policies), feats, sw_cfg,
+                                       policy_idx=assignment)
+
+    # -- execution -------------------------------------------------------------
+
+    def run(self, *, auto_capacity: bool = False) -> BatchedRunHistory:
+        """Execute the campaign (``closed_loop`` or ``batched`` path)."""
+        if auto_capacity:
+            raise NotImplementedError(
+                "auto_capacity sizes a GATED bank (ROADMAP, Queue 1 item 2)")
+        if self.path is ExecutionPath.CLOSED_LOOP:
+            return self._run_closed_loop()
+        return self._run_open_loop()
+
+    def _run_open_loop(self) -> BatchedRunHistory:
+        from repro_torch.phy.pipeline import normalize_modes
+
+        spec = self.spec
+        modes = normalize_modes(np.asarray(spec.modes, np.int32), spec.n_slots,
+                                spec.n_ues, self.device)
+        _, traj = self.engine.run(self.schedule, modes, n_slots=spec.n_slots,
+                                  n_ues=spec.n_ues,
+                                  key=jr.PRNGKey(spec.seed, self.device))
+        return BatchedRunHistory.from_trajectory(modes, traj)
+
+    def _run_closed_loop(self) -> BatchedRunHistory:
+        spec = self.spec
+        _, final_switch, traj = self.engine.run_closed_loop(
+            self.schedule, self.device_policy, spec.switch.to_config(spec.feature_names),
+            n_slots=spec.n_slots, n_ues=spec.n_ues,
+            key=jr.PRNGKey(spec.seed, self.device))
+        return BatchedRunHistory.from_closed_loop(traj, final_switch)

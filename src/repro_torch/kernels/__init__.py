@@ -1,0 +1,7 @@
+"""Hand-written Hopper kernels for the ARCHES hot spots (sources in
+``repro_torch/csrc``), each with a plain PyTorch version beside its wrapper:
+
+* ``mmse_interp``   -- MMSE/Wiener frequency interpolation (fp32 tiled GEMM)
+* ``switch_select`` -- the per-UE zero-gap switch, in place
+* ``tree_infer``    -- decision-tree policy inference, one thread per row
+"""

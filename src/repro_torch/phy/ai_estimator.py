@@ -1,0 +1,208 @@
+"""Expert B: the residual-CNN channel estimator, inference only (paper 5.2).
+
+Port of ``repro.phy.ai_estimator``'s batched path.  Every 3x3 convolution
+runs in the reference's folded-GEMM form: activations in a channel-leading
+``(C, W, B, H)`` layout, the symbol axis ``W`` folded into ``(O*W, kh*C*W)``
+tap matrices, one matrix product per layer.  The products are plain
+``torch.matmul`` (the reference leaves them to XLA too); TF32 is off, so
+the float32 path is IEEE float32.
+
+``compute_dtype=torch.bfloat16`` rounds every GEMM *operand* to bf16 and
+accumulates in float32, the reference's ``preferred_element_type``
+contract: a product of two bf16 values is exact in float32, so the port
+upcasts the rounded operands and runs the float32 GEMM.
+
+Structure: naive comb-2 baseline + stem conv + R residual blocks + 2x
+sub-pixel up-projection + head conv.  Training waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch import random as jr
+from repro_torch.phy.nr import SlotConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class AiEstimatorConfig:
+    channels: int = 32
+    n_res_blocks: int = 4
+    kernel_hw: tuple[int, int] = (3, 3)
+
+    def flops(self, cfg: SlotConfig) -> float:
+        """Conv MACs x2, all blocks, all antennas (cost-model input)."""
+        kh, kw = self.kernel_hw
+        hw_in = cfg.n_pilot_sc * cfg.n_dmrs_sym
+        hw_out = cfg.n_sc * cfg.n_dmrs_sym
+        c = self.channels
+        per_ant = (
+            2 * kh * kw * 2 * c * hw_in
+            + self.n_res_blocks * 2 * (2 * kh * kw * c * c * hw_in)
+            + 2 * kh * kw * c * (2 * c) * hw_in
+            + 2 * kh * kw * (2 * c) * 2 * hw_out
+        )
+        return float(cfg.n_ant * per_ant)
+
+
+def init_params(key: torch.Tensor, cfg: SlotConfig,
+                net: AiEstimatorConfig = AiEstimatorConfig()) -> dict[str, Any]:
+    """He-initialized weights from ``key``, drawn as the reference draws them."""
+    kh, kw = net.kernel_hw
+    c = net.channels
+    keys = jr.split(key, 3 + 2 * net.n_res_blocks)
+    dev = key.device
+
+    def he(k, o, i, scale=2.0):
+        s = torch.sqrt(torch.tensor(scale / (i * kh * kw), dtype=torch.float32,
+                                    device=dev))
+        return jr.normal(k, (o, i, kh, kw)) * s
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.float32, device=dev)
+
+    params = {
+        "stem_w": he(keys[0], c, 2),
+        "stem_b": zeros(c),
+        "up_w": he(keys[1], 2 * c, c),
+        "up_b": zeros(2 * c),
+        "head_w": he(keys[2], 2, c, scale=1e-4),
+        "head_b": zeros(2),
+        "res": [],
+    }
+    for r in range(net.n_res_blocks):
+        params["res"].append({
+            "w1": he(keys[3 + 2 * r], c, c),
+            "b1": zeros(c),
+            "w2": he(keys[4 + 2 * r], c, c, scale=0.2),
+            "b2": zeros(c),
+        })
+    return params
+
+
+def _wfold_matrices(w: torch.Tensor, width: int) -> torch.Tensor:
+    """``w (O, C, kh, kw)`` -> ``(kh, O*width, C*width)`` tap matrices with
+    ``[d, o*width + wo, c*width + wi] = w[o, c, d, wi - wo + pad]`` (zero
+    outside the kernel: the W-direction 'SAME' padding)."""
+    o, c, kh, kw = w.shape
+    pad = (kw - 1) // 2
+    m = torch.zeros((kh, o * width, c * width), dtype=w.dtype, device=w.device)
+    for wo in range(width):
+        for wi in range(width):
+            dj = wi - wo + pad
+            if 0 <= dj < kw:
+                m[:, wo::width, wi::width] = w[:, :, :, dj].permute(2, 0, 1)
+    return m
+
+
+def fold_ai_params(params: dict[str, Any], width: int) -> dict[str, Any]:
+    """Pre-fold every conv kernel into one ``(O*width, kh*C*width)`` operand."""
+
+    def fold(w):
+        m = _wfold_matrices(w, width)
+        kh = m.shape[0]
+        return m.permute(1, 0, 2).reshape(m.shape[1], kh * m.shape[2]).contiguous()
+
+    return {
+        "kh": int(params["stem_w"].shape[2]),
+        "width": width,
+        "stem_w": fold(params["stem_w"]),
+        "stem_b": params["stem_b"],
+        "up_w": fold(params["up_w"]),
+        "up_b": params["up_b"],
+        "head_w": fold(params["head_w"]),
+        "head_b": params["head_b"],
+        "res": [
+            {"w1": fold(b["w1"]), "b1": b["b1"], "w2": fold(b["w2"]), "b2": b["b2"]}
+            for b in params["res"]
+        ],
+    }
+
+
+def _conv_wfold(x: torch.Tensor, m2: torch.Tensor, b: torch.Tensor, kh: int,
+                compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """'SAME' conv on ``x (C, W, B, H)`` through one GEMM with ``m2``."""
+    c, width, bsz, h = x.shape
+    o = m2.shape[0] // width
+    pad = (kh - 1) // 2
+    xp = torch.nn.functional.pad(x.reshape(c * width, bsz, h), (pad, kh - 1 - pad))
+    taps = torch.stack([xp[:, :, d: d + h] for d in range(kh)], dim=0)
+    rhs = taps.reshape(kh * c * width, bsz * h)
+    if compute_dtype is None:
+        y = m2 @ rhs
+    else:
+        y = m2.to(compute_dtype).to(torch.float32) @ rhs.to(compute_dtype).to(torch.float32)
+    return y.reshape(o, width, bsz, h) + b[:, None, None, None]
+
+
+def _forward_batched(folded: dict[str, Any], x: torch.Tensor,
+                     compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``(2, W, B, n_pilot_sc)`` -> ``(2, W, B, n_sc)``, channel-leading."""
+    kh = folded["kh"]
+    nxt = torch.cat([x[..., 1:], x[..., -1:]], dim=-1)
+    base = torch.stack([x, 0.5 * (x + nxt)], dim=-1).reshape(
+        *x.shape[:-1], 2 * x.shape[-1])
+    cd = compute_dtype
+    h = _conv_wfold(x, folded["stem_w"], folded["stem_b"], kh, cd)
+    for blk in folded["res"]:
+        y = torch.relu(_conv_wfold(h, blk["w1"], blk["b1"], kh, cd))
+        y = _conv_wfold(y, blk["w2"], blk["b2"], kh, cd)
+        h = h + y
+    u = _conv_wfold(h, folded["up_w"], folded["up_b"], kh, cd)  # (2C, W, B, Np)
+    c = u.shape[0] // 2
+    u = u.reshape(2, c, *u.shape[1:])  # (2, C, W, B, Np)
+    u = u.movedim(0, -1).reshape(c, *u.shape[2:4], 2 * u.shape[4])
+    corr = _conv_wfold(u, folded["head_w"], folded["head_b"], kh, cd)
+    return base + corr
+
+
+def ai_estimate_folded(folded: dict[str, Any], h_ls: torch.Tensor, *,
+                       compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``(U, ant, n_dmrs_sym, n_pilot_sc)`` LS -> ``(U, ant, 1, n_sc, n_dmrs_sym)``."""
+    n_ues, n_ant, n_sym, n_p = h_ls.shape
+    x = torch.stack([h_ls.real, h_ls.imag], dim=0).to(torch.float32)
+    x = x.permute(0, 3, 1, 2, 4).reshape(2, n_sym, n_ues * n_ant, n_p)
+    out = _forward_batched(folded, x, compute_dtype)  # (2, S, B, n_sc)
+    h = torch.complex(out[0], out[1])  # (S, B, n_sc)
+    h = h.permute(1, 2, 0).reshape(n_ues, n_ant, -1, n_sym)
+    # dense, like the reference's result: the switch kernel writes into it
+    return h[:, :, None].contiguous()
+
+
+class AiEstimator(nn.Module):
+    """The AI expert as a module: folded weights held as buffers.
+
+    ``forward(h_ls)`` is ``ai_estimate_folded`` with this module's weights
+    and operand precision; ``.to(device)`` moves the folded operands.
+    """
+
+    def __init__(self, params: dict[str, Any], width: int,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        folded = fold_ai_params(params, width)
+        self.kh = folded["kh"]
+        self.width = width
+        self.n_res_blocks = len(folded["res"])
+        self.compute_dtype = compute_dtype
+        for name in ("stem_w", "stem_b", "up_w", "up_b", "head_w", "head_b"):
+            self.register_buffer(name, folded[name])
+        for r, blk in enumerate(folded["res"]):
+            for name, t in blk.items():
+                self.register_buffer(f"res{r}_{name}", t)
+
+    def folded(self) -> dict[str, Any]:
+        return {
+            "kh": self.kh, "width": self.width,
+            **{n: getattr(self, n) for n in
+               ("stem_w", "stem_b", "up_w", "up_b", "head_w", "head_b")},
+            "res": [{n: getattr(self, f"res{r}_{n}") for n in ("w1", "b1", "w2", "b2")}
+                    for r in range(self.n_res_blocks)],
+        }
+
+    def forward(self, h_ls: torch.Tensor) -> torch.Tensor:
+        return ai_estimate_folded(self.folded(), h_ls,
+                                  compute_dtype=self.compute_dtype)

@@ -1,0 +1,441 @@
+"""The batched multi-UE PUSCH slot engine with the ARCHES expert bank
+(paper Fig. 2, nodes 2a-2e).
+
+Per slot, for every UE at once (a leading UE axis replaces the reference's
+``vmap``; a Python slot loop over device-resident tensors replaces its
+``lax.scan``):
+
+  TX   link adaptation (previous slot's SNR + OLLA -> MCS/TBS) -> bits -> QAM
+       -> grid + DMRS
+  CH   TDL fading + interference + AWGN
+  RX   LS -> expert bank {AI (folded-GEMM CNN), MMSE (``mmse_interp``)}
+       -> per-UE switch (``switch_select``) -> time interpolation + MMSE
+       equalizer -> decision-directed SINR, MIESM TB outcome, OLLA
+  KPM  per-slot Aerial + OAI telemetry
+
+``run`` is the open-loop campaign (a declared mode grid);
+``run_closed_loop`` decides each UE's next mode inside the loop through the
+device policy and the switch register.  PRNG derivation matches the
+reference: UE ``u`` in slot ``s`` uses ``fold_in(fold_in(key, u), s)``.
+
+Left for later slices (they raise): GATED banks, fused/bf16-gated paths,
+fault injection, multi-cell topology, the streaming ``active`` mask and the
+perturbation sweep.  There is one slot loop, so ``use_scan`` has no effect.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import random as jr
+from repro_torch.core.closed_loop import (
+    DevicePolicy,
+    SwitchConfig,
+    init_device_switch,
+    switch_boundary,
+    switch_update,
+)
+from repro_torch.core.expert_bank import ExecutionMode, Expert, ExpertBank
+from repro_torch.core.telemetry import trajectory_kpm_matrix
+from repro_torch.device import resolve_device
+from repro_torch.phy import dmrs as dmrs_mod
+from repro_torch.phy import qam
+from repro_torch.phy.ai_estimator import AiEstimator, AiEstimatorConfig
+from repro_torch.phy.channel import (
+    ChannelConfig,
+    ChannelParams,
+    TdlProfile,
+    apply_channel,
+    channel_params_schedule,
+    channel_params_ue_schedule,
+    per_ue_params,
+    simulate_slot_channel_traced,
+)
+from repro_torch.phy.equalizer import mmse_equalize
+from repro_torch.phy.estimators import WienerInterpolator, estimator_flops, ls_estimate
+from repro_torch.phy.link import tb_success_dynamic
+from repro_torch.phy.mcs import (
+    QM_BY_MCS,
+    QM_INDEX_BY_MCS,
+    QM_VALUES,
+    RATE_BY_MCS,
+    n_code_blocks_table,
+    select_mcs_index,
+    tbs_table,
+)
+from repro_torch.phy.nr import SlotConfig
+
+# MAC overheads (bytes) for the PHY->MAC KPM coupling
+_MAC_HEADER_BYTES = 3
+_RLC_HEADER_BYTES = 2
+_LCID4_FRACTION = 0.95
+
+# OLLA steps: steady-state BLER target = up / (up + down) ~= 10 %
+_OLLA_UP_DB = 0.15
+_OLLA_DOWN_DB = 1.35
+_OLLA_CLAMP_DB = 10.0
+
+
+class DeviceLinkState(NamedTuple):
+    """Per-UE link state on the device; every leaf is ``(U,)``."""
+
+    reported_snr_db: torch.Tensor  # float32
+    olla_offset_db: torch.Tensor  # float32
+    ndi: torch.Tensor  # int32
+    cum_phy_bits: torch.Tensor  # float32
+    cum_mac_bytes: torch.Tensor  # float32
+    cum_lcid4_bytes: torch.Tensor  # float32
+    slots: torch.Tensor  # int32
+
+
+def init_device_link(n_ues: int, device: torch.device | str = "cpu") -> DeviceLinkState:
+    """Cold-start state matching the host ``LinkState()`` defaults."""
+
+    def f(v):
+        return torch.full((n_ues,), v, dtype=torch.float32, device=device)
+
+    return DeviceLinkState(
+        reported_snr_db=f(20.0), olla_offset_db=f(0.0),
+        ndi=torch.ones(n_ues, dtype=torch.int32, device=device),
+        cum_phy_bits=f(0.0), cum_mac_bytes=f(0.0), cum_lcid4_bytes=f(0.0),
+        slots=torch.zeros(n_ues, dtype=torch.int32, device=device),
+    )
+
+
+def normalize_modes(modes, n_slots: int, n_ues: int,
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+    """Broadcast {scalar, (S,), (U,), (S, U)} to an ``(S, U)`` int32 grid.
+
+    A 1-D vector is per-slot when its length is ``n_slots`` and per-UE
+    when it is ``n_ues``; with ``n_slots == n_ues`` that is ambiguous and
+    rejected.
+    """
+    m = torch.as_tensor(np.asarray(modes), dtype=torch.int32, device=device)
+    if m.ndim == 0:
+        return torch.full((n_slots, n_ues), int(m), dtype=torch.int32, device=device)
+    if m.ndim == 1:
+        if n_slots == n_ues and m.shape[0] == n_slots:
+            raise ValueError(
+                f"1-D modes of length {m.shape[0]} are ambiguous when "
+                f"n_slots == n_ues == {n_slots}: pass modes[:, None] "
+                "(per-slot) or modes[None, :] (per-UE) explicitly")
+        if m.shape[0] == n_slots:
+            return m[:, None].expand(n_slots, n_ues).contiguous()
+        if m.shape[0] == n_ues:
+            return m[None, :].expand(n_slots, n_ues).contiguous()
+    elif m.ndim == 2:
+        try:
+            return torch.broadcast_to(m, (n_slots, n_ues)).contiguous()
+        except RuntimeError:
+            pass
+    raise ValueError(f"modes shape {tuple(m.shape)} vs (n_slots={n_slots}, n_ues={n_ues})")
+
+
+def resolve_schedule(cfg: SlotConfig, schedule, n_slots: int, n_ues: int,
+                     device: torch.device | str = "cpu") -> tuple[TdlProfile, ChannelParams]:
+    """Lower a scenario (one schedule, or one per UE) to per-slot params."""
+    if callable(schedule):
+        return channel_params_schedule(cfg, schedule, n_slots, device)
+    schedules = list(schedule)
+    if len(schedules) != n_ues:
+        raise ValueError(
+            f"per-UE schedule list has {len(schedules)} entries for n_ues={n_ues}")
+    return channel_params_ue_schedule(cfg, schedules, n_slots, device)
+
+
+def _stack_tree(items: list) -> Any:
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: _stack_tree([it[k] for it in items]) for k in first}
+    return torch.stack(items, dim=0)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP, {item})")
+
+
+class BatchedPuschPipeline:
+    """Multi-UE PUSCH slot engine: batched stages + a slot loop on the device.
+
+    ``ai_params`` is the AI expert's weight dict in the port's format (see
+    ``repro_torch.convert`` to carry the reference's across).  The bank
+    holds the AI expert first (mode 0, the designated buffer) and MMSE as
+    the fail-safe (mode 1).  ``use_pallas_switch`` keeps the reference's
+    name and means "use the hand-written switch kernel".
+    """
+
+    def __init__(
+        self,
+        cfg: SlotConfig,
+        ai_params: Any,
+        *,
+        net: AiEstimatorConfig = AiEstimatorConfig(),
+        execution_mode: ExecutionMode = ExecutionMode.CONCURRENT,
+        use_pallas_switch: bool = True,
+        gated_capacity: int | None = None,
+        fused_gated: bool = False,
+        expert_dtype: str = "float32",
+        audit_nmse_threshold: float | None = None,
+        rms_delay_spread_s: float = 100e-9,
+        device: torch.device | str = "cuda",
+    ):
+        if ExecutionMode.coerce(execution_mode) is not ExecutionMode.CONCURRENT or (
+            fused_gated or gated_capacity is not None
+            or audit_nmse_threshold is not None
+        ):
+            raise _not_ported("GATED execution", "Queue 1 item 2")
+        if expert_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"expert_dtype {expert_dtype!r}; one of 'float32', 'bfloat16'")
+        self.device = resolve_device(device)
+        dev = self.device
+        self.cfg = cfg
+        self.ai_params = ai_params
+        self.interpolator = WienerInterpolator.build(
+            cfg, rms_delay_spread_s=rms_delay_spread_s, device=dev)
+        self._pilots = dmrs_mod.dmrs_sequence(cfg, dev)
+        n_re = cfg.n_data_re()
+        self._tbs_table = torch.as_tensor(tbs_table(n_re), device=dev)
+        self._ncb_table = torch.as_tensor(n_code_blocks_table(n_re), device=dev)
+        self._qm_by_mcs = torch.as_tensor(QM_BY_MCS, device=dev)
+        self._qm_idx_by_mcs = torch.as_tensor(QM_INDEX_BY_MCS.astype(np.int64), device=dev)
+        self._rate_by_mcs = torch.as_tensor(RATE_BY_MCS, device=dev)
+
+        compute_dtype = torch.bfloat16 if expert_dtype == "bfloat16" else None
+        params = _params_to(ai_params, dev)
+        self.ai = AiEstimator(params, cfg.n_dmrs_sym, compute_dtype).to(dev)
+
+        self.bank = ExpertBank(
+            [
+                Expert(name="ai", fn=lambda _p, h_ls: self.ai(h_ls),
+                       params=ai_params, flops=net.flops(cfg)),
+                Expert(name="mmse", fn=lambda _p, h_ls: self._mmse_from_ls_batched(h_ls),
+                       params=None, flops=estimator_flops(cfg)),
+            ],
+            default_mode=1,
+            execution_mode=ExecutionMode.CONCURRENT,
+            use_pallas_switch=use_pallas_switch,
+        )
+
+    def _mmse_from_ls_batched(self, h_ls: torch.Tensor) -> torch.Tensor:
+        """(U, ant, dmrs_sym, pilot_sc) -> (U, ant, 1, n_sc, dmrs_sym)."""
+        from repro_torch.kernels.mmse_interp import mmse_interp
+
+        h_full = mmse_interp(h_ls, self.interpolator.w)
+        return h_full.movedim(-2, -1)[:, :, None].contiguous()
+
+    # -- per-UE stages, batched over the UE axis --------------------------------
+
+    def _ue_pre(self, profile: TdlProfile, p: ChannelParams, snr_db, olla_db, keys):
+        """Link adaptation + TX + channel + LS for every UE."""
+        cfg = self.cfg
+        ks = jr.split(keys, 4)
+        k_tx, k_ch, k_n, k_crc = ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
+        n_ues = keys.shape[0]
+
+        mcs_idx = select_mcs_index(snr_db + olla_db)
+        qm_idx = self._qm_idx_by_mcs[mcs_idx]
+        qm = self._qm_by_mcs[mcs_idx].to(torch.float32)
+        code_rate = self._rate_by_mcs[mcs_idx]
+        tbs = self._tbs_table[mcs_idx].to(torch.float32)
+
+        # bits drawn once at the widest order and prefix-sliced per order
+        n_re = cfg.n_data_re()
+        bits = jr.bernoulli(k_tx, 0.5, (n_re * max(QM_VALUES),)).to(torch.uint8)
+        syms_all = torch.stack([qam.modulate(bits[:, : n_re * q], q) for q in QM_VALUES])
+        syms = syms_all[qm_idx, torch.arange(n_ues, device=keys.device)]
+
+        tx_grid = dmrs_mod.map_slot_grid(cfg, syms, self._pilots)
+        fields = simulate_slot_channel_traced(k_ch, cfg, profile, p)
+        rx_grid = apply_channel(k_n, tx_grid, fields)
+        h_ls = ls_estimate(cfg, rx_grid, self._pilots)
+        return {
+            "mcs_idx": mcs_idx, "qm_idx": qm_idx, "qm": qm, "code_rate": code_rate,
+            "tbs": tbs, "syms": syms, "rx_grid": rx_grid, "h_ls": h_ls,
+            "noise_var": fields["noise_var"], "k_crc": k_crc,
+        }
+
+    def _ue_post(self, link: DeviceLinkState, pre: dict, h_sel: torch.Tensor):
+        """Equalize + KPMs + OLLA for every UE."""
+        cfg = self.cfg
+        n_ues = h_sel.shape[0]
+        x_hat, _ = mmse_equalize(cfg, pre["rx_grid"], h_sel, pre["noise_var"])
+        data_hat = dmrs_mod.extract_data_re(cfg, x_hat)  # (U, n_re)
+
+        # decision-directed EVM per modulation order, selected per UE
+        dd_errs, sig_pows = [], []
+        for q in QM_VALUES:
+            nearest = qam.nearest_point(data_hat, q)
+            dd_errs.append((torch.abs(data_hat - nearest) ** 2).mean(dim=-1))
+            sig_pows.append((torch.abs(nearest) ** 2).mean(dim=-1))
+        ues = torch.arange(n_ues, device=h_sel.device)
+        dd_err = torch.stack(dd_errs)[pre["qm_idx"], ues]
+        sig_pow = torch.stack(sig_pows)[pre["qm_idx"], ues]
+        sinr_meas = sig_pow / torch.clamp(dd_err, min=1e-9)
+
+        # genie per-RE SINR for the MIESM TB model, PRB-smoothed
+        genie_err = torch.abs(data_hat - pre["syms"]) ** 2
+        n = genie_err.shape[1] - genie_err.shape[1] % 12
+        smoothed = genie_err[:, :n].reshape(n_ues, -1, 12).mean(dim=-1)
+        genie_sinr = 1.0 / torch.clamp(smoothed, min=1e-9)
+
+        ok = tb_success_dynamic(genie_sinr, pre["qm"], pre["code_rate"], key=pre["k_crc"])
+        ok_f = ok.to(torch.float32)
+        tbs = pre["tbs"]
+        slot_dur = cfg.slot_duration_s
+        phy_bits = torch.where(ok, tbs / slot_dur, torch.zeros_like(tbs))
+        rsrp = (torch.abs(h_sel) ** 2).reshape(n_ues, -1).mean(dim=-1)
+
+        tb_bytes = tbs / 8.0
+        mac_sdu_bytes = torch.clamp(tb_bytes - _MAC_HEADER_BYTES, min=0.0) * ok_f
+        lcid4_bytes = torch.clamp(mac_sdu_bytes - _RLC_HEADER_BYTES, min=0.0) * _LCID4_FRACTION
+
+        step = torch.where(ok, torch.full_like(tbs, _OLLA_UP_DB),
+                           torch.full_like(tbs, -_OLLA_DOWN_DB))
+        olla = torch.clamp(link.olla_offset_db + step, -_OLLA_CLAMP_DB, _OLLA_CLAMP_DB)
+        snr_db = 10.0 * torch.log10(sinr_meas + 1e-9)
+
+        new_link = DeviceLinkState(
+            reported_snr_db=snr_db,
+            olla_offset_db=olla,
+            ndi=ok.to(torch.int32),
+            cum_phy_bits=link.cum_phy_bits + phy_bits * slot_dur,
+            cum_mac_bytes=link.cum_mac_bytes + mac_sdu_bytes,
+            cum_lcid4_bytes=link.cum_lcid4_bytes + lcid4_bytes,
+            slots=link.slots + 1,
+        )
+        elapsed = new_link.slots.to(torch.float32) * slot_dur
+        kpms = {
+            "aerial": {
+                "code_rate": pre["code_rate"],
+                "sinr": snr_db,
+                "qam_order": pre["qm"],
+                "mcs_index": pre["mcs_idx"].to(torch.float32),
+                "tb_size": tbs * ok_f,
+                "n_code_blocks": self._ncb_table[pre["mcs_idx"]].to(torch.float32) * ok_f,
+                "pdu_length": tb_bytes * ok_f,
+                "ndi": ok_f,
+                "rsrp": rsrp,
+                "phy_throughput": new_link.cum_phy_bits / elapsed,
+            },
+            "oai": {
+                "snr": snr_db,
+                "mac_throughput": new_link.cum_mac_bytes * 8.0 / elapsed,
+                "lcid4_throughput": new_link.cum_lcid4_bytes * 8.0 / elapsed,
+                "mac_rx_bytes": mac_sdu_bytes,
+                "lcid4_rx_bytes": lcid4_bytes,
+            },
+        }
+        outputs = {
+            "tb_ok": ok_f,
+            "tbs": tbs,
+            "mcs": pre["mcs_idx"].to(torch.int32),
+            "phy_bits_per_s": phy_bits,
+            "kpms": kpms,
+        }
+        return new_link, outputs
+
+    # -- one batched slot ------------------------------------------------------
+
+    def _slot_core(self, profile: TdlProfile, link: DeviceLinkState,
+                   modes: torch.Tensor, keys: torch.Tensor, p: ChannelParams):
+        """One slot for every UE.  The reference's perturbation (``rho``),
+        topology, streaming-mask and fault arguments wait for their slices
+        (ROADMAP, Queue 1 items 3, 4 and 6)."""
+        n_ues = keys.shape[0]
+        p = per_ue_params(p, n_ues)
+        pre = self._ue_pre(profile, p, link.reported_snr_db, link.olla_offset_db, keys)
+        out = self.bank(modes.to(torch.int32), pre["h_ls"])
+        exec_flops = self.bank.executed_flops_per_ue(out)
+        new_link, outputs = self._ue_post(link, pre, out.selected)
+        zeros = torch.zeros(n_ues, dtype=torch.int32, device=keys.device)
+        outputs["executed_flops"] = exec_flops
+        outputs["gated_overflow"] = zeros
+        outputs["audit_tripped"] = zeros
+        outputs["health_tripped"] = zeros
+        return new_link, outputs
+
+    def _ue_keys(self, key, ue_keys, n_ues: int) -> torch.Tensor:
+        if ue_keys is not None:
+            ue_keys = jr.as_key(ue_keys, self.device)
+            if ue_keys.shape[0] != n_ues:
+                raise ValueError(f"ue_keys {tuple(ue_keys.shape)} vs n_ues {n_ues}")
+            return ue_keys
+        key = jr.PRNGKey(0, self.device) if key is None else jr.as_key(key, self.device)
+        return jr.fold_in(key, torch.arange(n_ues, device=self.device))
+
+    # -- campaign drivers ------------------------------------------------------
+
+    def run(self, schedule: Callable[[int], ChannelConfig], modes, *, n_slots: int,
+            n_ues: int, key=None, ue_keys=None, use_scan: bool = True, faults=None):
+        """Open-loop ``n_slots x n_ues`` campaign over a declared mode grid.
+
+        ``key`` is the root key (``repro_torch.random.PRNGKey``, or a
+        reference ``uint32`` key); returns ``(final_link, trajectory)`` with
+        every trajectory leaf ``(n_slots, n_ues)``.
+        """
+        if faults is not None:
+            raise _not_ported("fault injection", "Queue 1 item 3")
+        dev = self.device
+        profile, params = resolve_schedule(self.cfg, schedule, n_slots, n_ues, dev)
+        modes = normalize_modes(modes, n_slots, n_ues, dev)
+        ue_keys = self._ue_keys(key, ue_keys, n_ues)
+        link = init_device_link(n_ues, dev)
+        outs = []
+        for s in range(n_slots):
+            keys = jr.fold_in(ue_keys, s)
+            link, out = self._slot_core(profile, link, modes[s], keys, params.at(s))
+            outs.append(out)
+        return link, _stack_tree(outs)
+
+    def _closed_step(self, profile, sw_cfg, policy, ue_keys, link, sw, slot_idx, p):
+        """One closed-loop slot: committed modes in, decision out."""
+        keys = jr.fold_in(ue_keys, slot_idx)
+        committed = sw.active_mode
+        link, out = self._slot_core(profile, link, committed, keys, p)
+        vecs = trajectory_kpm_matrix(out["kpms"], sw_cfg.feature_names)
+        decide = sw_cfg.period_slots == 1 or slot_idx % sw_cfg.period_slots == 0
+        new_sw, raw = switch_update(sw, vecs, policy, sw_cfg, decide=decide)
+        out = dict(out, active_mode=committed, raw_decision=raw,
+                   pending_mode=new_sw.pending_mode,
+                   quarantined=torch.zeros_like(committed))
+        return link, switch_boundary(new_sw), out
+
+    def run_closed_loop(self, schedule: Callable[[int], ChannelConfig],
+                        policy: DevicePolicy, sw_cfg: SwitchConfig, *, n_slots: int,
+                        n_ues: int, key=None, ue_keys=None, use_scan: bool = True,
+                        faults=None):
+        """Campaign with the switching decision inside the slot loop.
+
+        Each slot runs the mode committed at the previous boundary; its KPMs
+        enter the per-UE window, the device policy decides, and the decision
+        takes effect at the next boundary.  Returns ``(final_link,
+        final_switch_state, trajectory)``; the trajectory adds
+        ``active_mode`` / ``raw_decision`` / ``pending_mode`` /
+        ``quarantined`` to ``run``'s leaves.
+        """
+        if faults is not None:
+            raise _not_ported("fault injection", "Queue 1 item 3")
+        dev = self.device
+        profile, params = resolve_schedule(self.cfg, schedule, n_slots, n_ues, dev)
+        ue_keys = self._ue_keys(key, ue_keys, n_ues)
+        link = init_device_link(n_ues, dev)
+        sw = init_device_switch(n_ues, len(sw_cfg.feature_names), sw_cfg, dev)
+        outs = []
+        for s in range(n_slots):
+            link, sw, out = self._closed_step(profile, sw_cfg, policy, ue_keys, link,
+                                              sw, s, params.at(s))
+            outs.append(out)
+        return link, sw, _stack_tree(outs)
+
+
+def _params_to(params: Any, device: torch.device) -> Any:
+    if isinstance(params, dict):
+        return {k: _params_to(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_params_to(v, device) for v in params]
+    if isinstance(params, torch.Tensor):
+        return params.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(params, np.float32), device=device)
