@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU: build, check and time every kernel,
-run the closed-loop campaign at full width, and print a JSON verdict.
+run the CONCURRENT and GATED closed-loop campaigns at full width, and print a
+JSON verdict.
 
 Usage (from the repository root, on a machine with an H100):
 
@@ -11,17 +12,30 @@ Phases, each of which raises on failure (exit code != 0):
 2. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a``,
    one process per source, all started together;
 3. kernels: each kernel at the main path's shapes against its plain
-   PyTorch version (switch and tree bitwise, ``mmse_interp`` within
-   ``MMSE_TOL``), with kernel, plain-version and library times and the
-   card's lower bound for the same work;
+   PyTorch version (switch, scatter and tree bitwise, ``mmse_interp``
+   within ``MMSE_TOL``, the fused gated expert within ``GATED_F32_TOL`` /
+   ``GATED_BF16_TOL`` with untouched UEs bitwise and one UE's estimate
+   bitwise the same at any capacity), with kernel, plain-version and
+   library times and the card's lower bound for the same work;
 4. main path: ``ArchesSession(...).run()`` of the closed-loop campaign at
-   the paper's 106-PRB slot with 32 UEs and the estimator's default width;
-   every kernel's launch counter must rise during the run, every trajectory
-   leaf must be finite, and the device loop must equal its host replay;
-5. reference: a small campaign on the card against the same campaign run
-   by the plain versions on the CPU;
-6. profile: one more closed-loop run under ``torch.profiler``: the
-   device's busy share and its kernel time by name.
+   the paper's 106-PRB slot with 32 UEs and the estimator's default width,
+   on a CONCURRENT bank; every kernel of that path must launch during the
+   run, every trajectory leaf must be finite, and the device loop must
+   equal its host replay;
+5. GATED main path: the same campaign on a fused GATED bank of capacity 16,
+   with the same checks and the executed-FLOPs leaf held against the
+   served AI count; then an unfused GATED run with ``auto_capacity`` at a
+   smaller depth, which launches the scatter kernel;
+6. GATED vs CONCURRENT: the same policy on a full-capacity GATED bank
+   against the CONCURRENT run, as agreement rates;
+7. reference: small CONCURRENT and GATED campaigns on the card against the
+   same campaigns run by the plain versions on the CPU;
+8. profile: one more closed-loop run of each bank under
+   ``torch.profiler``: the device's busy share, the AI expert's device
+   time per slot, and kernel time by name.
+
+Each path's launch counts are zeroed just before its ``run()`` and read
+just after it.
 
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Nothing is printed as a
@@ -30,6 +44,7 @@ result when CUDA is unavailable or the package cannot be imported.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -56,12 +71,23 @@ PEAK_FP32_FLOPS = 67e12
 #: relative -- a few hundred ulp of accumulated rounding, far below any
 #: physical effect.
 MMSE_TOL = 1e-4
+#: fused gated expert vs its plain version (cuBLAS folded GEMMs) on the card:
+#: the same 3x3 convolutions summed in another order through 2R + 3 layers,
+#: the AI expert's float32 bound against the reference on the CPU
+#: (tests/test_torch_ai_estimator.py); bf16 operands can round an activation
+#: that differs in its last float32 bit to the neighbouring bf16 value
+GATED_F32_TOL = dict(rtol=1e-4, atol=1e-5)
+GATED_BF16_TOL = dict(rtol=2e-3, atol=2e-3)
+#: GATED against CONCURRENT: discrete agreement the card must reach
+AGREE_MIN = 0.95
 #: card vs CPU on the small reference campaign: float32 stages that round
 #: differently (cuBLAS and the kernel vs the CPU's GEMMs) compound through
 #: the slot loop's link adaptation; 1e-3 relative is well under 0.01 dB
 REF_KPM_RTOL = 1e-3
 
 N_UES, N_PRB, N_SLOTS = 32, 106, 40
+CHANNELS, N_RES = 32, 4
+GATED_CAPACITY, UNFUSED_SLOTS = 16, 12
 
 
 def log(msg: str) -> None:
@@ -224,42 +250,160 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
-def _main_spec():
+def _compaction(mode: torch.Tensor, capacity: int):
+    """The GATED bank's stable cumsum partition: ``(idx, src)``."""
+    is_gated = mode == 0
+    pos = torch.cumsum(is_gated.to(torch.int32), 0, dtype=torch.int32) - 1
+    src = torch.where(is_gated & (pos < capacity), pos, torch.full_like(pos, -1))
+    idx = torch.argsort((~is_gated).to(torch.int32), stable=True)[:capacity]
+    return idx.to(torch.int32), src
+
+
+def direct_conv_flops(cfg, channels: int, n_res: int, n_rows: int) -> float:
+    """FLOPs of the estimator as direct 3x3 convolutions (what the fused kernel
+    executes): per antenna and layer 2 * C_out * C_in * 3 subcarrier taps *
+    (3S - 2) in-range (output, input) symbol pairs * subcarriers."""
+    s, np_ = cfg.n_dmrs_sym, cfg.n_pilot_sc
+    pairs = 3 * s - 2
+    layers = ([(2, channels, np_)] + [(channels, channels, np_)] * (2 * n_res)
+              + [(channels, 2 * channels, np_), (channels, 2, 2 * np_)])
+    per_ant = sum(2.0 * co * ci * 3 * pairs * length for ci, co, length in layers)
+    return n_rows * cfg.n_ant * per_ant
+
+
+def phase_gated_kernels() -> list[dict]:
+    """The GATED slice's two kernels at the GATED main path's shapes: U = 32,
+    capacity 16, 11 UEs selected (so 5 padding rows), full width."""
+    from repro_torch import random as jr
+    from repro_torch.kernels.gated_expert import gated_expert_apply, gated_expert_apply_ref
+    from repro_torch.kernels.switch_select import switch_gather_batched_ref, switch_scatter
+    from repro_torch.phy import ai_estimator as tai
+    from repro_torch.phy.nr import SlotConfig
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    cfg = SlotConfig(n_prb=N_PRB)
+    cap = GATED_CAPACITY
+
+    def cplx(shape):
+        return torch.complex(torch.randn(shape, generator=gen, device=dev),
+                             torch.randn(shape, generator=gen, device=dev))
+
+    rows = []
+    mode = (torch.arange(N_UES, device=dev) % 3 != 1).to(torch.int32)  # 11 of 32 select AI
+    idx, src = _compaction(mode, cap)
+    n_sel = int((src >= 0).sum())
+
+    # -- switch_gather_batched: compact (K, ant, 1, Nsc, dmrs) -> designated -------
+    shape = (cfg.n_ant, 1, cfg.n_sc, cfg.n_dmrs_sym)
+    des0, compact = cplx((N_UES,) + shape), cplx((cap,) + shape)
+    want = switch_gather_batched_ref(src, compact, des0)
+    des = des0.clone()
+    got = switch_scatter(src, compact, des)
+    torch.cuda.synchronize()
+    if got.data_ptr() != des.data_ptr() or not torch.equal(got, want):
+        raise AssertionError("switch_gather kernel differs from its plain version")
+    full = cplx((N_UES,) + shape)
+    for m, c, k in ((torch.ones_like(mode), compact, cap),  # none selected
+                    (torch.zeros_like(mode), full, N_UES),  # all selected
+                    (mode, compact[:1], 1)):  # K = 1
+        _, s_ = _compaction(m, k)
+        d = des0.clone()
+        if not torch.equal(switch_scatter(s_, c, d), switch_gather_batched_ref(s_, c, des0)):
+            raise AssertionError(f"switch_gather differs at capacity {k}")
+    ms = time_ms(lambda: switch_scatter(src, compact, des))
+    plain = time_ms(lambda: switch_gather_batched_ref(src, compact, des0))
+    sel = torch.nonzero(src >= 0).flatten()
+    lib = time_ms(lambda: des.index_copy_(0, sel, compact[:n_sel]))
+    per_ue = des0[0].numel() * 8
+    bms, by = bound_ms(2.0 * per_ue * n_sel + 4 * N_UES, 0.0)
+    rows.append(dict(
+        name="switch_gather_batched", route="cuda",
+        source="src/repro_torch/csrc/switch_select.cu",
+        replaces="src/repro/kernels/switch_select/switch_select.py:256",
+        launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+        library_ms=lib,
+        shape=f"compact ({cap},) + {shape} -> ({N_UES},) + {shape} complex64, "
+              f"{n_sel}/{N_UES} UEs selected",
+    ))
+
+    # -- gated_expert: fused gather + estimator + scatter ---------------------------
+    net = tai.AiEstimatorConfig(channels=CHANNELS, n_res_blocks=N_RES)
+    params = tai.init_params(jr.PRNGKey(11), cfg, net)
+    h_ls = cplx((N_UES, cfg.n_ant, cfg.n_dmrs_sym, cfg.n_pilot_sc))
+    des0 = cplx((N_UES,) + shape)
+    kept = src < 0
+    errs = {}
+    for cd, tol in ((None, GATED_F32_TOL), (torch.bfloat16, GATED_BF16_TOL)):
+        ai = tai.AiEstimator(params, cfg.n_dmrs_sym, cd).to(dev)
+        want = gated_expert_apply_ref(idx, src, h_ls, des0, ai, compute_dtype=cd)
+        des = des0.clone()
+        got = gated_expert_apply(idx, src, h_ls, des, ai, compute_dtype=cd)
+        torch.cuda.synchronize()
+        if got.data_ptr() != des.data_ptr():
+            raise AssertionError("gated_expert did not write in place")
+        if not torch.equal(got[kept], des0[kept]):
+            raise AssertionError("gated_expert touched a padding row's or unselected UE")
+        torch.testing.assert_close(got, want, **tol)
+        errs[cd] = float((got - want).abs().max())
+    ai = tai.AiEstimator(params, cfg.n_dmrs_sym).to(dev)
+    ue = 10  # selected in every case: row 0 alone, row 3 of 16, row 10 of 32
+    alone = torch.ones_like(mode)
+    alone[ue] = 0
+    outs = []
+    for m, k in ((alone, 1), (mode, cap), (torch.zeros_like(mode), N_UES)):
+        i_, s_ = _compaction(m, k)
+        if int(s_[ue]) < 0:
+            raise AssertionError(f"UE {ue} is not selected at capacity {k}")
+        outs.append(gated_expert_apply(i_, s_, h_ls, des0.clone(), ai)[ue])
+    if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])):
+        raise AssertionError("gated_expert: one UE's estimate depends on the batch")
+    ms = time_ms(lambda: gated_expert_apply(idx, src, h_ls, des, ai), iters=20)
+    ai16 = tai.AiEstimator(params, cfg.n_dmrs_sym, torch.bfloat16).to(dev)
+    ms16 = time_ms(lambda: gated_expert_apply(idx, src, h_ls, des, ai16,
+                                              compute_dtype=torch.bfloat16), iters=20)
+    plain = time_ms(lambda: gated_expert_apply_ref(idx, src, h_ls, des0, ai), iters=20)
+
+    def unfused():  # the unfused GATED path: gather, cuBLAS forward, scatter kernel
+        compact_out = ai(h_ls.index_select(0, idx.to(torch.int64)))
+        return switch_scatter(src, compact_out, des)
+
+    lib = time_ms(unfused, iters=20)
+    flops = direct_conv_flops(cfg, CHANNELS, N_RES, n_sel)
+    io_bytes = 8.0 * n_sel * cfg.n_ant * cfg.n_dmrs_sym * (cfg.n_pilot_sc + cfg.n_sc)
+    bms, by = bound_ms(io_bytes + 4.0 * (ai.kernel_w.numel() + ai.kernel_b.numel()), flops)
+    rows.append(dict(
+        name="gated_expert", route="cuda", source="src/repro_torch/csrc/gated_expert.cu",
+        replaces="src/repro/kernels/gated_expert/gated_expert.py:67",
+        launches=0, max_abs_err=errs[None], ms=ms, plain_ms=plain, bound_ms=bms,
+        bound_by=by, library_ms=lib,
+        shape=f"K {cap}, {n_sel} rows valid, {CHANNELS} ch x {N_RES} blocks, "
+              f"{flops / 1e9:.2f} GFLOP as direct convs; bf16 {ms16 * 1e3:.2f} us, "
+              f"bf16 max|err| {errs[torch.bfloat16]:.3g}; one UE bitwise at K 1, {cap}, "
+              f"{N_UES}",
+    ))
+    for r in rows:
+        log(f"kernel {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, library {r['library_ms'] * 1e3:.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}), "
+            f"max|err| {r['max_abs_err']:.3g}, {r['shape']}")
+    return rows
+
+
+def _main_spec(**bank):
     from repro_torch.core.session import CampaignSpec, ExpertBankSpec, PolicySpec
 
     return CampaignSpec(
         path="closed_loop", scenario="good_poor_good",
         scenario_args=(("poor_start", 13), ("poor_end", 27)), n_prb=N_PRB,
         n_ues=N_UES, n_slots=N_SLOTS, seed=7,
-        bank=ExpertBankSpec(channels=32, n_res_blocks=4),
+        bank=ExpertBankSpec(channels=CHANNELS, n_res_blocks=N_RES, **bank),
         policies=(PolicySpec(kind="tree"),),
     )
 
 
-def phase_main_path() -> tuple[dict[str, int], object]:
-    """The closed-loop campaign through ``ArchesSession.run`` on the card.
-
-    The counts are zeroed just before ``run()`` (policy profiling, tree fit
-    and the closed loop) and read just after it; every kernel must have
-    launched.  A second ``run()`` on the same session (tree already fitted)
-    times the closed loop alone.
-    """
-    from repro_torch.core.session import ArchesSession
-    from repro_torch.kernels import build
-
-    spec = _main_spec()
-    sess = ArchesSession(spec, device="cuda")
-    torch.cuda.synchronize()
-    build.reset_launch_counts()
-    t0 = time.perf_counter()
-    hist = sess.run()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = dict(build.launch_counts)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}: {launches}")
-    if hist.modes.shape != (N_SLOTS, N_UES):
+def _check_history(sess, hist, n_slots: int) -> None:
+    if hist.modes.shape != (n_slots, N_UES):
         raise AssertionError(f"modes shape {hist.modes.shape}")
     for name, v in list(hist.kpms.items()) + list(hist.outputs.items()):
         if not np.isfinite(np.asarray(v, np.float64)).all():
@@ -271,39 +415,62 @@ def phase_main_path() -> tuple[dict[str, int], object]:
     if not np.array_equal(hist.decisions, replay["raw_decision"]):
         raise AssertionError("device decisions != host replay decisions")
 
-    t0 = time.perf_counter()
-    sess.run()
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t0
-    rate = N_SLOTS * N_UES / loop_s
-    log(f"main path: closed loop {N_SLOTS} slots x {N_UES} UEs, n_prb {N_PRB}, "
-        f"AI channels 32 x 4 blocks; first run (policy profiling + fit + loop) {first_s:.2f} s; "
-        f"closed loop {loop_s:.3f} s = {rate:.1f} slot-UEs/s "
-        f"({loop_s / N_SLOTS * 1e3:.2f} ms/slot); AI share {hist.ai_share:.4f}; "
-        f"switches {int(hist.n_switches.sum())}; launches {launches}; "
-        f"device loop == host replay on {hist.modes.size} slot-UEs")
-    return launches, sess
 
+def run_path(label: str, spec, kernels: tuple[str, ...], *, host_policies=None,
+             auto_capacity: bool = False, rerun: bool = True):
+    """One closed-loop ``ArchesSession.run()`` on the card.
 
-def phase_reference() -> None:
-    """A small campaign on the card against the plain versions on the CPU.
-
-    The CPU session fits the tree; the card's session gets that tree, so
-    both run one policy.  Kernels, cuBLAS and the CPU's GEMMs round
-    differently, so discrete leaves are compared as agreement rates and
-    continuous KPMs within ``REF_KPM_RTOL`` while the UE's discrete path
-    (mode, MCS, TB outcome) still agrees.
+    The counts are zeroed just before ``run()`` (with ``host_policies`` unset
+    that includes the policy profiling and the tree fit) and read just
+    after it; every kernel in ``kernels`` must have launched.  With
+    ``rerun`` a second ``run()`` on the same session (tree already fitted)
+    times the closed loop alone.
     """
-    from repro_torch.core.session import ArchesSession, CampaignSpec, PolicySpec
+    from repro_torch.core.session import ArchesSession
+    from repro_torch.kernels import build
 
-    spec = CampaignSpec(
-        path="closed_loop", scenario="good_poor_good",
-        scenario_args=(("poor_start", 4), ("poor_end", 8)), n_prb=24, n_ues=2,
-        n_slots=12, seed=7, policies=(PolicySpec(kind="tree"),),
-    )
-    cpu_sess = ArchesSession(spec, device="cpu")
-    want = cpu_sess.run()
-    got = ArchesSession(spec, device="cuda", host_policies=cpu_sess.host_policies).run()
+    sess = ArchesSession(spec, device="cuda", host_policies=host_policies)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = sess.run(auto_capacity=auto_capacity)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{label} never launched {missing}: {launches}")
+    _check_history(sess, hist, spec.n_slots)
+    msg = (f"{label}: closed loop {spec.n_slots} slots x {N_UES} UEs, n_prb {N_PRB}, "
+           f"AI {CHANNELS} ch x {N_RES} blocks; first run {first_s:.2f} s")
+    if rerun:
+        t0 = time.perf_counter()
+        sess.run()
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        msg += (f"; closed loop {loop_s:.3f} s = {spec.n_slots * N_UES / loop_s:.1f} "
+                f"slot-UEs/s ({loop_s / spec.n_slots * 1e3:.2f} ms/slot)")
+    log(f"{msg}; AI share {hist.ai_share:.4f}; switches {int(hist.n_switches.sum())}; "
+        f"overflow slot-UEs {hist.overflow_slot_ues}; launches {launches}; "
+        f"device loop == host replay on {hist.modes.size} slot-UEs")
+    return sess, hist, launches
+
+
+def check_executed_flops(sess, hist) -> None:
+    """GATED cost leaf: per slot, served AI UEs x AI FLOPs + U x MMSE FLOPs."""
+    ai, mmse = (e.flops for e in sess.engine.bank.experts)
+    served = (hist.modes == 0) & (hist.outputs["gated_overflow"] == 0)
+    want = served.sum(axis=1) * np.float64(ai) + N_UES * np.float64(mmse)
+    got = hist.executed_flops_per_slot()
+    if not np.allclose(got, want, rtol=1e-6, atol=0.0):
+        raise AssertionError(f"executed_flops per slot {got} != {want}")
+    log(f"GATED cost: executed {got.sum() / 1e9:.2f} GFLOP over {hist.modes.shape[0]} "
+        f"slots == served AI x {ai / 1e9:.3f} G + {N_UES} x MMSE {mmse / 1e6:.3f} M per slot")
+
+
+def agreement(got, want, label: str) -> tuple[dict, float]:
+    """Agreement rates of the discrete leaves, and the worst relative KPM
+    difference over slot-UEs whose discrete path agreed so far."""
     agree = {k: float(np.mean(a == b)) for k, (a, b) in {
         "active_mode": (got.modes, want.modes),
         "mcs": (got.outputs["mcs"], want.outputs["mcs"]),
@@ -314,19 +481,64 @@ def phase_reference() -> None:
                       & (got.outputs["tb_ok"] == want.outputs["tb_ok"]), axis=0) > 0
     worst = 0.0
     for name, w in want.kpms.items():
-        g = got.kpms[name]
-        rel = np.abs(g - w) / (np.abs(w) + 1e-3)
+        rel = np.abs(got.kpms[name] - w) / (np.abs(w) + 1e-3)
         worst = max(worst, float(rel[same].max(initial=0.0)))
-    log(f"reference: card vs CPU plain versions, n_prb 24, 2 UEs x 12 slots: "
-        f"agreement {agree}, max relative KPM difference {worst:.3g} over "
-        f"{int(same.sum())} slot-UEs on an agreeing path")
-    if agree["active_mode"] < 0.95 or worst > REF_KPM_RTOL:
-        raise AssertionError(f"card and CPU disagree: {agree}, KPM {worst}")
+    log(f"{label}: agreement {agree}, max relative KPM difference {worst:.3g} over "
+        f"{int(same.sum())} of {same.size} slot-UEs on an agreeing path")
+    return agree, worst
 
 
-def phase_profile(sess) -> None:
+def phase_gated_vs_concurrent(conc_hist, host_policies) -> None:
+    """The CONCURRENT main path's policy on a full-capacity f32 GATED bank:
+    the same campaign, held by agreement rates (cuBLAS does not promise one
+    UE's column is the same bits whatever the batch)."""
+    from repro_torch.core.session import ArchesSession
+
+    spec = _main_spec(execution_mode="gated", fused=True)
+    hist = ArchesSession(spec, device="cuda", host_policies=host_policies).run()
+    agree, _ = agreement(hist, conc_hist, "GATED vs CONCURRENT on the card, capacity None")
+    if min(agree.values()) < AGREE_MIN:
+        raise AssertionError(f"GATED and CONCURRENT disagree: {agree}")
+
+
+def phase_reference() -> None:
+    """Small campaigns on the card against the plain versions on the CPU.
+
+    The CPU session fits the tree; the card's session gets that tree, so
+    both run one policy.  Kernels, cuBLAS and the CPU's GEMMs round
+    differently, so discrete leaves are compared as agreement rates and
+    continuous KPMs within ``REF_KPM_RTOL`` while the UE's discrete path
+    (mode, MCS, TB outcome) still agrees.
+    """
+    from repro_torch.core.session import (
+        ArchesSession,
+        CampaignSpec,
+        ExpertBankSpec,
+        PolicySpec,
+    )
+
+    for label, n_ues, bank in (
+            ("CONCURRENT", 2, ExpertBankSpec()),
+            ("GATED fused, capacity 2", 3,
+             ExpertBankSpec(execution_mode="gated", gated_capacity=2, fused=True))):
+        spec = CampaignSpec(
+            path="closed_loop", scenario="good_poor_good",
+            scenario_args=(("poor_start", 4), ("poor_end", 8)), n_prb=24, n_ues=n_ues,
+            n_slots=12, seed=7, bank=bank, policies=(PolicySpec(kind="tree"),),
+        )
+        cpu_sess = ArchesSession(spec, device="cpu")
+        want = cpu_sess.run()
+        got = ArchesSession(spec, device="cuda", host_policies=cpu_sess.host_policies).run()
+        agree, worst = agreement(got, want, f"reference {label}: card vs CPU plain "
+                                            f"versions, n_prb 24, {n_ues} UEs x 12 slots")
+        if agree["active_mode"] < AGREE_MIN or worst > REF_KPM_RTOL:
+            raise AssertionError(f"card and CPU disagree: {agree}, KPM {worst}")
+
+
+def phase_profile(sess, label: str, ai_kernel: str) -> None:
     """One closed-loop run under ``torch.profiler``: device busy share, the
-    launches per slot, and kernel time by name."""
+    launches per slot, the AI expert's device time per slot (kernels whose
+    name holds ``ai_kernel``) and kernel time by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -338,11 +550,14 @@ def phase_profile(sess) -> None:
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     launches = sum(e.count for e in events)
-    log(f"profile: closed loop wall {wall:.3f} s (under the profiler), device kernel "
-        f"time {busy:.3f} s, device busy share {busy / wall:.4f}, "
-        f"{launches / N_SLOTS:.0f} kernel launches per slot")
+    ai = [e for e in events if ai_kernel in e.key.lower()]
+    ai_ms = sum(e.self_device_time_total for e in ai) / 1e3
+    log(f"profile {label}: closed loop wall {wall:.3f} s (under the profiler), device "
+        f"kernel time {busy:.3f} s, device busy share {busy / wall:.4f}, "
+        f"{launches / N_SLOTS:.0f} kernel launches per slot; AI expert ({ai_kernel!r}, "
+        f"{sum(e.count for e in ai)} calls) {ai_ms / N_SLOTS:.3f} ms of device time per slot")
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in events[:15]:
+    for e in events[:12]:
         log(f"  {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d} calls  "
             f"{e.key[:90]}")
 
@@ -354,14 +569,33 @@ def main() -> int:
     smi = phase_device()
     torch.use_deterministic_algorithms(True)
     phase_build()
-    rows = phase_kernels()
-    launches, sess = phase_main_path()
+    rows = phase_kernels() + phase_gated_kernels()
+    conc, conc_hist, launches = run_path(
+        "main path CONCURRENT", _main_spec(),
+        ("mmse_interp", "switch_select_batched", "tree_infer"))
+    gated, gated_hist, gated_launches = run_path(
+        "main path GATED fused", _main_spec(execution_mode="gated", fused=True,
+                                            gated_capacity=GATED_CAPACITY),
+        ("gated_expert", "mmse_interp", "tree_infer"))
+    check_executed_flops(gated, gated_hist)
+    unfused = dataclasses.replace(
+        _main_spec(execution_mode="gated", gated_capacity=GATED_CAPACITY),
+        n_slots=UNFUSED_SLOTS, scenario_args=(("poor_start", 4), ("poor_end", 9)))
+    unf, unf_hist, unf_launches = run_path(
+        "GATED unfused, auto_capacity", unfused, ("switch_gather_batched",),
+        host_policies=conc.host_policies, auto_capacity=True, rerun=False)
+    log(f"GATED unfused: auto_capacity provisioned {unf_hist.provisioned_capacity} "
+        f"(declared {GATED_CAPACITY}), overflow slot-UEs {unf_hist.overflow_slot_ues}")
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        source = {"gated_expert": gated_launches,
+                  "switch_gather_batched": unf_launches}.get(r["name"], launches)
+        r["launches"] = source[r["name"]]
         r.pop("shape")
     log(f"kernels held against their plain versions: {[r['name'] for r in rows]}")
+    phase_gated_vs_concurrent(conc_hist, conc.host_policies)
     phase_reference()
-    phase_profile(sess)
+    phase_profile(conc, "CONCURRENT", "gemm")
+    phase_profile(gated, "GATED fused", "gated_expert")
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")

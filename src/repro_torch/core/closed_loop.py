@@ -16,7 +16,7 @@ Port of ``repro.core.closed_loop`` for fault-free campaigns:
   trajectories must match bitwise.
 
 The circuit breaker and the fault masks wait for the faults slice
-(ROADMAP, Queue 1 item 3).
+(ROADMAP, Queue 1: faults, streaming and checkpoints).
 """
 
 from __future__ import annotations

@@ -1,13 +1,22 @@
-"""Switchable expert bank (paper 2, 3.1), CONCURRENT execution.
+"""Switchable expert bank (paper 2, 3.1): CONCURRENT and GATED execution.
 
-Every expert runs on every UE each slot and the per-UE switch kernel
-(``repro_torch.kernels.switch_select``) selects each UE's output into the
-designated buffer.  Mode numbering follows the paper: the designated
-expert comes first (mode 0 means its output is already in the downstream
-buffer); the fail-safe expert is ``default_mode``.
+* ``CONCURRENT`` -- every expert runs on every UE each slot and the per-UE
+  switch kernel (``repro_torch.kernels.switch_select``) selects each UE's
+  output into the designated buffer.
+* ``GATED`` -- the cheap experts run densely on every UE; the designated
+  (expensive) expert runs only on the UEs whose mode selects it, compacted
+  into a dense capacity-``K`` sub-batch (stable cumsum partition), and the
+  scatter kernel puts its rows back over the fail-safe baseline.  UEs past
+  capacity fall back to ``default_mode`` for the slot and are flagged in
+  ``BankOutput.overflow``.  ``gated_fused_apply`` replaces the gather /
+  expert / scatter triple with one kernel (``repro_torch.kernels.gated_expert``);
+  ``audit_threshold`` reverts UEs whose gated output strays too far (NMSE)
+  from the fail-safe baseline.
 
-The GATED and SELECTED_ONLY modes of the reference wait for a later slice
-(ROADMAP, Queue 1 item 2) and raise here.
+Mode numbering follows the paper: the designated expert comes first (mode
+0 means its output is already in the downstream buffer); the fail-safe
+expert is ``default_mode``.  SELECTED_ONLY waits for the host-loop slice
+(ROADMAP, Queue 1) and raises here.
 """
 
 from __future__ import annotations
@@ -16,9 +25,12 @@ import dataclasses
 import enum
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
+from repro_torch.device import cached_const
 from repro_torch.kernels.switch_select import (
+    switch_scatter,
     switch_select,
     switch_select_batched_ref,
 )
@@ -57,18 +69,49 @@ class Expert:
     flops: float = 0.0
 
 
+def _batched_nmse(selected: torch.Tensor, baseline: torch.Tensor) -> torch.Tensor:
+    """Per-UE NMSE ``sum |sel - base|^2 / sum |base|^2`` over every non-UE
+    axis, float32 ``(n_ues,)``: the in-loop accuracy audit of a gated expert
+    against the always-computed fail-safe baseline."""
+    axes = tuple(range(1, selected.ndim))
+    err = (torch.abs(selected - baseline).to(torch.float32) ** 2).sum(dim=axes)
+    ref = (torch.abs(baseline).to(torch.float32) ** 2).sum(dim=axes)
+    return err / torch.clamp(ref, min=1e-30)
+
+
 @dataclasses.dataclass(frozen=True)
 class BankOutput:
-    """``selected`` is the designated buffer after the switch.  On the card
-    the switch runs in place, so ``all_outputs[0]`` is that same switched
-    buffer (the reference keeps it unswitched); the other entries are the
-    alternatives' untouched outputs.  ``served_by (U,)`` is the expert each
-    UE received."""
+    """One bank call.
+
+    ``selected`` is the designated buffer after the switch.  ``served_by
+    (U,)`` is the expert each UE received (it differs from ``mode`` exactly
+    on GATED overflow or an audit trip); ``executed_ue (n_experts,)`` counts
+    the UEs each expert actually ran on.
+
+    Aliasing on the card, where the kernels write in place:
+
+    * CONCURRENT: ``all_outputs[0]`` is the switched buffer, the same tensor
+      as ``selected`` (the reference keeps it unswitched); the other entries
+      are the alternatives' untouched outputs and ``baseline`` is the
+      fail-safe's.
+    * GATED: the gated rows are scattered into the fail-safe output itself.
+      With ``audit_threshold`` set, ``baseline`` is a copy taken before the
+      scatter: the unswitched fail-safe estimate, which the audit compares
+      against and reverts to.  Without the audit no copy is made and
+      ``baseline`` is the scatter's target, the same tensor as ``selected``
+      (on the CPU the plain versions never write in place, so it stays
+      unswitched there).  A consumer that needs the unswitched fail-safe
+      output on the card must turn the audit on or copy first.
+    """
 
     selected: Any
-    all_outputs: tuple
+    all_outputs: tuple | None
     mode: torch.Tensor
-    served_by: torch.Tensor
+    served_by: torch.Tensor | None = None
+    executed_ue: torch.Tensor | None = None
+    overflow: torch.Tensor | None = None  # (U,) bool, GATED only
+    audit_tripped: torch.Tensor | None = None  # (U,) bool, GATED + audit only
+    baseline: Any = None
 
 
 class ExpertBank:
@@ -81,40 +124,187 @@ class ExpertBank:
         default_mode: int = 1,
         execution_mode: ExecutionMode = ExecutionMode.CONCURRENT,
         use_pallas_switch: bool = True,
+        gated_capacity: int | None = None,
+        gated_fused_apply: Callable[..., Any] | None = None,
+        audit_threshold: float | None = None,
     ):
         if len(experts) < 2:
             raise ValueError("an expert bank needs at least 2 experts")
         if not 0 <= default_mode < len(experts):
             raise ValueError(f"default_mode {default_mode} out of range")
         execution_mode = ExecutionMode.coerce(execution_mode)
-        if execution_mode is not ExecutionMode.CONCURRENT:
+        if execution_mode is ExecutionMode.SELECTED_ONLY:
             raise NotImplementedError(
-                f"{execution_mode.value} execution is not ported yet "
-                "(ROADMAP, Queue 1 item 2: GATED path)"
+                "selected_only execution is not ported yet "
+                "(ROADMAP, Queue 1: host-loop path)"
             )
+        if execution_mode is ExecutionMode.GATED and default_mode == 0:
+            raise ValueError(
+                "GATED gates the designated expert (mode 0); the fail-safe "
+                "default_mode must be a different, cheap expert"
+            )
+        if gated_capacity is not None and gated_capacity < 0:
+            raise ValueError(f"gated_capacity {gated_capacity} must be >= 0")
+        if gated_fused_apply is not None and execution_mode is not ExecutionMode.GATED:
+            raise ValueError("gated_fused_apply requires GATED execution")
+        if audit_threshold is not None:
+            if execution_mode is not ExecutionMode.GATED:
+                raise ValueError(
+                    "audit_threshold requires GATED execution (the audit "
+                    "compares against the densely-run fail-safe baseline)"
+                )
+            if not audit_threshold > 0:
+                raise ValueError(f"audit_threshold {audit_threshold} must be > 0")
         self.experts = tuple(experts)
         self.default_mode = default_mode
         self.execution_mode = execution_mode
-        #: True: the hand-written switch kernel (plain version on the CPU);
-        #: False: the gather oracle on any device
+        #: True: the hand-written switch and scatter kernels (plain versions
+        #: on the CPU); False: the gather oracles on any device
         self.use_pallas_switch = use_pallas_switch
+        #: dense sub-batch size for GATED execution; ``None`` == full batch
+        #: (no overflow possible), ``0`` == the gated expert never runs
+        self.gated_capacity = gated_capacity
+        #: optional fused GATED hot path ``(idx, src, base, *inputs) ->
+        #: selected`` in place of the gather / expert / scatter triple
+        self.gated_fused_apply = gated_fused_apply
+        #: optional in-loop NMSE audit of the gated expert (GATED only)
+        self.audit_threshold = audit_threshold
+
+    @property
+    def n_experts(self) -> int:
+        return len(self.experts)
+
+    @property
+    def names(self) -> tuple[str, ...]:
+        return tuple(e.name for e in self.experts)
 
     def __call__(self, mode: torch.Tensor, *inputs) -> BankOutput:
-        """Run every expert; UE ``u`` receives expert ``mode[u]``'s output."""
+        """Run the bank; UE ``u`` receives expert ``mode[u]``'s output."""
         mode = mode.to(torch.int32)
         if mode.ndim != 1:
             raise ValueError("the port's bank is batched: mode must be (n_ues,)")
+        if self.execution_mode is ExecutionMode.GATED:
+            return self._run_gated(mode, *inputs)
         outputs = tuple(e.fn(e.params, *inputs) for e in self.experts)
         if self.use_pallas_switch:
             selected = switch_select(mode, list(outputs))
         else:
             selected = switch_select_batched_ref(mode, list(outputs))
-        return BankOutput(selected=selected, all_outputs=outputs, mode=mode,
-                          served_by=mode)
+        n_ues = mode.shape[0]
+        return BankOutput(
+            selected=selected, all_outputs=outputs, mode=mode, served_by=mode,
+            executed_ue=torch.full((self.n_experts,), n_ues, dtype=torch.int32,
+                                   device=mode.device),
+            baseline=outputs[self.default_mode],
+        )
+
+    def _run_gated(self, mode: torch.Tensor, *inputs) -> BankOutput:
+        """Compaction-gated execution: pay only for the selected experts.
+
+        Every input carries a leading ``(n_ues,)`` axis.  The cumsum
+        partition and the stable argsort keep the compact sub-batch in UE
+        order, so compact row ``k`` is the ``k``-th selecting UE.
+        """
+        n_ues = mode.shape[0]
+        dev = mode.device
+        capacity = n_ues if self.gated_capacity is None else min(self.gated_capacity, n_ues)
+
+        is_gated = mode == 0
+        pos = torch.cumsum(is_gated.to(torch.int32), 0, dtype=torch.int32) - 1
+        within = is_gated & (pos < capacity)
+        overflow = is_gated & ~within
+        src = torch.where(within, pos, torch.full_like(pos, -1))
+        # overflow UEs fall back to the fail-safe expert for this slot
+        eff_mode = torch.where(overflow, torch.full_like(mode, self.default_mode), mode)
+
+        # cheap experts run densely on all UEs
+        alt_outputs = [e.fn(e.params, *inputs) for e in self.experts[1:]]
+        if len(alt_outputs) == 1:
+            base = alt_outputs[0]
+        else:
+            # values at gated UEs are placeholders (overwritten below)
+            base = switch_select_batched_ref(torch.clamp(eff_mode, min=1) - 1, alt_outputs)
+        # the scatter writes into ``base`` in place on the card: the audit
+        # needs the unswitched fail-safe output, so it gets a copy first
+        baseline = base.clone() if self.audit_threshold is not None else base
+
+        if capacity > 0:
+            order = torch.argsort((~is_gated).to(torch.int32), stable=True)
+            idx = order[:capacity].to(torch.int32)
+            if self.gated_fused_apply is not None:
+                selected = self.gated_fused_apply(idx, src, base, *inputs)
+            else:
+                compact_inputs = [x.index_select(0, idx.to(torch.int64)) for x in inputs]
+                gated = self.experts[0]
+                compact_out = gated.fn(gated.params, *compact_inputs)
+                selected = switch_scatter(
+                    src, compact_out, base,
+                    backend="auto" if self.use_pallas_switch else "ref")
+        else:
+            selected = base
+
+        served_by = torch.where(within, torch.zeros_like(eff_mode), eff_mode)
+        audit_tripped = None
+        if self.audit_threshold is not None and capacity > 0:
+            nmse = _batched_nmse(selected, baseline)
+            # NaN/inf-safe: anything not provably within the threshold trips
+            tripped = within & ~(nmse <= self.audit_threshold)
+            selected = torch.where(tripped.reshape((-1,) + (1,) * (selected.ndim - 1)),
+                                   baseline, selected)
+            served_by = torch.where(tripped, torch.full_like(served_by, self.default_mode),
+                                    served_by)
+            audit_tripped = tripped
+
+        n_gated = within.sum(dtype=torch.int32).reshape(1)
+        executed = torch.cat([n_gated, torch.full((self.n_experts - 1,), n_ues,
+                                                  dtype=torch.int32, device=dev)])
+        return BankOutput(
+            selected=selected, all_outputs=None, mode=mode, served_by=served_by,
+            executed_ue=executed, overflow=overflow, audit_tripped=audit_tripped,
+            baseline=baseline,
+        )
+
+    # -- cost model ---------------------------------------------------------------
+
+    def _flops(self, device) -> torch.Tensor:
+        flops = tuple(e.flops for e in self.experts)
+        return cached_const(("bank_flops",) + flops, device,
+                            lambda: np.asarray(flops, np.float32))
+
+    def flops_for(self) -> float:
+        """FLOPs per UE-slot of the CONCURRENT bank (every expert runs)."""
+        if self.execution_mode is ExecutionMode.GATED:
+            raise ValueError(
+                "GATED cost depends on the realized mode mix: use "
+                "executed_flops(out) / executed_flops_per_ue(out)")
+        return float(sum(e.flops for e in self.experts))
+
+    def executed_flops(self, out: BankOutput) -> torch.Tensor:
+        """FLOPs this call executed: ``sum_e executed_ue[e] * flops[e]``."""
+        if out.executed_ue is None:
+            raise ValueError("BankOutput carries no executed_ue counts")
+        return (out.executed_ue.to(torch.float32)
+                * self._flops(out.executed_ue.device)).sum()
+
+    def provisioned_flops(self, n_ues: int) -> float:
+        """Per-slot FLOPs the hardware is provisioned for: the GATED sub-batch
+        always holds ``capacity`` rows, whatever the AI share."""
+        if self.execution_mode is ExecutionMode.CONCURRENT:
+            return float(n_ues * sum(e.flops for e in self.experts))
+        cap = n_ues if self.gated_capacity is None else min(self.gated_capacity, n_ues)
+        return float(cap * self.experts[0].flops
+                     + n_ues * sum(e.flops for e in self.experts[1:]))
 
     def executed_flops_per_ue(self, out: BankOutput) -> torch.Tensor:
-        """Per-UE executed FLOPs: every expert ran every UE."""
-        total = torch.tensor([e.flops for e in self.experts],
-                             dtype=torch.float32).sum()
-        return torch.full(out.served_by.shape, float(total), dtype=torch.float32,
+        """Per-UE executed FLOPs ``(U,)`` float32; sums to ``executed_flops``."""
+        # float32 sums on the host, as the reference sums its flops vector
+        flops = torch.tensor([e.flops for e in self.experts], dtype=torch.float32)
+        if self.execution_mode is ExecutionMode.GATED:
+            ai_ran = out.served_by == 0
+            if out.audit_tripped is not None:
+                # a tripped UE is served by the fail-safe, but the gated
+                # expert did run for it: the cost is real
+                ai_ran = ai_ran | out.audit_tripped
+            return float(flops[1:].sum()) + float(flops[0]) * ai_ran.to(torch.float32)
+        return torch.full(out.served_by.shape, float(flops.sum()), dtype=torch.float32,
                           device=out.served_by.device)

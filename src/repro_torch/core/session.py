@@ -11,10 +11,12 @@ packages.  ``use_pallas_switch`` keeps its name and means "use the
 hand-written switch kernel"; ``SwitchSpec.backend`` takes the reference's
 values, with ``"pallas"`` meaning the hand-written tree kernel.
 
-This slice runs the ``closed_loop`` and ``batched`` paths on a CONCURRENT
-bank.  A spec that sets ``topology``, ``churn`` or ``faults`` raises at
-construction; the ``host``, ``gated`` and ``perturbed`` paths and GATED
-banks raise in ``ArchesSession`` (each names its ROADMAP item).
+This slice runs the ``closed_loop``, ``batched`` and ``gated`` paths on
+CONCURRENT and GATED banks (fused or not, float32 or bf16 experts, with
+the NMSE audit), and ``run(auto_capacity=True)``.  A spec that sets
+``topology``, ``churn`` or ``faults`` raises at construction; the ``host``
+and ``perturbed`` paths and SELECTED_ONLY banks raise in ``ArchesSession``
+(each names its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -31,13 +33,13 @@ import torch
 from repro_torch import random as jr
 from repro_torch.core.closed_loop import SwitchConfig, per_ue_policy
 from repro_torch.core.expert_bank import ExecutionMode, coerce_enum
-from repro_torch.core.runtime import BatchedRunHistory
+from repro_torch.core.runtime import BatchedRunHistory, suggest_gated_capacity
 from repro_torch.core.telemetry import SELECTED_KPMS
 from repro_torch.device import resolve_device
 
 
 class ExecutionPath(enum.Enum):
-    """The campaign shapes of the reference; this slice runs two of them."""
+    """The campaign shapes of the reference; this slice runs three of them."""
 
     HOST = "host"
     BATCHED = "batched"
@@ -51,9 +53,8 @@ class ExecutionPath(enum.Enum):
 
 
 _PATH_ITEMS = {
-    ExecutionPath.HOST: "Queue 1 item 6: host-loop path",
-    ExecutionPath.GATED: "Queue 1 item 2: GATED path",
-    ExecutionPath.PERTURBED: "Queue 1 item 6: methodology",
+    ExecutionPath.HOST: "Queue 1: host-loop path",
+    ExecutionPath.PERTURBED: "Queue 1: methodology",
 }
 
 
@@ -180,9 +181,9 @@ class CampaignSpec:
 
     def __post_init__(self):
         object.__setattr__(self, "path", ExecutionPath.coerce(self.path).value)
-        for name, item in (("topology", "Queue 1 item 4"),
-                           ("churn", "Queue 1 item 3"),
-                           ("faults", "Queue 1 item 3")):
+        for name, item in (("topology", "Queue 1: multi-cell topology"),
+                           ("churn", "Queue 1: faults and streaming"),
+                           ("faults", "Queue 1: faults and streaming")):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"CampaignSpec.{name} is not ported yet (ROADMAP, {item})")
@@ -207,6 +208,21 @@ class CampaignSpec:
                     f"entries for n_ues={self.n_ues}")
             if not all(0 <= int(i) < len(self.policies) for i in self.policy_assignment):
                 raise ValueError("policy_assignment indexes out of range")
+        # path/bank mismatches fail at spec construction, as in the reference
+        bank_mode = ExecutionMode.coerce(self.bank.execution_mode)
+        path = self.execution_path
+        if path is ExecutionPath.GATED and bank_mode is ExecutionMode.SELECTED_ONLY:
+            raise ValueError(
+                "path='gated' with a 'selected_only' bank would silently run "
+                "un-gated at the concurrent cost envelope; declare the bank "
+                "'gated' (or 'concurrent', which the path normalizes)")
+        if path is ExecutionPath.PERTURBED and bank_mode is not ExecutionMode.CONCURRENT:
+            raise ValueError(
+                f"path='perturbed' ignores the expert bank; a {bank_mode.value!r} "
+                "bank spec would never take effect -- drop it")
+        if path is ExecutionPath.HOST and bank_mode is ExecutionMode.GATED:
+            raise ValueError("gated execution is the batched path: the host loop "
+                             "serves one UE and has no sub-batch to compact")
 
     @property
     def execution_path(self) -> ExecutionPath:
@@ -273,6 +289,7 @@ class ArchesSession:
         self._ai_params = ai_params
         self._host_policies = tuple(host_policies) if host_policies is not None else None
         self._engine = engine
+        self._train_engine = None
         self._device_policy = None
 
     def _validate(self) -> None:
@@ -280,16 +297,22 @@ class ArchesSession:
         if path in _PATH_ITEMS:
             raise NotImplementedError(
                 f"path={spec.path!r} is not ported yet (ROADMAP, {_PATH_ITEMS[path]})")
-        if ExecutionMode.coerce(spec.bank.execution_mode) is not ExecutionMode.CONCURRENT:
+        bank_mode = ExecutionMode.coerce(spec.bank.execution_mode)
+        if bank_mode is ExecutionMode.SELECTED_ONLY:
             raise NotImplementedError(
-                f"a {spec.bank.execution_mode!r} bank is not ported yet "
-                "(ROADMAP, Queue 1 item 2: GATED path)")
+                "a 'selected_only' bank is not ported yet (ROADMAP, Queue 1: "
+                "host-loop path)")
         if len(spec.policies) > 1 and spec.policy_assignment is None:
             raise ValueError("several policies need an explicit policy_assignment "
                              "(which UE runs which table)")
         if path is ExecutionPath.CLOSED_LOOP and not spec.policies:
             raise ValueError("closed_loop needs at least one PolicySpec")
-        self.bank_spec = spec.bank
+        # the path name is the declaration: "gated" implies a gated bank
+        # (normalized on the session, never mutating the user's spec)
+        self.bank_spec = (
+            dataclasses.replace(spec.bank, execution_mode="gated")
+            if path is ExecutionPath.GATED and bank_mode is ExecutionMode.CONCURRENT
+            else spec.bank)
 
     # -- compiled components ---------------------------------------------------
 
@@ -309,20 +332,39 @@ class ArchesSession:
                                           self.cfg, self.net)
         return self._ai_params
 
+    def _build_engine(self, gated_capacity: int | None):
+        from repro_torch.phy.pipeline import BatchedPuschPipeline
+
+        bank = self.bank_spec
+        return BatchedPuschPipeline(
+            self.cfg, self.ai_params, net=self.net,
+            execution_mode=ExecutionMode.coerce(bank.execution_mode),
+            use_pallas_switch=bank.use_pallas_switch,
+            gated_capacity=gated_capacity, fused_gated=bank.fused,
+            expert_dtype=bank.dtype, audit_nmse_threshold=bank.audit_nmse_threshold,
+            device=self.device,
+        )
+
     @property
     def engine(self):
         """The batched multi-UE engine configured per the bank spec."""
         if self._engine is None:
+            self._engine = self._build_engine(self.bank_spec.gated_capacity)
+        return self._engine
+
+    def _training_engine(self):
+        """A CONCURRENT engine for profiling the experts (the campaign's own
+        engine when its bank is CONCURRENT)."""
+        if ExecutionMode.coerce(self.bank_spec.execution_mode) is ExecutionMode.CONCURRENT:
+            return self.engine
+        if self._train_engine is None:
             from repro_torch.phy.pipeline import BatchedPuschPipeline
 
-            bank = self.bank_spec
-            self._engine = BatchedPuschPipeline(
+            self._train_engine = BatchedPuschPipeline(
                 self.cfg, self.ai_params, net=self.net,
-                execution_mode=ExecutionMode.coerce(bank.execution_mode),
-                use_pallas_switch=bank.use_pallas_switch,
-                expert_dtype=bank.dtype, device=self.device,
-            )
-        return self._engine
+                execution_mode=ExecutionMode.CONCURRENT,
+                use_pallas_switch=self.bank_spec.use_pallas_switch, device=self.device)
+        return self._train_engine
 
     def _train_schedule(self, ps: PolicySpec):
         from repro_torch.phy.scenario import get_scenario, good_poor_good_schedule
@@ -354,7 +396,7 @@ class ArchesSession:
                         mode_above=ps.mode_above, mode_below=ps.mode_below))
                 else:
                     built.append(profile_and_fit_tree(
-                        self.engine, self._train_schedule(ps),
+                        self._training_engine(), self._train_schedule(ps),
                         n_slots=ps.train_slots or self.spec.n_slots,
                         n_ues=ps.train_ues, depth=ps.depth,
                         feature_names=self.spec.feature_names))
@@ -395,15 +437,48 @@ class ArchesSession:
     # -- execution -------------------------------------------------------------
 
     def run(self, *, auto_capacity: bool = False) -> BatchedRunHistory:
-        """Execute the campaign (``closed_loop`` or ``batched`` path)."""
+        """Execute the campaign (``closed_loop``, ``batched`` or ``gated``).
+
+        ``auto_capacity=True`` (GATED banks only) sizes ``gated_capacity``
+        from the campaign's own demand before the main run: the open-loop
+        paths read the peak demand off the declared mode plan; the closed
+        loop runs a full-capacity pre-pass and sizes from the demand its
+        decisions realized (``suggest_gated_capacity``).  The history
+        records the chosen capacity in ``provisioned_capacity``.
+        """
         if auto_capacity:
-            raise NotImplementedError(
-                "auto_capacity sizes a GATED bank (ROADMAP, Queue 1 item 2)")
+            return self._run_auto_capacity()
         if self.path is ExecutionPath.CLOSED_LOOP:
             return self._run_closed_loop()
         return self._run_open_loop()
 
-    def _run_open_loop(self) -> BatchedRunHistory:
+    def _run_auto_capacity(self) -> BatchedRunHistory:
+        spec = self.spec
+        if ExecutionMode.coerce(self.bank_spec.execution_mode) is not ExecutionMode.GATED:
+            raise ValueError("auto_capacity sizes a gated bank; this campaign's bank is "
+                             f"{self.bank_spec.execution_mode!r}")
+        if self.path is ExecutionPath.CLOSED_LOOP:
+            # pre-pass at full capacity (no overflow), then size from the
+            # demand the decisions actually realized
+            pre_spec = dataclasses.replace(
+                spec, bank=dataclasses.replace(spec.bank, gated_capacity=None))
+            demand_hist = ArchesSession(pre_spec, device=self.device,
+                                        ai_params=self.ai_params,
+                                        host_policies=self.host_policies).run()
+            runner = self._run_closed_loop
+        else:
+            from repro_torch.phy.pipeline import normalize_modes
+
+            # open loop: the demand is the declared plan, no pre-pass
+            modes = normalize_modes(np.asarray(spec.modes, np.int32), spec.n_slots,
+                                    spec.n_ues)
+            demand_hist = BatchedRunHistory(modes=modes.numpy(), kpms={}, outputs={})
+            runner = self._run_open_loop
+        cap = max(suggest_gated_capacity(demand_hist), 1)  # one row at least
+        self._engine = self._build_engine(cap)
+        return runner(provisioned_capacity=cap)
+
+    def _run_open_loop(self, provisioned_capacity: int | None = None) -> BatchedRunHistory:
         from repro_torch.phy.pipeline import normalize_modes
 
         spec = self.spec
@@ -412,12 +487,14 @@ class ArchesSession:
         _, traj = self.engine.run(self.schedule, modes, n_slots=spec.n_slots,
                                   n_ues=spec.n_ues,
                                   key=jr.PRNGKey(spec.seed, self.device))
-        return BatchedRunHistory.from_trajectory(modes, traj)
+        return BatchedRunHistory.from_trajectory(modes, traj,
+                                                 provisioned_capacity=provisioned_capacity)
 
-    def _run_closed_loop(self) -> BatchedRunHistory:
+    def _run_closed_loop(self, provisioned_capacity: int | None = None) -> BatchedRunHistory:
         spec = self.spec
         _, final_switch, traj = self.engine.run_closed_loop(
             self.schedule, self.device_policy, spec.switch.to_config(spec.feature_names),
             n_slots=spec.n_slots, n_ues=spec.n_ues,
             key=jr.PRNGKey(spec.seed, self.device))
-        return BatchedRunHistory.from_closed_loop(traj, final_switch)
+        return BatchedRunHistory.from_closed_loop(traj, final_switch,
+                                                  provisioned_capacity=provisioned_capacity)

@@ -25,7 +25,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("mmse_interp", "switch_select", "tree_infer")
+KERNELS = ("mmse_interp", "switch_select", "tree_infer", "gated_expert")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 #: adds one where it launches its kernel, and nowhere else
 launch_counts: dict[str, int] = {
     "mmse_interp": 0, "switch_select_batched": 0, "tree_infer": 0,
+    "switch_gather_batched": 0, "gated_expert": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

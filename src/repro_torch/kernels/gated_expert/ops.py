@@ -1,0 +1,123 @@
+"""The fused GATED hot path: the wrapper of the hand-written kernel and its
+plain PyTorch version.
+
+``gated_expert_apply(idx, src, h_ls, designated, ai)`` replaces
+``repro.kernels.gated_expert.ops.gated_expert_apply``: the AI expert runs on
+the UEs named by the compact rows ``idx`` whose ``src`` entry is
+non-negative, and its estimates land in those UEs' slices of the
+designated (fail-safe) buffer.  On a CUDA tensor one launch of
+``csrc/gated_expert.cu`` does gather, estimator and scatter, reading the
+complex64 LS input and writing the complex64 designated buffer **in place**
+(no sub-batch, no transposes, no real/imaginary split); it returns
+``designated``.  On a CPU tensor, or with ``backend="ref"``, the plain
+version ``gated_expert_apply_ref`` composes the gather, the folded-GEMM
+estimator and the plain scatter, and returns a new tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.switch_select.ops import switch_scatter
+from repro_torch.phy.ai_estimator import AiEstimator, ai_estimate_folded, kernel_operands
+
+_BACKENDS = ("auto", "pallas", "cuda", "ref")
+
+
+def _folded(ai: AiEstimator | dict[str, Any]) -> dict[str, Any]:
+    return ai.folded() if isinstance(ai, AiEstimator) else ai
+
+
+def gated_expert_apply_ref(idx: torch.Tensor, src: torch.Tensor, h_ls: torch.Tensor,
+                           designated: torch.Tensor, ai: AiEstimator | dict[str, Any], *,
+                           compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain version: gather the compact rows' LS inputs, run the folded-GEMM
+    estimator on that sub-batch, scatter the results over ``designated``."""
+    compact_in = h_ls.index_select(0, idx.to(torch.int64))
+    compact_out = ai_estimate_folded(_folded(ai), compact_in, compute_dtype=compute_dtype)
+    return switch_scatter(src, compact_out, designated, backend="ref")
+
+
+def _operands(ai: AiEstimator | dict[str, Any], compute_dtype):
+    if isinstance(ai, AiEstimator) and ai.compute_dtype == compute_dtype and hasattr(
+            ai, "kernel_w"):
+        return ai.kernel_w, ai.kernel_b
+    return kernel_operands(_folded(ai), compute_dtype)
+
+
+def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> None:
+    folded = _folded(ai)
+    n_ues, n_ant, n_sym, n_p = h_ls.shape
+    channels = folded["stem_w"].shape[0] // folded["width"]
+    n_res = len(folded["res"])
+    w, b = _operands(ai, compute_dtype)
+    if w.device != h_ls.device:
+        raise ValueError(f"estimator operands on {w.device}, LS input on {h_ls.device}")
+    lib = build.library("gated_expert")
+    smem = lib.gated_expert_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    limit = torch.cuda.get_device_properties(h_ls.device).shared_memory_per_block_optin
+    if smem(n_sym, channels) > limit:
+        raise ValueError(f"{channels} channels need {smem(n_sym, channels)} B of shared "
+                         f"memory per block; the card grants {limit}")
+    ws_floats = lib.gated_expert_workspace_floats
+    ws_floats.argtypes = [ctypes.c_int] * 3
+    ws_floats.restype = ctypes.c_longlong
+    capacity = idx.shape[0]
+    workspace = torch.empty(capacity * n_ant * ws_floats(n_sym, n_p, channels),
+                            dtype=torch.float32, device=h_ls.device)
+    fn = lib.gated_expert_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    build.check(fn(idx.data_ptr(), src.data_ptr(), h_ls.data_ptr(), designated.data_ptr(),
+                   w.data_ptr(), b.data_ptr(), workspace.data_ptr(), capacity, n_ant, n_sym,
+                   n_p, channels, n_res, int(compute_dtype == torch.bfloat16),
+                   build.stream_ptr(designated)), "gated_expert")
+    build.launch_counts["gated_expert"] += 1
+
+
+def gated_expert_apply(idx: torch.Tensor, src: torch.Tensor, h_ls: torch.Tensor,
+                       designated: torch.Tensor, ai: AiEstimator | dict[str, Any], *,
+                       compute_dtype: torch.dtype | None = None,
+                       backend: str = "auto") -> torch.Tensor:
+    """Run the gated AI expert fused: compact -> estimator -> scatter.
+
+    ``idx (K,)`` int32 names each compact row's UE (a slice of a
+    permutation; a row whose UE has ``src < 0`` is padding); ``src (U,)``
+    int32 is the UE -> compact-row map; ``h_ls (U, ant, S, Np)`` complex64;
+    ``designated (U, ant, 1, 2 Np, S)`` complex64; ``ai`` an ``AiEstimator``
+    (whose kernel pack is reused) or a folded weight dict.
+    ``compute_dtype`` is ``None`` (float32) or ``torch.bfloat16`` (bf16
+    operands, float32 accumulation).  ``backend`` takes the reference's
+    values: ``"ref"`` is the plain version on any device; ``"auto"``,
+    ``"pallas"`` and ``"cuda"`` launch the kernel on CUDA tensors (in place)
+    and take the plain version on CPU tensors.
+    """
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown gated_expert_apply backend {backend!r}; one of {_BACKENDS}")
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype {compute_dtype}; None (float32) or torch.bfloat16")
+    n_ues, n_ant, n_sym, n_p = h_ls.shape
+    if designated.shape != (n_ues, n_ant, 1, 2 * n_p, n_sym):
+        raise ValueError(f"designated {tuple(designated.shape)} vs LS {tuple(h_ls.shape)}")
+    if idx.ndim != 1 or src.shape != (n_ues,) or not 1 <= idx.shape[0] <= n_ues:
+        raise ValueError(f"idx {tuple(idx.shape)}, src {tuple(src.shape)} vs {n_ues} UEs "
+                         "(capacity must be >= 1: skip the call when it is 0)")
+    if len({t.device for t in (idx, src, h_ls, designated)}) != 1:
+        raise ValueError("idx, src, h_ls and designated must share one device")
+    if backend == "ref" or designated.device.type != "cuda":
+        return gated_expert_apply_ref(idx, src, h_ls, designated, ai,
+                                      compute_dtype=compute_dtype)
+    if h_ls.dtype != torch.complex64 or designated.dtype != torch.complex64:
+        raise TypeError(f"complex64 LS and designated required, got {h_ls.dtype}, "
+                        f"{designated.dtype}")
+    if idx.dtype != torch.int32 or src.dtype != torch.int32:
+        raise TypeError(f"idx and src must be int32, got {idx.dtype}, {src.dtype}")
+    if not all(t.is_contiguous() for t in (idx, src, h_ls, designated)):
+        raise ValueError("gated_expert kernel needs contiguous operands")
+    _launch(idx, src, h_ls, designated, ai, compute_dtype)
+    return designated

@@ -14,6 +14,15 @@ alive, so there ``outputs[0]`` still reads the unswitched designated
 output afterwards; in the port ``outputs[0]`` *is* the switched buffer.
 On a CPU tensor the plain version ``switch_select_batched_ref`` gathers
 into a new tensor and leaves the inputs untouched.
+
+``switch_scatter(src, compact, designated)`` replaces
+``repro.kernels.switch_select.ops.switch_scatter``, the GATED bank's
+un-compaction: UE ``u`` takes row ``src[u]`` of the capacity-``K`` compact
+sub-batch when ``src[u] >= 0`` and keeps its designated (fail-safe) buffer
+otherwise.  On a CUDA tensor the kernel's second entry point scatters **in
+place into** ``designated`` and returns it; on a CPU tensor, or with
+``backend="ref"``, the plain version ``switch_gather_batched_ref`` returns a
+new tensor.
 """
 
 from __future__ import annotations
@@ -33,6 +42,17 @@ def switch_select_batched_ref(modes: torch.Tensor,
     idx = modes.to(torch.int64).reshape((1, -1) + (1,) * (stacked.ndim - 2))
     idx = idx.expand((1,) + tuple(stacked.shape[1:]))
     return torch.gather(stacked, 0, idx)[0]
+
+
+def switch_gather_batched_ref(src: torch.Tensor, compact: torch.Tensor,
+                              designated: torch.Tensor) -> torch.Tensor:
+    """Plain version: gather each UE's compact row (``src`` clamped into
+    range, as the reference does) and keep the designated buffer where
+    ``src < 0``."""
+    safe = src.to(torch.int64).clamp(0, compact.shape[0] - 1)
+    taken = compact.index_select(0, safe)
+    keep = (src < 0).reshape((-1,) + (1,) * (designated.ndim - 1))
+    return torch.where(keep, designated, taken)
 
 
 def _float_view(x: torch.Tensor) -> torch.Tensor:
@@ -81,4 +101,49 @@ def switch_select(modes: torch.Tensor, outputs: Sequence[torch.Tensor]) -> torch
         if not alt.is_contiguous():
             raise ValueError("switch kernel needs contiguous alternatives")
         _launch(modes, alt, des, k + 1)
+    return designated
+
+
+_BACKENDS = ("auto", "pallas", "cuda", "ref")
+
+
+def switch_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.Tensor,
+                   *, backend: str = "auto") -> torch.Tensor:
+    """Scatter a dense capacity-``K`` sub-batch back over the full UE batch.
+
+    ``src (U,)`` int32 names each UE's compact row (negative keeps the
+    designated buffer); ``compact (K, ...)`` and ``designated (U, ...)``
+    share their trailing shape, dtype and device, with ``K >= 1``.
+    ``backend`` takes the reference's values: ``"ref"`` is the plain version
+    on any device; ``"auto"``, ``"pallas"`` and ``"cuda"`` launch the kernel
+    on a CUDA tensor (in place) and take the plain version on a CPU tensor.
+    """
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown switch_scatter backend {backend!r}; one of {_BACKENDS}")
+    if src.ndim != 1 or src.shape[0] != designated.shape[0]:
+        raise ValueError(f"src {tuple(src.shape)} vs UE axis {designated.shape[0]}")
+    if compact.shape[1:] != designated.shape[1:] or compact.dtype != designated.dtype:
+        raise ValueError(f"compact {tuple(compact.shape)} {compact.dtype} vs designated "
+                         f"{tuple(designated.shape)} {designated.dtype}")
+    if compact.shape[0] < 1:
+        raise ValueError("capacity must be >= 1 (skip the scatter when it is 0)")
+    if src.device != designated.device or compact.device != designated.device:
+        raise ValueError("src, compact and designated must share one device")
+    if backend == "ref" or designated.device.type != "cuda":
+        return switch_gather_batched_ref(src, compact, designated)
+    if src.dtype != torch.int32:
+        raise TypeError(f"src must be int32, got {src.dtype}")
+    des, comp = _float_view(designated), _float_view(compact)
+    if not (des.is_contiguous() and comp.is_contiguous() and src.is_contiguous()):
+        raise ValueError("scatter kernel needs contiguous src, compact and designated")
+    n_ues = designated.shape[0]
+    lib = build.library("switch_select")
+    fn = lib.switch_gather_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    build.check(fn(src.data_ptr(), comp.data_ptr(), des.data_ptr(), n_ues,
+                   des.numel() // max(n_ues, 1), compact.shape[0],
+                   build.stream_ptr(designated)), "switch_gather")
+    build.launch_counts["switch_gather_batched"] += 1
     return designated

@@ -14,6 +14,10 @@ upcasts the rounded operands and runs the float32 GEMM.
 
 Structure: naive comb-2 baseline + stem conv + R residual blocks + 2x
 sub-pixel up-projection + head conv.  Training waits for a later slice.
+
+``kernel_operands`` packs the same weights in the layout the fused GATED
+kernel (``csrc/gated_expert.cu``) reads; ``AiEstimator`` keeps that pack,
+bf16-rounded for a bf16 module, beside its folded operands.
 """
 
 from __future__ import annotations
@@ -123,6 +127,53 @@ def fold_ai_params(params: dict[str, Any], width: int) -> dict[str, Any]:
     }
 
 
+def _unfold(m2: torch.Tensor, kh: int, width: int) -> torch.Tensor:
+    """Invert ``fold``: ``(O*width, kh*C*width)`` -> ``(O, C, kh, 3)`` 3x3-wide
+    weights.  A symbol tap no (w_out, w_in) pair reaches stays zero; it only
+    ever multiplies the 'SAME' padding, so the convolution is unchanged."""
+    o = m2.shape[0] // width
+    c = m2.shape[1] // (kh * width)
+    m = m2.reshape(o, width, kh, c, width)  # [o, w_out, d, c, w_in]
+    w = torch.zeros((o, c, kh, 3), dtype=m2.dtype, device=m2.device)
+    for j in range(3):
+        for wo in range(width):
+            wi = wo + j - 1
+            if 0 <= wi < width:
+                w[:, :, :, j] = m[:, wo, :, :, wi].permute(0, 2, 1)
+                break
+    return w
+
+
+def kernel_operands(folded: dict[str, Any],
+                    compute_dtype: torch.dtype | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel's operands: ``(weights, biases)``, two contiguous
+    float32 vectors holding, layer by layer (stem, each residual block's two
+    convs, up-projection, head), the conv weights as ``(C_in, 3, 3, C_out)``
+    and the biases, ``C_out`` padded with zeros to a multiple of 4.  With
+    ``compute_dtype=torch.bfloat16`` the weights are rounded to bf16 (the
+    biases stay float32).  Raises unless every conv is 3x3."""
+    kh, width = folded["kh"], folded["width"]
+    if kh != 3:
+        raise ValueError(f"the fused kernel runs 3x3 convolutions, not kh={kh}")
+    layers = [(folded["stem_w"], folded["stem_b"])]
+    for blk in folded["res"]:
+        layers += [(blk["w1"], blk["b1"]), (blk["w2"], blk["b2"])]
+    layers += [(folded["up_w"], folded["up_b"]), (folded["head_w"], folded["head_b"])]
+    ws, bs = [], []
+    for m2, b in layers:
+        w = _unfold(m2, kh, width)
+        if not torch.equal(_wfold_matrices(w, width).permute(1, 0, 2).reshape(m2.shape), m2):
+            raise ValueError("the fused kernel runs 3x3 convolutions (kernel width is not 3)")
+        pad = (-w.shape[0]) % 4
+        w = torch.nn.functional.pad(w.permute(1, 2, 3, 0), (0, pad))  # (C, 3, 3, O_p)
+        if compute_dtype is not None:
+            w = w.to(compute_dtype).to(torch.float32)
+        ws.append(w.reshape(-1))
+        bs.append(torch.nn.functional.pad(b, (0, pad)))
+    return (torch.cat(ws).to(torch.float32).contiguous(),
+            torch.cat(bs).to(torch.float32).contiguous())
+
+
 def _conv_wfold(x: torch.Tensor, m2: torch.Tensor, b: torch.Tensor, kh: int,
                 compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """'SAME' conv on ``x (C, W, B, H)`` through one GEMM with ``m2``."""
@@ -177,7 +228,9 @@ class AiEstimator(nn.Module):
     """The AI expert as a module: folded weights held as buffers.
 
     ``forward(h_ls)`` is ``ai_estimate_folded`` with this module's weights
-    and operand precision; ``.to(device)`` moves the folded operands.
+    and operand precision; ``.to(device)`` moves the folded operands and the
+    fused kernel's pack (``kernel_w``, ``kernel_b``: ``kernel_operands`` at
+    this module's operand precision, rounded once here).
     """
 
     def __init__(self, params: dict[str, Any], width: int,
@@ -193,6 +246,10 @@ class AiEstimator(nn.Module):
         for r, blk in enumerate(folded["res"]):
             for name, t in blk.items():
                 self.register_buffer(f"res{r}_{name}", t)
+        if tuple(params["stem_w"].shape[2:]) == (3, 3):
+            kernel_w, kernel_b = kernel_operands(folded, compute_dtype)
+            self.register_buffer("kernel_w", kernel_w)
+            self.register_buffer("kernel_b", kernel_b)
 
     def folded(self) -> dict[str, Any]:
         return {

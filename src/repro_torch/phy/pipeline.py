@@ -11,6 +11,8 @@ Per slot, for every UE at once (a leading UE axis replaces the reference's
   RX   LS -> expert bank {AI (folded-GEMM CNN), MMSE (``mmse_interp``)}
        -> per-UE switch (``switch_select``) -> time interpolation + MMSE
        equalizer -> decision-directed SINR, MIESM TB outcome, OLLA
+       (GATED: MMSE densely, the AI expert only on the UEs that select it,
+       through ``switch_scatter`` or the fused ``gated_expert`` kernel)
   KPM  per-slot Aerial + OAI telemetry
 
 ``run`` is the open-loop campaign (a declared mode grid);
@@ -18,9 +20,9 @@ Per slot, for every UE at once (a leading UE axis replaces the reference's
 device policy and the switch register.  PRNG derivation matches the
 reference: UE ``u`` in slot ``s`` uses ``fold_in(fold_in(key, u), s)``.
 
-Left for later slices (they raise): GATED banks, fused/bf16-gated paths,
-fault injection, multi-cell topology, the streaming ``active`` mask and the
-perturbation sweep.  There is one slot loop, so ``use_scan`` has no effect.
+Left for later slices (they raise): fault injection, multi-cell topology,
+the streaming ``active`` mask and the perturbation sweep.  There is one
+slot loop, so ``use_scan`` has no effect.
 """
 
 from __future__ import annotations
@@ -164,7 +166,16 @@ class BatchedPuschPipeline:
     ``repro_torch.convert`` to carry the reference's across).  The bank
     holds the AI expert first (mode 0, the designated buffer) and MMSE as
     the fail-safe (mode 1).  ``use_pallas_switch`` keeps the reference's
-    name and means "use the hand-written switch kernel".
+    name and means "use the hand-written switch kernels".
+
+    With ``execution_mode=GATED`` the AI expert runs only on the UEs whose
+    committed mode selects it, compacted into a capacity-``gated_capacity``
+    sub-batch (``None``: the whole batch); UEs past capacity fall back to
+    MMSE for the slot and surface in the trajectory's ``gated_overflow``
+    leaf.  ``fused_gated`` runs gather, expert and scatter as one kernel;
+    ``audit_nmse_threshold`` reverts UEs whose AI estimate strays from the
+    MMSE one (``audit_tripped`` leaf).  Every trajectory carries a per-UE
+    ``executed_flops`` leaf.
     """
 
     def __init__(
@@ -182,11 +193,9 @@ class BatchedPuschPipeline:
         rms_delay_spread_s: float = 100e-9,
         device: torch.device | str = "cuda",
     ):
-        if ExecutionMode.coerce(execution_mode) is not ExecutionMode.CONCURRENT or (
-            fused_gated or gated_capacity is not None
-            or audit_nmse_threshold is not None
-        ):
-            raise _not_ported("GATED execution", "Queue 1 item 2")
+        execution_mode = ExecutionMode.coerce(execution_mode)
+        if fused_gated and execution_mode is not ExecutionMode.GATED:
+            raise ValueError("fused_gated requires GATED execution")
         if expert_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"expert_dtype {expert_dtype!r}; one of 'float32', 'bfloat16'")
         self.device = resolve_device(device)
@@ -207,6 +216,15 @@ class BatchedPuschPipeline:
         params = _params_to(ai_params, dev)
         self.ai = AiEstimator(params, cfg.n_dmrs_sym, compute_dtype).to(dev)
 
+        gated_fused_apply = None
+        if fused_gated:
+            from repro_torch.kernels.gated_expert import gated_expert_apply
+
+            def gated_fused_apply(idx, src, base, h_ls):
+                return gated_expert_apply(
+                    idx, src, h_ls, base, self.ai, compute_dtype=compute_dtype,
+                    backend="auto" if use_pallas_switch else "ref")
+
         self.bank = ExpertBank(
             [
                 Expert(name="ai", fn=lambda _p, h_ls: self.ai(h_ls),
@@ -215,8 +233,11 @@ class BatchedPuschPipeline:
                        params=None, flops=estimator_flops(cfg)),
             ],
             default_mode=1,
-            execution_mode=ExecutionMode.CONCURRENT,
+            execution_mode=execution_mode,
             use_pallas_switch=use_pallas_switch,
+            gated_capacity=gated_capacity,
+            gated_fused_apply=gated_fused_apply,
+            audit_threshold=audit_nmse_threshold,
         )
 
     def _mmse_from_ls_batched(self, h_ls: torch.Tensor) -> torch.Tensor:
@@ -343,7 +364,7 @@ class BatchedPuschPipeline:
                    modes: torch.Tensor, keys: torch.Tensor, p: ChannelParams):
         """One slot for every UE.  The reference's perturbation (``rho``),
         topology, streaming-mask and fault arguments wait for their slices
-        (ROADMAP, Queue 1 items 3, 4 and 6)."""
+        (ROADMAP, Queue 1: faults, topology, streaming, methodology)."""
         n_ues = keys.shape[0]
         p = per_ue_params(p, n_ues)
         pre = self._ue_pre(profile, p, link.reported_snr_db, link.olla_offset_db, keys)
@@ -352,8 +373,10 @@ class BatchedPuschPipeline:
         new_link, outputs = self._ue_post(link, pre, out.selected)
         zeros = torch.zeros(n_ues, dtype=torch.int32, device=keys.device)
         outputs["executed_flops"] = exec_flops
-        outputs["gated_overflow"] = zeros
-        outputs["audit_tripped"] = zeros
+        outputs["gated_overflow"] = (zeros if out.overflow is None
+                                     else out.overflow.to(torch.int32))
+        outputs["audit_tripped"] = (zeros if out.audit_tripped is None
+                                    else out.audit_tripped.to(torch.int32))
         outputs["health_tripped"] = zeros
         return new_link, outputs
 
@@ -377,7 +400,7 @@ class BatchedPuschPipeline:
         every trajectory leaf ``(n_slots, n_ues)``.
         """
         if faults is not None:
-            raise _not_ported("fault injection", "Queue 1 item 3")
+            raise _not_ported("fault injection", "Queue 1: faults and streaming")
         dev = self.device
         profile, params = resolve_schedule(self.cfg, schedule, n_slots, n_ues, dev)
         modes = normalize_modes(modes, n_slots, n_ues, dev)
@@ -417,7 +440,7 @@ class BatchedPuschPipeline:
         ``quarantined`` to ``run``'s leaves.
         """
         if faults is not None:
-            raise _not_ported("fault injection", "Queue 1 item 3")
+            raise _not_ported("fault injection", "Queue 1: faults and streaming")
         dev = self.device
         profile, params = resolve_schedule(self.cfg, schedule, n_slots, n_ues, dev)
         ue_keys = self._ue_keys(key, ue_keys, n_ues)

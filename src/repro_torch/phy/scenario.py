@@ -215,13 +215,13 @@ def _mixed_cell(
 def _multi_cell(n_ues: int, **kwargs) -> list:
     """Per-cell composition needs the topology slice."""
     raise NotImplementedError(
-        "scenario 'multi_cell' is not ported yet (ROADMAP, Queue 1 item 4)")
+        "scenario 'multi_cell' is not ported yet (ROADMAP, Queue 1: multi-cell topology)")
 
 
 def _churn_cell(n_ues: int, **kwargs) -> list:
     """Per-id staggered bursts for churn campaigns need the streaming slice."""
     raise NotImplementedError(
-        "scenario 'churn_cell' is not ported yet (ROADMAP, Queue 1 item 3)")
+        "scenario 'churn_cell' is not ported yet (ROADMAP, Queue 1: faults and streaming)")
 
 
 register_scenario(

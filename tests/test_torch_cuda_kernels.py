@@ -1,4 +1,5 @@
-"""The hand-written kernels against their plain versions on the card.
+"""The hand-written kernels against their plain versions on the card, and small
+CONCURRENT and GATED campaigns through them.
 
 Marked ``cuda``: each skips where there is no NVIDIA GPU, because a CUDA
 kernel has no CPU mode.  This file imports no JAX, so it runs on the card's
@@ -92,5 +93,147 @@ def test_cuda_closed_loop_equals_host_replay(cuda):
     sess = ArchesSession(spec, device=cuda)
     build.reset_launch_counts()
     hist = sess.run()
-    assert all(n > 0 for n in build.launch_counts.values()), build.launch_counts
+    for name in ("mmse_interp", "switch_select_batched", "tree_infer"):
+        assert build.launch_counts[name] > 0, build.launch_counts
     np.testing.assert_array_equal(hist.modes, sess.host_replay(hist)["active_mode"])
+
+
+# -- the GATED slice: the scatter and the fused gated expert -------------------
+
+#: fused kernel vs plain version on the card, float32: the same convolutions
+#: summed in another order (direct taps vs cuBLAS's folded GEMMs) through
+#: 2R + 3 layers; the same bound as the CPU tests against the reference
+GATED_F32_TOL = dict(rtol=1e-4, atol=1e-5)
+#: bf16 operands: an activation that differs in its last float32 bit can
+#: round to the neighbouring bf16 value and carry (see test_torch_ai_estimator)
+GATED_BF16_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def _cplx(g, shape, dev):
+    return torch.complex(torch.randn(shape, generator=g, device=dev),
+                         torch.randn(shape, generator=g, device=dev))
+
+
+def _compaction(mode, capacity):
+    """The bank's cumsum partition: ``(idx, src)`` for a mode vector."""
+    is_gated = mode == 0
+    pos = torch.cumsum(is_gated.to(torch.int32), 0, dtype=torch.int32) - 1
+    src = torch.where(is_gated & (pos < capacity), pos, torch.full_like(pos, -1))
+    idx = torch.argsort((~is_gated).to(torch.int32), stable=True)[:capacity]
+    return idx.to(torch.int32), src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ues,capacity,shape", [
+    (32, 16, (4, 1, 1272, 3)), (6, 3, (5, 2)), (1, 1, (7,)), (5, 5, (3, 3))])
+def test_cuda_switch_gather_vs_plain(cuda, n_ues, capacity, shape):
+    from repro_torch.kernels.switch_select import switch_gather_batched_ref, switch_scatter
+
+    g = torch.Generator(device=cuda).manual_seed(n_ues)
+    des0 = _cplx(g, (n_ues,) + shape, cuda)
+    compact = _cplx(g, (capacity,) + shape, cuda)
+    some = (torch.arange(n_ues, device=cuda) % 3 != 1).to(torch.int32) - 1  # 0 or -1
+    for picked in (some, -torch.ones(n_ues, dtype=torch.int32, device=cuda),
+                   torch.zeros(n_ues, dtype=torch.int32, device=cuda)):
+        mode = (picked < 0).to(torch.int32)
+        _, src = _compaction(mode, capacity)
+        want = switch_gather_batched_ref(src, compact, des0)
+        des = des0.clone()
+        before = build.launch_counts["switch_gather_batched"]
+        got = switch_scatter(src, compact, des)
+        torch.cuda.synchronize()
+        assert build.launch_counts["switch_gather_batched"] == before + 1
+        assert got.data_ptr() == des.data_ptr()
+        assert torch.equal(got, want)
+
+
+def _gated_setup(cuda, n_prb, channels, n_res, n_ues, compute_dtype, seed=0):
+    from repro_torch import random as jr
+    from repro_torch.phy import ai_estimator as tai
+
+    cfg = SlotConfig(n_prb=n_prb)
+    net = tai.AiEstimatorConfig(channels=channels, n_res_blocks=n_res)
+    params = tai.init_params(jr.PRNGKey(seed), cfg, net)
+    ai = tai.AiEstimator(params, cfg.n_dmrs_sym, compute_dtype).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h_ls = _cplx(g, (n_ues, cfg.n_ant, cfg.n_dmrs_sym, cfg.n_pilot_sc), cuda)
+    des = _cplx(g, (n_ues, cfg.n_ant, 1, cfg.n_sc, cfg.n_dmrs_sym), cuda)
+    return ai, h_ls, des
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n_prb,channels,n_res,n_ues,capacity", [
+    (24, 8, 1, 5, 3), (106, 32, 4, 32, 16)])
+def test_cuda_gated_expert_vs_plain(cuda, bf16, n_prb, channels, n_res, n_ues, capacity):
+    from repro_torch.kernels.gated_expert import gated_expert_apply, gated_expert_apply_ref
+
+    cd = torch.bfloat16 if bf16 else None
+    ai, h_ls, des0 = _gated_setup(cuda, n_prb, channels, n_res, n_ues, cd)
+    mode = (torch.arange(n_ues, device=cuda) % 3 != 1).to(torch.int32)  # 1 of 3 selects AI
+    idx, src = _compaction(mode, capacity)
+    assert int((src >= 0).sum()) < capacity  # some rows are padding
+    want = gated_expert_apply_ref(idx, src, h_ls, des0, ai, compute_dtype=cd)
+    des = des0.clone()
+    before = build.launch_counts["gated_expert"]
+    got = gated_expert_apply(idx, src, h_ls, des, ai, compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert build.launch_counts["gated_expert"] == before + 1
+    assert got.data_ptr() == des.data_ptr()
+    kept = src < 0  # padding rows' UEs and unselected UEs: bitwise untouched
+    assert torch.equal(got[kept], des0[kept])
+    torch.testing.assert_close(got, want, **(GATED_BF16_TOL if bf16 else GATED_F32_TOL))
+
+
+@pytest.mark.cuda
+def test_cuda_gated_expert_batch_composition_bitwise(cuda):
+    """One UE's estimate is the same bits at K = 1, at K = 16 and at another
+    row of ``idx``: every row runs the same code in the same order."""
+    from repro_torch.kernels.gated_expert import gated_expert_apply
+
+    ai, h_ls, des0 = _gated_setup(cuda, 106, 32, 4, 32, None, seed=3)
+    ue = 9
+    alone = torch.ones(32, dtype=torch.int32, device=cuda)
+    alone[ue] = 0
+    many = (torch.arange(32, device=cuda) % 2 == 1).to(torch.int32)
+    many[ue] = 0
+    outs = []
+    for mode, capacity in ((alone, 1), (many, 16), (torch.zeros_like(many), 32)):
+        idx, src = _compaction(mode, capacity)
+        outs.append(gated_expert_apply(idx, src, h_ls, des0.clone(), ai)[ue])
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_gated_closed_loop_equals_host_replay(cuda, fused):
+    """A small GATED closed loop on the card: its kernels launch, the device
+    loop equals its host replay, and the cost leaf matches the served share."""
+    from repro_torch.core.session import (
+        ArchesSession,
+        CampaignSpec,
+        ExpertBankSpec,
+        PolicySpec,
+    )
+
+    torch.use_deterministic_algorithms(True)
+    spec = CampaignSpec(path="closed_loop", scenario="good_poor_good", n_ues=3, n_slots=9,
+                        scenario_args=(("poor_start", 3), ("poor_end", 6)),
+                        bank=ExpertBankSpec(execution_mode="gated", gated_capacity=2,
+                                            fused=fused),
+                        policies=(PolicySpec(kind="tree"),))
+    sess = ArchesSession(spec, device=cuda)
+    sess.host_policies  # profile on the CONCURRENT engine first
+    build.reset_launch_counts()
+    hist = sess.run()
+    kernel = "gated_expert" if fused else "switch_gather_batched"
+    assert build.launch_counts["mmse_interp"] == 9, build.launch_counts
+    assert build.launch_counts["switch_select_batched"] == 0, build.launch_counts
+    # the compact sub-batch has a static capacity: one launch every slot
+    assert build.launch_counts[kernel] == 9, build.launch_counts
+    np.testing.assert_array_equal(hist.modes, sess.host_replay(hist)["active_mode"])
+    served = (hist.modes == 0) & (hist.outputs["gated_overflow"] == 0)
+    engine = sess.engine
+    want = (engine.bank.experts[1].flops + engine.bank.experts[0].flops * served)
+    np.testing.assert_allclose(hist.outputs["executed_flops"], want, rtol=1e-6)

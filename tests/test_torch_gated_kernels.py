@@ -1,0 +1,224 @@
+"""The GATED slice's two kernel modules against ``repro``'s.
+
+On the CPU each wrapper runs its plain PyTorch version.  The scatter is
+pure data movement, so it is held bitwise against ``repro``'s plain version
+and its Pallas kernel in interpret mode.  The fused gated expert is held
+within the AI expert's tolerances against ``repro``'s unfused reference and
+its Pallas kernel in interpret mode, and the UEs it must not touch are held
+bitwise.  The kernels themselves run on the card
+(``test_torch_cuda_kernels.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.gated_expert import gated_expert_apply as r_gated_expert_apply
+from repro.kernels.switch_select.ops import switch_gather_batched_leaf
+from repro.kernels.switch_select.ops import switch_scatter as r_switch_scatter
+from repro.phy import ai_estimator as rai
+from repro.phy.nr import SlotConfig as RSlotConfig
+from repro_torch.convert import ai_params_from_reference
+from repro_torch.kernels.gated_expert import gated_expert_apply, gated_expert_apply_ref
+from repro_torch.kernels.switch_select import switch_gather_batched_ref, switch_scatter
+from repro_torch.phy import ai_estimator as tai
+from repro_torch.phy.nr import SlotConfig
+
+# one intra-op thread: the suite runs several workers on the same cores
+torch.set_num_threads(1)
+
+N_PRB = 24
+CFG, RCFG = SlotConfig(n_prb=N_PRB), RSlotConfig(n_prb=N_PRB)
+#: the AI expert's tolerances against the reference (test_torch_ai_estimator):
+#: the same folded GEMMs summed in another order; bf16 operands can round an
+#: activation that differs in its last float32 bit to the neighbouring bf16
+F32_TOL = dict(rtol=1e-4, atol=1e-5)
+BF16_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def _cplx(rng, shape):
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+
+
+def _compaction(mode: np.ndarray, capacity: int):
+    """The bank's stable cumsum partition, in numpy: ``(idx, src)``."""
+    is_gated = mode == 0
+    pos = np.cumsum(is_gated) - 1
+    src = np.where(is_gated & (pos < capacity), pos, -1).astype(np.int32)
+    idx = np.argsort(~is_gated, kind="stable")[:capacity].astype(np.int32)
+    return idx, src
+
+
+# -- switch_scatter ---------------------------------------------------------------
+
+SRC_CASES = {
+    "mixed": [-1, 0, 2, -1, 1, -1],
+    "none": [-1] * 6,
+    "all": [0, 1, 2, 0, 1, 2],
+}
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 48, 3), (7,), (3, 5, 2)])
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64])
+@pytest.mark.parametrize("case", sorted(SRC_CASES))
+def test_scatter_plain_vs_reference(shape, dtype, case, rng):
+    def draw(lead):
+        x = rng.normal(size=(lead,) + shape)
+        if dtype == np.complex64:
+            x = x + 1j * rng.normal(size=(lead,) + shape)
+        return x.astype(dtype)
+
+    compact, des = draw(3), draw(6)
+    src = np.asarray(SRC_CASES[case], np.int32)
+    want = np.asarray(r_switch_scatter(jnp.asarray(src), jnp.asarray(compact),
+                                       jnp.asarray(des), backend="ref"))
+    kern = np.asarray(switch_gather_batched_leaf(jnp.asarray(src), jnp.asarray(compact),
+                                                 jnp.asarray(des), interpret=True))
+    np.testing.assert_array_equal(kern, want)
+    t_des = torch.as_tensor(des)
+    got = switch_scatter(torch.as_tensor(src), torch.as_tensor(compact), t_des)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(t_des.numpy(), des)  # the plain version copies
+    np.testing.assert_array_equal(
+        switch_scatter(torch.as_tensor(src), torch.as_tensor(compact), t_des,
+                       backend="ref").numpy(), want)
+
+
+@pytest.mark.parametrize("src", [[-1], [0]])
+def test_scatter_single_ue_unit_capacity(src, rng):
+    des, compact = _cplx(rng, (1, 40)), _cplx(rng, (1, 40))
+    src = np.asarray(src, np.int32)
+    want = np.asarray(switch_gather_batched_leaf(jnp.asarray(src), jnp.asarray(compact),
+                                                 jnp.asarray(des), interpret=True))
+    got = switch_gather_batched_ref(torch.as_tensor(src), torch.as_tensor(compact),
+                                    torch.as_tensor(des))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scatter_wrapper_checks():
+    src = torch.tensor([0, -1], dtype=torch.int32)
+    des = torch.zeros(2, 3)
+    with pytest.raises(ValueError):
+        switch_scatter(src, torch.zeros(1, 3), des, backend="nope")
+    with pytest.raises(ValueError):
+        switch_scatter(src, torch.zeros(0, 3), des)  # capacity 0: skip the call
+    with pytest.raises(ValueError):
+        switch_scatter(src, torch.zeros(1, 4), des)
+    with pytest.raises(ValueError):
+        switch_scatter(src[:1], torch.zeros(1, 3), des)
+
+
+# -- gated_expert_apply ---------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def weights():
+    rnet = rai.AiEstimatorConfig(channels=8, n_res_blocks=1)
+    ref = rai.init_params(__import__("jax").random.PRNGKey(0), RCFG, rnet)
+    return ref, rai.fold_ai_params(ref, RCFG.n_dmrs_sym), ai_params_from_reference(ref)
+
+
+CASES = [  # (n_ues, capacity, mode)
+    (5, 3, [0, 1, 0, 1, 1]),  # one padding row
+    (4, 4, [0, 0, 0, 0]),  # all selected
+    (4, 2, [1, 1, 1, 1]),  # none selected: every row is padding
+    (1, 1, [0]),  # one UE
+    (6, 1, [1, 0, 1, 0, 0, 1]),  # K = 1, two UEs overflow
+    (5, 5, [1, 0, 1, 1, 0]),  # full capacity
+]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n_ues,capacity,mode", CASES)
+def test_gated_expert_plain_vs_reference(weights, bf16, n_ues, capacity, mode, rng):
+    ref, rfolded, tparams = weights
+    h_ls = _cplx(rng, (n_ues, CFG.n_ant, CFG.n_dmrs_sym, CFG.n_pilot_sc))
+    des = _cplx(rng, (n_ues, CFG.n_ant, 1, CFG.n_sc, CFG.n_dmrs_sym))
+    idx, src = _compaction(np.asarray(mode), capacity)
+    rcd, tcd = (jnp.bfloat16, torch.bfloat16) if bf16 else (None, None)
+    rargs = (jnp.asarray(idx), jnp.asarray(src), jnp.asarray(h_ls), jnp.asarray(des), rfolded)
+    want = np.asarray(r_gated_expert_apply(*rargs, compute_dtype=rcd, backend="ref"))
+    kern = np.asarray(r_gated_expert_apply(*rargs, compute_dtype=rcd, backend="pallas",
+                                           interpret=True))
+    module = tai.AiEstimator(tparams, CFG.n_dmrs_sym, tcd)
+    targs = (torch.as_tensor(idx), torch.as_tensor(src), torch.as_tensor(h_ls),
+             torch.as_tensor(des))
+    got = gated_expert_apply(*targs, module, compute_dtype=tcd).numpy()
+    tol = BF16_TOL if bf16 else F32_TOL
+    np.testing.assert_allclose(got, want, **tol)
+    np.testing.assert_allclose(got, kern, **tol)
+    # the folded-dict form and the explicit oracle request give the same bits
+    np.testing.assert_array_equal(
+        gated_expert_apply_ref(*targs, module.folded(), compute_dtype=tcd).numpy(), got)
+    np.testing.assert_array_equal(
+        gated_expert_apply(*targs, module, compute_dtype=tcd, backend="ref").numpy(), got)
+    # padding rows' UEs and unselected UEs keep the baseline bitwise
+    kept = src < 0
+    np.testing.assert_array_equal(got[kept], des[kept])
+
+
+def test_gated_expert_wrapper_checks(weights):
+    _, _, tparams = weights
+    module = tai.AiEstimator(tparams, CFG.n_dmrs_sym)
+    h = torch.zeros(2, CFG.n_ant, CFG.n_dmrs_sym, CFG.n_pilot_sc, dtype=torch.complex64)
+    des = torch.zeros(2, CFG.n_ant, 1, CFG.n_sc, CFG.n_dmrs_sym, dtype=torch.complex64)
+    idx, src = torch.tensor([0], dtype=torch.int32), torch.tensor([0, -1], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        gated_expert_apply(idx, src, h, des, module, backend="nope")
+    with pytest.raises(ValueError):
+        gated_expert_apply(idx[:0], src, h, des, module)  # capacity 0: skip the call
+    with pytest.raises(ValueError):
+        gated_expert_apply(idx, src, h, des[:, :, :, :-2], module)
+    with pytest.raises(ValueError):
+        gated_expert_apply(idx, src, h, des, module, compute_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("channels,n_res", [(8, 1), (6, 2)])
+def test_kernel_operands_drive_a_direct_conv(weights, channels, n_res, rng):
+    """The pack the fused kernel reads, (C_in, 3, 3, C_out) per layer with
+    C_out padded to 4, run as direct 3x3 convolutions (the kernel's
+    arithmetic), equals the folded-GEMM estimator; and a bf16 module packs
+    its weights already rounded."""
+    from repro_torch import random as jr
+
+    net = tai.AiEstimatorConfig(channels=channels, n_res_blocks=n_res)
+    params = tai.init_params(jr.PRNGKey(channels), CFG, net)
+    folded = tai.fold_ai_params(params, CFG.n_dmrs_sym)
+    w, b = tai.kernel_operands(folded)
+    cp = -(-channels // 4) * 4
+    shapes = ([(2, channels)] + [(channels, channels)] * (2 * n_res)
+              + [(channels, 2 * channels), (channels, 2)])
+    layers, wo, bo = [], 0, 0
+    for cin, cout in shapes:
+        cpad = -(-cout // 4) * 4
+        wl = w[wo: wo + cin * 9 * cpad].reshape(cin, 3, 3, cpad)[..., :cout]
+        layers.append((wl.permute(3, 0, 1, 2), b[bo: bo + cout]))
+        wo, bo = wo + cin * 9 * cpad, bo + cpad
+    assert wo == w.numel() and bo == b.numel() and cp <= bo
+
+    h_ls = torch.as_tensor(_cplx(rng, (2, CFG.n_ant, CFG.n_dmrs_sym, CFG.n_pilot_sc)))
+    # (U*ant, C, H = subcarrier, W = symbol), the kernel's view of one GEMM column
+    x = torch.stack([h_ls.real, h_ls.imag], dim=2).permute(0, 1, 2, 4, 3)
+    x = x.reshape(-1, 2, CFG.n_pilot_sc, CFG.n_dmrs_sym)
+
+    def conv(a, layer):
+        return torch.nn.functional.conv2d(a, layer[0], layer[1], padding=1)
+
+    h = conv(x, layers[0])
+    for r in range(n_res):
+        h = h + conv(torch.relu(conv(h, layers[1 + 2 * r])), layers[2 + 2 * r])
+    u = conv(h, layers[-2])  # (B, 2C, Np, S) -> channel r*C + c at 2p + r
+    u = u.reshape(u.shape[0], 2, channels, CFG.n_pilot_sc, -1).permute(0, 2, 3, 1, 4)
+    u = u.reshape(u.shape[0], channels, CFG.n_sc, -1)
+    corr = conv(u, layers[-1])
+    nxt = torch.cat([x[:, :, 1:], x[:, :, -1:]], dim=2)
+    base = torch.stack([x, 0.5 * (x + nxt)], dim=3).reshape(corr.shape)
+    out = (base + corr).reshape(2, CFG.n_ant, 2, CFG.n_sc, -1)
+    got = torch.complex(out[:, :, 0], out[:, :, 1])[:, :, None]
+    want = tai.ai_estimate_folded(folded, h_ls)
+    torch.testing.assert_close(got, want, **F32_TOL)
+
+    module = tai.AiEstimator(params, CFG.n_dmrs_sym, torch.bfloat16)
+    assert torch.equal(module.kernel_w, w.to(torch.bfloat16).to(torch.float32))
+    assert torch.equal(module.kernel_b, b)

@@ -185,12 +185,12 @@ def test_unported_paths_raise():
         tses.CampaignSpec(faults={"decision_loss": 0.1})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tses.CampaignSpec(topology={"n_cells": 2})
-    for path in ("host", "gated", "perturbed"):
+    for path in ("host", "perturbed"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tses.ArchesSession(tses.CampaignSpec(path=path), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tses.ArchesSession(tses.CampaignSpec(
-            bank=tses.ExpertBankSpec(execution_mode="gated", gated_capacity=2)), device="cpu")
+            bank=tses.ExpertBankSpec(execution_mode="selected_only")), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         from repro_torch.phy.scenario import get_scenario
 
