@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU: build, check and time every kernel,
-run the CONCURRENT and GATED closed-loop campaigns at full width, and print a
-JSON verdict.
+run the CONCURRENT and GATED closed-loop campaigns, the host E3/dApp loop and
+the methodology's perturbation sweep at full width, and print a JSON verdict.
 
 Usage (from the repository root, on a machine with an H100):
 
@@ -11,8 +11,8 @@ Phases, each of which raises on failure (exit code != 0):
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a``,
    one process per source, all started together;
-3. kernels: each kernel at the main path's shapes against its plain
-   PyTorch version (switch, scatter and tree bitwise, ``mmse_interp``
+3. kernels: each kernel at its path's shapes against its plain
+   PyTorch version (switches, scatter and tree bitwise, ``mmse_interp``
    within ``MMSE_TOL``, the fused gated expert within ``GATED_F32_TOL`` /
    ``GATED_BF16_TOL`` with untouched UEs bitwise and one UE's estimate
    bitwise the same at any capacity), with kernel, plain-version and
@@ -28,14 +28,24 @@ Phases, each of which raises on failure (exit code != 0):
    smaller depth, which launches the scatter kernel;
 6. GATED vs CONCURRENT: the same policy on a full-capacity GATED bank
    against the CONCURRENT run, as agreement rates;
-7. reference: small CONCURRENT and GATED campaigns on the card against the
-   same campaigns run by the plain versions on the CPU;
-8. profile: one more closed-loop run of each bank under
-   ``torch.profiler``: the device's busy share, the AI expert's device
-   time per slot, and kernel time by name.
+7. host loop: ``ArchesSession(path="host")`` at n_prb 106 with the AI
+   expert at its default width and a tree policy, 40 slots: the scalar
+   switch must launch exactly once per slot and ``mmse_interp`` must
+   launch, every trajectory leaf must be finite, and the loop must
+   synchronise with the device exactly once per slot (its one read-back,
+   by PyTorch's sync debug mode); ms per slot and the median measured
+   policy time are logged;
+8. perturbed sweep: ``sensitivity_sweep_batched`` on that session's engine
+   at n_prb 106 (the 21 default rhos x 8 trials = 168 UEs, 8 slots a trial),
+   then the stage-2 filter and ``design_policy_inputs``;
+9. reference: small CONCURRENT, GATED, host and perturbed campaigns on the
+   card against the same campaigns run by the plain versions on the CPU;
+10. profile: one more run of each closed loop and of the host loop under
+    ``torch.profiler``: the device's busy share, the launches per slot,
+    the AI expert's device time per slot, and kernel time by name.
 
-Each path's launch counts are zeroed just before its ``run()`` and read
-just after it.
+Each path's launch counts are zeroed just before its ``run()`` (or the
+sweep) and read just after it.
 
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Nothing is printed as a
@@ -44,6 +54,7 @@ result when CUDA is unavailable or the package cannot be imported.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -88,6 +99,15 @@ REF_KPM_RTOL = 1e-3
 N_UES, N_PRB, N_SLOTS = 32, 106, 40
 CHANNELS, N_RES = 32, 4
 GATED_CAPACITY, UNFUSED_SLOTS = 16, 12
+#: the perturbation sweep: every default rho x this many trials rides the UE axis
+SWEEP_TRIALS, SWEEP_SLOTS = 8, 8
+
+
+def sweep_ues() -> int:
+    """UEs of the perturbation sweep: every default rho x ``SWEEP_TRIALS``."""
+    from repro_torch.core.methodology import DEFAULT_RHOS
+
+    return len(DEFAULT_RHOS) * SWEEP_TRIALS
 
 
 def log(msg: str) -> None:
@@ -156,16 +176,24 @@ def phase_kernels() -> list[dict]:
     rows = []
 
     # -- mmse_interp: (U*ant*dmrs, Np) @ (Np, Nsc) ------------------------------
+    # at each path's row count: the closed loop's 32 UEs (a whole number of
+    # 64-row tiles), the host loop's one UE and the sweep's 168 UEs (both
+    # end in a partial tile, which exercises the row-edge mask)
     w = WienerInterpolator.build(cfg, device=dev).w
-    b = N_UES * cfg.n_ant * cfg.n_dmrs_sym
-    h = torch.complex(torch.randn(b, cfg.n_pilot_sc, generator=gen, device=dev),
-                      torch.randn(b, cfg.n_pilot_sc, generator=gen, device=dev))
-    got = mmse_interp(h, w)
-    want = mmse_interp_ref(h, w)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not err <= MMSE_TOL:
-        raise AssertionError(f"mmse_interp max |err| {err} > {MMSE_TOL}")
+    per_ue = cfg.n_ant * cfg.n_dmrs_sym
+    err = 0.0
+    for n_ues in (1, sweep_ues(), N_UES):
+        b = n_ues * per_ue
+        h = torch.complex(torch.randn(b, cfg.n_pilot_sc, generator=gen, device=dev),
+                          torch.randn(b, cfg.n_pilot_sc, generator=gen, device=dev))
+        got = mmse_interp(h, w)
+        want = mmse_interp_ref(h, w)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        log(f"  mmse_interp at {b} rows ({n_ues} UEs): max |err| {e:.3g}")
+        if not e <= MMSE_TOL:
+            raise AssertionError(f"mmse_interp max |err| {e} > {MMSE_TOL} at {b} rows")
+        err = max(err, e)
     ms = time_ms(lambda: mmse_interp(h, w))
     plain = time_ms(lambda: mmse_interp_ref(h, w))
     lib = time_ms(lambda: torch.matmul(h, w))
@@ -176,7 +204,8 @@ def phase_kernels() -> list[dict]:
         replaces="src/repro/kernels/mmse_interp/mmse_interp.py:54",
         launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bms, bound_by=by, library_ms=lib,
-        shape=f"H ({b}, {np_}) @ W ({np_}, {nsc}) complex64",
+        shape=f"H ({b}, {np_}) @ W ({np_}, {nsc}) complex64 (also checked at "
+              f"{per_ue} and {sweep_ues() * per_ue} rows)",
     ))
 
     # -- switch_select: (U, ant, 1, Nsc, dmrs) complex64, mixed modes -----------
@@ -248,6 +277,66 @@ def phase_kernels() -> list[dict]:
             f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}), "
             f"max|err| {r['max_abs_err']:.3g}, {r['shape']}")
     return rows
+
+
+def phase_scalar_switch() -> dict:
+    """The host loop's scalar switch at its shape: one UE's estimate
+    ``(ant, 1, Nsc, dmrs)`` complex64, two experts.  Bitwise on both modes
+    (by value and from an int32 on the card) and on a device mode that names
+    no expert (the buffer is kept); no-op and copy times beside the bound,
+    the plain version and the library calls."""
+    from repro_torch.kernels.switch_select import switch_select, switch_select_ref
+    from repro_torch.phy.nr import SlotConfig
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    cfg = SlotConfig(n_prb=N_PRB)
+    shape = (cfg.n_ant, 1, cfg.n_sc, cfg.n_dmrs_sym)
+    des0 = torch.complex(torch.randn(shape, generator=gen, device=dev),
+                         torch.randn(shape, generator=gen, device=dev))
+    alt = torch.complex(torch.randn(shape, generator=gen, device=dev),
+                        torch.randn(shape, generator=gen, device=dev))
+    for mode in (0, 1):
+        want = switch_select_ref(mode, [des0, alt])
+        for m in (mode, torch.tensor(mode, dtype=torch.int32, device=dev)):
+            des = des0.clone()
+            got = switch_select(m, [des, alt])
+            torch.cuda.synchronize()
+            if got.data_ptr() != des.data_ptr() or not torch.equal(got, want):
+                raise AssertionError(f"scalar switch differs from its plain version, mode {mode}")
+    des = des0.clone()
+    got = switch_select(torch.tensor(2, dtype=torch.int32, device=dev), [des, alt])
+    torch.cuda.synchronize()
+    if not torch.equal(got, des0):
+        raise AssertionError("scalar switch: an out-of-range device mode did not keep the buffer")
+    des = des0.clone()
+    noop = time_ms(lambda: switch_select(0, [des, alt]), iters=200)
+    copy = time_ms(lambda: switch_select(1, [des, alt]), iters=200)
+    plain = time_ms(lambda: switch_select_ref(1, [des0, alt]), iters=200)
+    lib_copy = time_ms(lambda: des.copy_(alt), iters=200)
+    # the host bank switches into a copy of the AI estimate on a slot that
+    # may switch, so that all_outputs[0] stays unswitched
+    clone = time_ms(lambda: des0.clone(), iters=200)
+    # under deterministic algorithms a new tensor is filled with NaN first
+    empty = time_ms(lambda: torch.empty_like(des0), iters=200)
+    modes = {m: torch.tensor(m, dtype=torch.int32, device=dev) for m in (0, 1)}
+    lib_where = {m: time_ms(lambda m=m: torch.where(modes[m] == 0, des0, alt), iters=200)
+                 for m in (0, 1)}
+    n_bytes = des0.numel() * 8
+    bms, by = bound_ms(2.0 * n_bytes, 0.0)
+    log(f"kernel switch_select (scalar): no-op {noop * 1e3:.2f} us, copy {copy * 1e3:.2f} us "
+        f"(plain {plain * 1e3:.2f} us; library copy_ {lib_copy * 1e3:.2f} us, torch.where "
+        f"mode 0 {lib_where[0] * 1e3:.2f} us / mode 1 {lib_where[1] * 1e3:.2f} us; bound "
+        f"{bms * 1e3:.3f} us by {by} for the copy; the host bank's clone of the estimate "
+        f"{clone * 1e3:.2f} us, of which torch.empty_like {empty * 1e3:.2f} us), bitwise "
+        f"on modes 0, 1 and an "
+        f"out-of-range device mode, {shape} complex64 = {n_bytes} B")
+    return dict(
+        name="switch_select", route="cuda", source="src/repro_torch/csrc/switch_select.cu",
+        replaces="src/repro/kernels/switch_select/switch_select.py:62",
+        launches=0, max_abs_err=0.0, ms=copy, plain_ms=plain, bound_ms=bms, bound_by=by,
+        library_ms=lib_copy, shape=f"{shape} complex64, copy path",
+    )
 
 
 def _compaction(mode: torch.Tensor, capacity: int):
@@ -517,28 +606,150 @@ def phase_reference() -> None:
         PolicySpec,
     )
 
-    for label, n_ues, bank in (
-            ("CONCURRENT", 2, ExpertBankSpec()),
-            ("GATED fused, capacity 2", 3,
-             ExpertBankSpec(execution_mode="gated", gated_capacity=2, fused=True))):
-        spec = CampaignSpec(
-            path="closed_loop", scenario="good_poor_good",
-            scenario_args=(("poor_start", 4), ("poor_end", 8)), n_prb=24, n_ues=n_ues,
-            n_slots=12, seed=7, bank=bank, policies=(PolicySpec(kind="tree"),),
-        )
+    closed = [CampaignSpec(
+        path="closed_loop", scenario="good_poor_good",
+        scenario_args=(("poor_start", 4), ("poor_end", 8)), n_prb=24, n_ues=n_ues,
+        n_slots=12, seed=7, bank=bank, policies=(PolicySpec(kind="tree"),),
+    ) for n_ues, bank in ((2, ExpertBankSpec()), (3, ExpertBankSpec(
+        execution_mode="gated", gated_capacity=2, fused=True)))]
+    perturbed = CampaignSpec(path="perturbed", scenario="good", n_prb=24, n_ues=4,
+                             n_slots=8, seed=7, rho=(0.0, 0.5, 1.0, 1.5))
+    for label, spec in (("CONCURRENT", closed[0]), ("GATED fused, capacity 2", closed[1]),
+                        ("host", _host_spec(24, 12, (4, 8))), ("perturbed", perturbed)):
+        n_ues = spec.n_ues
         cpu_sess = ArchesSession(spec, device="cpu")
         want = cpu_sess.run()
-        got = ArchesSession(spec, device="cuda", host_policies=cpu_sess.host_policies).run()
+        policies = cpu_sess.host_policies if spec.policies else None
+        got = ArchesSession(spec, device="cuda", host_policies=policies).run()
         agree, worst = agreement(got, want, f"reference {label}: card vs CPU plain "
-                                            f"versions, n_prb 24, {n_ues} UEs x 12 slots")
+                                            f"versions, n_prb 24, {n_ues} UEs x "
+                                            f"{spec.n_slots} slots")
         if agree["active_mode"] < AGREE_MIN or worst > REF_KPM_RTOL:
             raise AssertionError(f"card and CPU disagree: {agree}, KPM {worst}")
 
 
-def phase_profile(sess, label: str, ai_kernel: str) -> None:
-    """One closed-loop run under ``torch.profiler``: device busy share, the
-    launches per slot, the AI expert's device time per slot (kernels whose
-    name holds ``ai_kernel``) and kernel time by name."""
+def _host_spec(n_prb: int, n_slots: int, poor: tuple[int, int], **bank):
+    from repro_torch.core.session import CampaignSpec, ExpertBankSpec, PolicySpec
+
+    return CampaignSpec(
+        path="host", scenario="good_poor_good",
+        scenario_args=(("poor_start", poor[0]), ("poor_end", poor[1])), n_prb=n_prb,
+        n_ues=1, n_slots=n_slots, seed=7, bank=ExpertBankSpec(**bank),
+        policies=(PolicySpec(kind="tree"),),
+    )
+
+
+def phase_host():
+    """The host E3/dApp loop at full width: one UE, n_prb 106, the AI expert
+    at its default width, a tree policy profiled on the batched engine.
+
+    The counts are zeroed just before ``run()`` (profiling and tree fit
+    included; they run the batched switch, not the scalar one) and read
+    just after it: the scalar switch must launch once per slot.  A second
+    ``run()`` times the host loop alone, and a third counts the device
+    synchronisations with PyTorch's sync debug mode: one a slot.
+    """
+    import warnings
+
+    from repro_torch.core.session import ArchesSession
+    from repro_torch.kernels import build
+
+    spec = _host_spec(N_PRB, N_SLOTS, (13, 27), channels=CHANNELS, n_res_blocks=N_RES)
+    sess = ArchesSession(spec, device="cuda")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = sess.run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    if launches["switch_select"] != N_SLOTS or launches["mmse_interp"] == 0:
+        raise AssertionError(f"host loop launches {launches}: want switch_select == "
+                             f"{N_SLOTS} and mmse_interp > 0")
+    if hist.modes.shape != (N_SLOTS, 1):
+        raise AssertionError(f"host modes shape {hist.modes.shape}")
+    for name, v in list(hist.kpms.items()) + list(hist.outputs.items()):
+        if not np.isfinite(np.asarray(v, np.float64)).all():
+            raise AssertionError(f"host trajectory leaf {name} is not finite")
+    t0 = time.perf_counter()
+    sess.run()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    policy_us = [d.policy_us for d in sess.dapp.decisions]
+    e2e_us = [d.end_to_end_us for d in sess.dapp.decisions]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sess.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the mode's one-time notice on first use ("Synchronization debug mode is
+    # a prototype feature ...") names synchronizing operations but is not one
+    sync_at = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchronizing" in str(w.message) and "debug mode" not in str(w.message))
+    syncs = sum(sync_at.values())
+    log(f"host loop: {N_SLOTS} slots x 1 UE, n_prb {N_PRB}, AI {CHANNELS} ch x {N_RES} blocks; "
+        f"first run (profiling 2 x {N_SLOTS} slots + tree fit + loop) {first_s:.2f} s; host "
+        f"loop {loop_s:.3f} s = {loop_s / N_SLOTS * 1e3:.2f} ms/slot; {len(policy_us)} "
+        f"decisions, median policy time {np.median(policy_us):.2f} us (host tree walk), "
+        f"median modelled end-to-end {np.median(e2e_us):.2f} us (the paper's constants); "
+        f"device syncs (sync debug mode) {syncs} = {syncs / N_SLOTS:.2f} per slot; AI share "
+        f"{hist.ai_share:.4f}; modes {''.join(map(str, hist.modes[:, 0]))}; launches {launches}")
+    log(f"host loop syncs by line: {dict(sync_at)}")
+    if syncs != N_SLOTS:
+        raise AssertionError(f"host loop: {syncs} device syncs in {N_SLOTS} slots, want one "
+                             f"a slot (the read-back): {dict(sync_at)}")
+    return sess, launches
+
+
+def phase_sweep(sess) -> None:
+    """Stage 1 at full width on the host session's engine, then stages 2-3."""
+    from repro_torch.core.methodology import (
+        DEFAULT_RHOS,
+        design_policy_inputs,
+        monotonicity_filter,
+        sensitivity_sweep_batched,
+    )
+    from repro_torch.kernels import build
+
+    engine = sess.engine
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    sweep = sensitivity_sweep_batched(engine, sess.schedule, rhos=DEFAULT_RHOS,
+                                      n_trials=SWEEP_TRIALS, slots_per_trial=SWEEP_SLOTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    if launches["mmse_interp"] != SWEEP_SLOTS:
+        raise AssertionError(f"sweep launches {launches}: want mmse_interp == {SWEEP_SLOTS}")
+    if not np.isfinite(sweep.samples).all():
+        raise AssertionError("sweep samples are not finite")
+    snr = sweep.kpm_names.index("snr")
+    if not sweep.means[-1, snr] < sweep.means[0, snr]:
+        raise AssertionError("the perturbation did not lower the SNR")
+    kept = monotonicity_filter(sweep)
+    flat = {n: sweep.samples[:, :, k].reshape(-1) for k, n in enumerate(sweep.kpm_names)}
+    aerial_names = ("code_rate", "sinr", "qam_order", "mcs_index", "tb_size",
+                    "n_code_blocks", "pdu_length", "ndi", "rsrp")
+    aerial = {n: v for n, v in flat.items() if n in aerial_names}
+    oai = {n: v for n, v in flat.items() if n not in aerial_names}
+    selected, _, _ = design_policy_inputs(aerial, oai)
+    n_ues = len(DEFAULT_RHOS) * SWEEP_TRIALS
+    log(f"perturbed sweep: {len(DEFAULT_RHOS)} rhos x {SWEEP_TRIALS} trials = {n_ues} UEs x "
+        f"{SWEEP_SLOTS} slots at n_prb {N_PRB}: {wall:.3f} s wall "
+        f"({wall / SWEEP_SLOTS * 1e3:.1f} ms/slot); snr {sweep.means[0, snr]:.2f} dB at rho 0 "
+        f"-> {sweep.means[-1, snr]:.2f} dB at rho 2; monotonic (|spearman| >= 0.8): "
+        f"{sorted(kept)}; design_policy_inputs keeps {list(selected)}; launches {launches}")
+
+
+def phase_profile(sess, label: str, ai_kernels: tuple[str, ...]) -> None:
+    """One more ``run()`` of a session under ``torch.profiler``: device busy
+    share, the launches per slot, the AI expert's device time per slot
+    (kernels whose name holds one of ``ai_kernels``) and kernel time by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -550,12 +761,13 @@ def phase_profile(sess, label: str, ai_kernel: str) -> None:
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     launches = sum(e.count for e in events)
-    ai = [e for e in events if ai_kernel in e.key.lower()]
+    ai = [e for e in events if any(k in e.key.lower() for k in ai_kernels)]
     ai_ms = sum(e.self_device_time_total for e in ai) / 1e3
-    log(f"profile {label}: closed loop wall {wall:.3f} s (under the profiler), device "
+    n_slots = sess.spec.n_slots
+    log(f"profile {label}: loop wall {wall:.3f} s (under the profiler), device "
         f"kernel time {busy:.3f} s, device busy share {busy / wall:.4f}, "
-        f"{launches / N_SLOTS:.0f} kernel launches per slot; AI expert ({ai_kernel!r}, "
-        f"{sum(e.count for e in ai)} calls) {ai_ms / N_SLOTS:.3f} ms of device time per slot")
+        f"{launches / n_slots:.0f} kernel launches per slot; AI expert ({ai_kernels}, "
+        f"{sum(e.count for e in ai)} calls) {ai_ms / n_slots:.3f} ms of device time per slot")
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in events[:12]:
         log(f"  {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d} calls  "
@@ -569,7 +781,7 @@ def main() -> int:
     smi = phase_device()
     torch.use_deterministic_algorithms(True)
     phase_build()
-    rows = phase_kernels() + phase_gated_kernels()
+    rows = phase_kernels() + phase_gated_kernels() + [phase_scalar_switch()]
     conc, conc_hist, launches = run_path(
         "main path CONCURRENT", _main_spec(),
         ("mmse_interp", "switch_select_batched", "tree_infer"))
@@ -586,16 +798,19 @@ def main() -> int:
         host_policies=conc.host_policies, auto_capacity=True, rerun=False)
     log(f"GATED unfused: auto_capacity provisioned {unf_hist.provisioned_capacity} "
         f"(declared {GATED_CAPACITY}), overflow slot-UEs {unf_hist.overflow_slot_ues}")
+    host, host_launches = phase_host()
+    phase_sweep(host)
     for r in rows:
-        source = {"gated_expert": gated_launches,
-                  "switch_gather_batched": unf_launches}.get(r["name"], launches)
+        source = {"gated_expert": gated_launches, "switch_gather_batched": unf_launches,
+                  "switch_select": host_launches}.get(r["name"], launches)
         r["launches"] = source[r["name"]]
         r.pop("shape")
     log(f"kernels held against their plain versions: {[r['name'] for r in rows]}")
     phase_gated_vs_concurrent(conc_hist, conc.host_policies)
     phase_reference()
-    phase_profile(conc, "CONCURRENT", "gemm")
-    phase_profile(gated, "GATED fused", "gated_expert")
+    phase_profile(conc, "CONCURRENT", ("gemm",))
+    phase_profile(gated, "GATED fused", ("gated_expert",))
+    phase_profile(host, "host loop", ("conv", "fprop", "cudnn"))
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")

@@ -1,8 +1,16 @@
-"""Switchable expert bank (paper 2, 3.1): CONCURRENT and GATED execution.
+"""Switchable expert bank (paper 2, 3.1): CONCURRENT, SELECTED_ONLY and GATED.
 
-* ``CONCURRENT`` -- every expert runs on every UE each slot and the per-UE
-  switch kernel (``repro_torch.kernels.switch_select``) selects each UE's
+The mode is a scalar (an int, or a 0-d tensor) for the single-UE host
+loop, or an ``(n_ues,)`` vector for the batched engine, in which case every
+expert output carries a leading UE axis.
+
+* ``CONCURRENT`` -- every expert runs each slot and the switch kernel
+  (``repro_torch.kernels.switch_select``, scalar or per UE) selects the
   output into the designated buffer.
+* ``SELECTED_ONLY`` -- with a scalar mode only the selected expert runs (an
+  out-of-range mode is clamped, as ``jax.lax.switch`` clamps it); with a
+  mode vector every expert runs and the plain gather selects per UE, as the
+  reference does.
 * ``GATED`` -- the cheap experts run densely on every UE; the designated
   (expensive) expert runs only on the UEs whose mode selects it, compacted
   into a dense capacity-``K`` sub-batch (stable cumsum partition), and the
@@ -15,8 +23,7 @@
 
 Mode numbering follows the paper: the designated expert comes first (mode
 0 means its output is already in the downstream buffer); the fail-safe
-expert is ``default_mode``.  SELECTED_ONLY waits for the host-loop slice
-(ROADMAP, Queue 1) and raises here.
+expert is ``default_mode``.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from repro_torch.kernels.switch_select import (
     switch_scatter,
     switch_select,
     switch_select_batched_ref,
+    switch_select_ref,
 )
 
 
@@ -60,8 +68,8 @@ class ExecutionMode(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class Expert:
-    """One entry of the bank: ``fn(params, *inputs) -> (U, ...) tensor`` and
-    its static per-UE-slot cost in FLOPs."""
+    """One entry of the bank: ``fn(params, *inputs) -> tensor`` and its
+    static per-call (per UE-slot) cost in FLOPs."""
 
     name: str
     fn: Callable[..., Any]
@@ -85,15 +93,20 @@ class BankOutput:
 
     ``selected`` is the designated buffer after the switch.  ``served_by
     (U,)`` is the expert each UE received (it differs from ``mode`` exactly
-    on GATED overflow or an audit trip); ``executed_ue (n_experts,)`` counts
-    the UEs each expert actually ran on.
+    on GATED overflow or an audit trip; batched calls only);
+    ``executed_ue (n_experts,)`` counts the UEs each expert actually ran on
+    (a scalar call's counts are host facts and stay on the CPU).
 
     Aliasing on the card, where the kernels write in place:
 
-    * CONCURRENT: ``all_outputs[0]`` is the switched buffer, the same tensor
-      as ``selected`` (the reference keeps it unswitched); the other entries
-      are the alternatives' untouched outputs and ``baseline`` is the
-      fail-safe's.
+    * CONCURRENT, mode vector: ``all_outputs[0]`` is the switched buffer,
+      the same tensor as ``selected`` (the reference keeps it unswitched);
+      the other entries are the alternatives' untouched outputs and
+      ``baseline`` is the fail-safe's.
+    * CONCURRENT, scalar mode: the switch writes into a copy of the
+      designated output (one device copy of the estimate per call that may
+      switch: a mode other than the int 0), so ``all_outputs[0]`` stays the
+      unswitched output, as in the reference.
     * GATED: the gated rows are scattered into the fail-safe output itself.
       With ``audit_threshold`` set, ``baseline`` is a copy taken before the
       scatter: the unswitched fail-safe estimate, which the audit compares
@@ -106,7 +119,7 @@ class BankOutput:
 
     selected: Any
     all_outputs: tuple | None
-    mode: torch.Tensor
+    mode: torch.Tensor | int
     served_by: torch.Tensor | None = None
     executed_ue: torch.Tensor | None = None
     overflow: torch.Tensor | None = None  # (U,) bool, GATED only
@@ -133,11 +146,6 @@ class ExpertBank:
         if not 0 <= default_mode < len(experts):
             raise ValueError(f"default_mode {default_mode} out of range")
         execution_mode = ExecutionMode.coerce(execution_mode)
-        if execution_mode is ExecutionMode.SELECTED_ONLY:
-            raise NotImplementedError(
-                "selected_only execution is not ported yet "
-                "(ROADMAP, Queue 1: host-loop path)"
-            )
         if execution_mode is ExecutionMode.GATED and default_mode == 0:
             raise ValueError(
                 "GATED gates the designated expert (mode 0); the fail-safe "
@@ -178,25 +186,70 @@ class ExpertBank:
     def names(self) -> tuple[str, ...]:
         return tuple(e.name for e in self.experts)
 
-    def __call__(self, mode: torch.Tensor, *inputs) -> BankOutput:
-        """Run the bank; UE ``u`` receives expert ``mode[u]``'s output."""
-        mode = mode.to(torch.int32)
-        if mode.ndim != 1:
-            raise ValueError("the port's bank is batched: mode must be (n_ues,)")
-        if self.execution_mode is ExecutionMode.GATED:
-            return self._run_gated(mode, *inputs)
-        outputs = tuple(e.fn(e.params, *inputs) for e in self.experts)
-        if self.use_pallas_switch:
-            selected = switch_select(mode, list(outputs))
+    def __call__(self, mode: torch.Tensor | int, *inputs) -> BankOutput:
+        """Run the bank.  A scalar ``mode`` selects one output; an ``(n_ues,)``
+        vector gives UE ``u`` expert ``mode[u]``'s output."""
+        if isinstance(mode, torch.Tensor):
+            mode = mode.to(torch.int32)
+            if mode.ndim > 1:
+                raise ValueError(f"mode must be a scalar or (n_ues,), got {tuple(mode.shape)}")
         else:
-            selected = switch_select_batched_ref(mode, list(outputs))
-        n_ues = mode.shape[0]
+            mode = int(mode)
+        batched = isinstance(mode, torch.Tensor) and mode.ndim == 1
+        if self.execution_mode is ExecutionMode.GATED:
+            if not batched:
+                raise ValueError(
+                    "GATED execution is the batched path: mode must be an "
+                    "(n_ues,) vector (use SELECTED_ONLY for scalar gating)")
+            return self._run_gated(mode, *inputs)
+        if self.execution_mode is ExecutionMode.CONCURRENT:
+            return self._run_concurrent(mode, batched, *inputs)
+        return self._run_selected(mode, batched, *inputs)
+
+    def _host_counts(self, counts) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(counts, np.int32))
+
+    def _run_concurrent(self, mode, batched: bool, *inputs) -> BankOutput:
+        outputs = tuple(e.fn(e.params, *inputs) for e in self.experts)
+        if batched:
+            if self.use_pallas_switch:
+                selected = switch_select(mode, list(outputs))
+            else:
+                selected = switch_select_batched_ref(mode, list(outputs))
+            n_ues = mode.shape[0]
+            return BankOutput(
+                selected=selected, all_outputs=outputs, mode=mode, served_by=mode,
+                executed_ue=torch.full((self.n_experts,), n_ues, dtype=torch.int32,
+                                       device=mode.device),
+                baseline=outputs[self.default_mode],
+            )
+        if self.use_pallas_switch:
+            # the kernel switches in place: into a copy, so that all_outputs[0]
+            # stays the unswitched designated output; mode 0 writes nothing
+            designated = outputs[0] if isinstance(mode, int) and mode == 0 else outputs[0].clone()
+            selected = switch_select(mode, [designated, *outputs[1:]])
+        else:  # oracle path
+            selected = switch_select_ref(mode, outputs)
+        return BankOutput(selected=selected, all_outputs=outputs, mode=mode,
+                          executed_ue=self._host_counts([1] * self.n_experts))
+
+    def _run_selected(self, mode, batched: bool, *inputs) -> BankOutput:
+        if batched:
+            # per-UE modes: any expert some UE selects must run, so every
+            # expert runs and the plain gather selects (no all_outputs)
+            outputs = [e.fn(e.params, *inputs) for e in self.experts]
+            return BankOutput(
+                selected=switch_select_batched_ref(mode, outputs), all_outputs=None,
+                mode=mode, served_by=mode,
+                executed_ue=torch.full((self.n_experts,), mode.shape[0],
+                                       dtype=torch.int32, device=mode.device),
+                baseline=outputs[self.default_mode],
+            )
+        m = int(mode)
+        e = self.experts[min(max(m, 0), self.n_experts - 1)]  # clamped, as lax.switch
         return BankOutput(
-            selected=selected, all_outputs=outputs, mode=mode, served_by=mode,
-            executed_ue=torch.full((self.n_experts,), n_ues, dtype=torch.int32,
-                                   device=mode.device),
-            baseline=outputs[self.default_mode],
-        )
+            selected=e.fn(e.params, *inputs), all_outputs=None, mode=mode,
+            executed_ue=self._host_counts(np.arange(self.n_experts) == m))
 
     def _run_gated(self, mode: torch.Tensor, *inputs) -> BankOutput:
         """Compaction-gated execution: pay only for the selected experts.
@@ -271,13 +324,18 @@ class ExpertBank:
         return cached_const(("bank_flops",) + flops, device,
                             lambda: np.asarray(flops, np.float32))
 
-    def flops_for(self) -> float:
-        """FLOPs per UE-slot of the CONCURRENT bank (every expert runs)."""
+    def flops_for(self, mode: int | None = None) -> float:
+        """FLOPs per call: every expert (CONCURRENT) or the selected one
+        (SELECTED_ONLY)."""
+        flops = [e.flops for e in self.experts]
+        if self.execution_mode is ExecutionMode.CONCURRENT:
+            return float(sum(flops))
         if self.execution_mode is ExecutionMode.GATED:
-            raise ValueError(
-                "GATED cost depends on the realized mode mix: use "
-                "executed_flops(out) / executed_flops_per_ue(out)")
-        return float(sum(e.flops for e in self.experts))
+            raise ValueError("GATED cost depends on the realized mode mix: use "
+                             "executed_flops(out)")
+        if mode is None:
+            raise ValueError("SELECTED_ONLY cost depends on the mode: pass it")
+        return float(flops[mode])
 
     def executed_flops(self, out: BankOutput) -> torch.Tensor:
         """FLOPs this call executed: ``sum_e executed_ue[e] * flops[e]``."""
@@ -291,12 +349,18 @@ class ExpertBank:
         always holds ``capacity`` rows, whatever the AI share."""
         if self.execution_mode is ExecutionMode.CONCURRENT:
             return float(n_ues * sum(e.flops for e in self.experts))
+        if self.execution_mode is not ExecutionMode.GATED:
+            raise ValueError("provisioned cost is per-mode in SELECTED_ONLY: "
+                             "use n_ues * flops_for(mode)")
         cap = n_ues if self.gated_capacity is None else min(self.gated_capacity, n_ues)
         return float(cap * self.experts[0].flops
                      + n_ues * sum(e.flops for e in self.experts[1:]))
 
     def executed_flops_per_ue(self, out: BankOutput) -> torch.Tensor:
-        """Per-UE executed FLOPs ``(U,)`` float32; sums to ``executed_flops``."""
+        """Per-UE executed FLOPs ``(U,)`` float32 (batched calls only); sums
+        to ``executed_flops``."""
+        if out.served_by is None:
+            raise ValueError("per-UE accounting needs a batched (vector) call")
         # float32 sums on the host, as the reference sums its flops vector
         flops = torch.tensor([e.flops for e in self.experts], dtype=torch.float32)
         if self.execution_mode is ExecutionMode.GATED:

@@ -1,23 +1,66 @@
-"""Campaign results: ``BatchedRunHistory`` (the batched result type) and
-``suggest_gated_capacity``.
+"""The ARCHES slot loop and its results (paper Fig. 1).
 
-The port of ``repro.core.runtime``'s result type, built from the batched
-engine's open-loop and closed-loop trajectories.  Arrays are copied to
-the host as numpy.  The host-loop ``ArchesRuntime`` waits for a later
-slice (ROADMAP, Queue 1: host-loop path).
+Port of ``repro.core.runtime``.  ``ArchesRuntime`` has two operating points:
+
+* the host loop (``run``), the paper's seed architecture.  Per slot n:
+  1. *slot setup*: poll the E3 control inbox; a decision generated during
+     slot n-1 is committed and becomes active now (slot boundary).  Stale
+     control planes decay to the fail-safe mode after ``ttl_slots``.
+  2. the pipeline runs with the active mode (the expert bank and the switch
+     kernel inside ``slot_fn``).
+  3. the slot's KPMs go to the dApp via E3; a resulting decision lands in
+     the control inbox for slot n+1.
+* the closed loop (``from_spec`` + ``run_batched``, which
+  ``ArchesSession``'s closed-loop path runs): the decision path runs inside
+  the batched engine's slot loop on the device.
+
+``BatchedRunHistory`` is the one result type of every campaign path; arrays
+are copied to the host as numpy.  ``suggest_gated_capacity`` sizes a GATED
+bank from a recorded campaign.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, Iterable, Mapping
 
 import numpy as np
 
+from repro_torch.core.e3 import E3Agent, E3IndicationMessage
+from repro_torch.core.switch import (
+    SlotSwitchState,
+    commit_decision,
+    init_switch_state,
+    slot_boundary,
+)
 from repro_torch.core.telemetry import flatten_kpm_sources
 
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+@dataclasses.dataclass
+class SlotRecord:
+    slot: int
+    active_mode: int
+    kpms: dict[str, float]
+    output: Any = None
+
+
+@dataclasses.dataclass
+class RunHistory:
+    """A host-loop run: one record per slot and the final switch register."""
+
+    records: list[SlotRecord]
+    final_state: SlotSwitchState
+
+    @property
+    def modes(self) -> np.ndarray:
+        return np.asarray([r.active_mode for r in self.records])
+
+    def kpm_series(self, name: str) -> np.ndarray:
+        return np.asarray([r.kpms.get(name, np.nan) for r in self.records])
 
 
 @dataclasses.dataclass
@@ -59,6 +102,53 @@ class BatchedRunHistory:
             n_switches=None if final_switch is None else _np(final_switch.n_switches),
             provisioned_capacity=provisioned_capacity,
         )
+
+    @classmethod
+    def from_host(cls, hist: RunHistory) -> "BatchedRunHistory":
+        """Lift a host-loop ``RunHistory`` into the batched result type: every
+        array gets an ``(n_slots, 1)`` shape, and the scalar outputs
+        (``tb_ok`` / ``tbs`` / ``mcs`` / ``phy_bits_per_s``) ride along when
+        the run kept outputs."""
+        modes = hist.modes[:, None].astype(np.int32)
+        names = list(hist.records[0].kpms) if hist.records else []
+        kpms = {k: np.asarray([[r.kpms.get(k, np.nan)] for r in hist.records])
+                for k in names}
+        outputs: dict[str, np.ndarray] = {}
+        if hist.records and isinstance(hist.records[0].output, Mapping):
+            for k in ("tb_ok", "tbs", "mcs", "phy_bits_per_s"):
+                if k in hist.records[0].output:
+                    outputs[k] = np.asarray([[float(r.output[k])] for r in hist.records])
+        return cls(modes=modes, kpms=kpms, outputs=outputs)
+
+    @property
+    def n_slots(self) -> int:
+        return self.modes.shape[0]
+
+    @property
+    def n_ues(self) -> int:
+        return self.modes.shape[1]
+
+    def modes_for(self, ue: int) -> np.ndarray:
+        return self.modes[:, ue]
+
+    def kpm_series(self, name: str, ue: int = 0) -> np.ndarray:
+        return self.kpms[name][:, ue]
+
+    def cell_kpm_series(self, name: str) -> np.ndarray:
+        """Cell-level aggregate: per-slot mean over UEs."""
+        return self.kpms[name].mean(axis=1)
+
+    def per_ue(self, ue: int) -> list[SlotRecord]:
+        """One UE's trajectory as host-loop-style slot records."""
+        return [
+            SlotRecord(
+                slot=s,
+                active_mode=int(self.modes[s, ue]),
+                kpms={k: float(v[s, ue]) for k, v in self.kpms.items()},
+                output={k: v[s, ue] for k, v in self.outputs.items()},
+            )
+            for s in range(self.n_slots)
+        ]
 
     @property
     def ai_share(self) -> float:
@@ -121,3 +211,137 @@ def suggest_gated_capacity(history: BatchedRunHistory, *, quantile: float = 1.0,
     if n_shards > 1:
         return int(min(max(cap_shard, 1) * n_shards, n_ues))
     return int(np.clip(cap_shard, 0, n_ues))
+
+
+def replay_batched_telemetry(agent: E3Agent, traj, *, n_slots: int | None = None) -> int:
+    """Replay a batched trajectory's KPMs as per-slot E3 indications.
+
+    Each slot's KPMs are averaged over UEs (the cell-level mean) and pushed
+    through the same E3 path the host loop uses, so dApp subscriptions see
+    batched campaigns unchanged.  Every array is copied to the host once.
+    Returns the number of slots replayed.
+    """
+    host = {source: {k: _np(v) for k, v in kpms.items()}
+            for source, kpms in traj["kpms"].items()}
+    first = next(iter(next(iter(host.values())).values()))
+    n = int(first.shape[0]) if n_slots is None else n_slots
+    for s in range(n):
+        for source, kpms in host.items():
+            vals = {k: float(np.mean(v[s])) for k, v in kpms.items()}
+            agent.indicate(E3IndicationMessage(slot=s, source=source, kpms=vals))
+    return n
+
+
+class ArchesRuntime:
+    """Slot loop wiring pipeline, E3 agent and switch register.
+
+    * **host loop** (``run``): per-slot Python loop; decisions travel E3
+      agent -> dApp -> control inbox and commit at the next slot boundary
+      (``SlotSwitchState``).
+    * **closed loop** (``closed_loop=True`` + ``run_batched``): the exported
+      policy tables and the switch register run inside the batched engine's
+      slot loop.
+    """
+
+    def __init__(
+        self,
+        slot_fn: Callable[..., tuple[Any, Any, Mapping[str, Mapping[str, float]]]]
+        | None = None,
+        agent: E3Agent | None = None,
+        *,
+        default_mode: int | None = None,
+        fail_safe_mode: int | None = None,
+        ttl_slots: int = 16,
+        keep_outputs: bool = False,
+        closed_loop: bool = False,
+        engine: Any = None,
+        device_policy: Any = None,
+        switch_config: Any = None,
+    ):
+        """``slot_fn(active_mode, carry, slot_input) ->
+        (carry, output, {source: {kpm: value}})``, with ``active_mode`` an int.
+
+        With ``closed_loop=True``, ``engine`` (a ``BatchedPuschPipeline``),
+        ``device_policy`` and ``switch_config`` replace ``slot_fn``
+        (``from_spec`` builds them from a spec).  ``default_mode`` /
+        ``fail_safe_mode`` default to the switch config's ``default_mode`` in
+        the closed loop and to mode 1 in the host loop.
+        """
+        if closed_loop and (engine is None or device_policy is None
+                            or switch_config is None):
+            raise ValueError("closed_loop=True needs engine, device_policy and "
+                             "switch_config")
+        if default_mode is None:
+            default_mode = (int(getattr(switch_config, "default_mode", 1))
+                            if closed_loop and switch_config is not None else 1)
+        if fail_safe_mode is None:
+            fail_safe_mode = default_mode
+        self.slot_fn = slot_fn
+        self.agent = agent
+        self.default_mode = default_mode
+        self.fail_safe_mode = fail_safe_mode
+        self.ttl_slots = ttl_slots
+        self.keep_outputs = keep_outputs
+        self.closed_loop = closed_loop
+        self.engine = engine
+        self.device_policy = device_policy
+        self.switch_config = switch_config
+
+    @classmethod
+    def from_spec(cls, spec, *, engine: Any = None, device_policy: Any = None,
+                  device: Any = "cuda") -> "ArchesRuntime":
+        """A closed-loop runtime from a ``CampaignSpec``: the switch config
+        comes from ``spec.switch`` / ``spec.feature_names``, and what is not
+        passed in (engine, exported policy) is built by an ``ArchesSession``
+        on ``device``."""
+        if engine is None or device_policy is None:
+            from repro_torch.core.session import ArchesSession
+
+            session = ArchesSession(spec, engine=engine,
+                                    device=engine.device if engine is not None else device)
+            engine = engine if engine is not None else session.engine
+            if device_policy is None:
+                device_policy = session.device_policy
+        sw_cfg = spec.switch.to_config(spec.feature_names)
+        return cls(default_mode=sw_cfg.default_mode,
+                   fail_safe_mode=sw_cfg.default_mode, ttl_slots=spec.switch.ttl_slots,
+                   closed_loop=True, engine=engine, device_policy=device_policy,
+                   switch_config=sw_cfg)
+
+    def run_batched(self, schedule, *, n_slots: int, n_ues: int, key=None,
+                    provisioned_capacity: int | None = None) -> BatchedRunHistory:
+        """Closed-loop batched campaign: device-decided modes in one slot loop.
+        ``provisioned_capacity`` is recorded in the history as given."""
+        if not self.closed_loop:
+            raise RuntimeError("run_batched requires closed_loop=True")
+        _, final_switch, traj = self.engine.run_closed_loop(
+            schedule, self.device_policy, self.switch_config, n_slots=n_slots,
+            n_ues=n_ues, key=key)
+        return BatchedRunHistory.from_closed_loop(
+            traj, final_switch, provisioned_capacity=provisioned_capacity)
+
+    def run(self, inputs: Iterable[Any], carry: Any = None) -> RunHistory:
+        """The host loop over ``inputs`` (one per slot)."""
+        if self.slot_fn is None or self.agent is None:
+            raise RuntimeError("the host loop needs slot_fn and agent")
+        state = init_switch_state(self.default_mode)
+        records: list[SlotRecord] = []
+        for slot, x in enumerate(inputs):
+            # -- slot setup phase --
+            ctrl = self.agent.poll_control()
+            if ctrl is not None:
+                state = commit_decision(state, ctrl.mode)
+            state = slot_boundary(state, fail_safe_mode=self.fail_safe_mode,
+                                  ttl_slots=self.ttl_slots)
+            # -- pipeline execution --
+            carry, output, kpms_by_source = self.slot_fn(state.active_mode, carry, x)
+            # -- telemetry indication --
+            flat: dict[str, float] = {}
+            for source, kpms in kpms_by_source.items():
+                kpms_f = {k: float(v) for k, v in kpms.items()}
+                flat.update(kpms_f)
+                self.agent.indicate(E3IndicationMessage(slot=slot, source=source,
+                                                        kpms=kpms_f))
+            records.append(SlotRecord(slot=slot, active_mode=state.active_mode, kpms=flat,
+                                      output=output if self.keep_outputs else None))
+        return RunHistory(records=records, final_state=state)

@@ -11,12 +11,20 @@ packages.  ``use_pallas_switch`` keeps its name and means "use the
 hand-written switch kernel"; ``SwitchSpec.backend`` takes the reference's
 values, with ``"pallas"`` meaning the hand-written tree kernel.
 
-This slice runs the ``closed_loop``, ``batched`` and ``gated`` paths on
-CONCURRENT and GATED banks (fused or not, float32 or bf16 experts, with
-the NMSE audit), and ``run(auto_capacity=True)``.  A spec that sets
-``topology``, ``churn`` or ``faults`` raises at construction; the ``host``
-and ``perturbed`` paths and SELECTED_ONLY banks raise in ``ArchesSession``
-(each names its ROADMAP item).
+Every execution path runs:
+
+* ``host`` -- the seed architecture: a per-slot Python loop whose decisions
+  travel E3 agent -> dApp -> control inbox (one UE);
+* ``batched`` -- the open-loop multi-UE loop over a declared mode plan;
+* ``closed_loop`` -- the decision path inside the device slot loop;
+* ``gated`` -- open loop with compaction-gated expert execution;
+* ``perturbed`` -- the methodology's stage-1 sweep (``rho`` rides the UE
+  axis),
+
+on CONCURRENT, SELECTED_ONLY and GATED banks (fused or not, float32 or
+bf16 experts, with the NMSE audit), and ``run(auto_capacity=True)``.  A
+spec that sets ``topology``, ``churn`` or ``faults`` raises at
+construction, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,13 +41,17 @@ import torch
 from repro_torch import random as jr
 from repro_torch.core.closed_loop import SwitchConfig, per_ue_policy
 from repro_torch.core.expert_bank import ExecutionMode, coerce_enum
-from repro_torch.core.runtime import BatchedRunHistory, suggest_gated_capacity
+from repro_torch.core.runtime import (
+    ArchesRuntime,
+    BatchedRunHistory,
+    suggest_gated_capacity,
+)
 from repro_torch.core.telemetry import SELECTED_KPMS
 from repro_torch.device import resolve_device
 
 
 class ExecutionPath(enum.Enum):
-    """The campaign shapes of the reference; this slice runs three of them."""
+    """The campaign shapes ``ArchesSession.run`` dispatches over."""
 
     HOST = "host"
     BATCHED = "batched"
@@ -50,12 +62,6 @@ class ExecutionPath(enum.Enum):
     @classmethod
     def coerce(cls, value: "ExecutionPath | str") -> "ExecutionPath":
         return coerce_enum(cls, value, "execution path")
-
-
-_PATH_ITEMS = {
-    ExecutionPath.HOST: "Queue 1: host-loop path",
-    ExecutionPath.PERTURBED: "Queue 1: methodology",
-}
 
 
 def _tuplify(x):
@@ -269,7 +275,9 @@ class ArchesSession:
     gets the same weights) unless ``ai_params`` (the port's weight dict,
     e.g. from ``repro_torch.convert``) is given; ``host_policies``
     overrides the trained/built policy objects; ``engine`` reuses a built
-    engine.  ``run()`` returns a ``BatchedRunHistory``.
+    engine.  ``run()`` returns a ``BatchedRunHistory``; after a host run,
+    ``dapp`` is that run's ``DApp`` (its ``decisions`` carry the measured
+    policy times).
     """
 
     def __init__(self, spec: CampaignSpec, *, device: torch.device | str = "cuda",
@@ -290,23 +298,37 @@ class ArchesSession:
         self._host_policies = tuple(host_policies) if host_policies is not None else None
         self._engine = engine
         self._train_engine = None
+        self._pipeline = None
         self._device_policy = None
+        self.dapp = None
 
     def _validate(self) -> None:
+        from repro_torch.phy.scenario import get_scenario
+
         spec, path = self.spec, self.path
-        if path in _PATH_ITEMS:
-            raise NotImplementedError(
-                f"path={spec.path!r} is not ported yet (ROADMAP, {_PATH_ITEMS[path]})")
         bank_mode = ExecutionMode.coerce(spec.bank.execution_mode)
-        if bank_mode is ExecutionMode.SELECTED_ONLY:
-            raise NotImplementedError(
-                "a 'selected_only' bank is not ported yet (ROADMAP, Queue 1: "
-                "host-loop path)")
         if len(spec.policies) > 1 and spec.policy_assignment is None:
             raise ValueError("several policies need an explicit policy_assignment "
                              "(which UE runs which table)")
+        if path is ExecutionPath.HOST:
+            if spec.n_ues != 1:
+                raise ValueError("the host loop serves one UE: n_ues must be 1")
+            if not spec.policies:
+                raise ValueError("the host loop needs one PolicySpec")
+            if get_scenario(spec.scenario).per_ue:
+                raise ValueError(f"scenario {spec.scenario!r} is per-UE; the host path "
+                                 "needs a homogeneous scenario")
+            if spec.switch.hysteresis_slots != 1:
+                raise ValueError("the host E3/dApp loop has no hysteresis streak; "
+                                 "hysteresis_slots > 1 needs the closed_loop path")
         if path is ExecutionPath.CLOSED_LOOP and not spec.policies:
             raise ValueError("closed_loop needs at least one PolicySpec")
+        if path is ExecutionPath.PERTURBED:
+            if spec.rho is None:
+                raise ValueError("perturbed needs a rho grid")
+            if len(spec.rho) != spec.n_ues:
+                raise ValueError(f"rho rides the UE axis: len(rho)={len(spec.rho)} "
+                                 f"must equal n_ues={spec.n_ues}")
         # the path name is the declaration: "gated" implies a gated bank
         # (normalized on the session, never mutating the user's spec)
         self.bank_spec = (
@@ -351,6 +373,19 @@ class ArchesSession:
         if self._engine is None:
             self._engine = self._build_engine(self.bank_spec.gated_capacity)
         return self._engine
+
+    @property
+    def pipeline(self):
+        """The single-UE host pipeline (host path only)."""
+        if self._pipeline is None:
+            from repro_torch.phy.pipeline import PuschPipeline
+
+            bank = self.bank_spec
+            self._pipeline = PuschPipeline(
+                self.cfg, self.ai_params, net=self.net,
+                execution_mode=ExecutionMode.coerce(bank.execution_mode),
+                use_pallas_switch=bank.use_pallas_switch, device=self.device)
+        return self._pipeline
 
     def _training_engine(self):
         """A CONCURRENT engine for profiling the experts (the campaign's own
@@ -437,7 +472,7 @@ class ArchesSession:
     # -- execution -------------------------------------------------------------
 
     def run(self, *, auto_capacity: bool = False) -> BatchedRunHistory:
-        """Execute the campaign (``closed_loop``, ``batched`` or ``gated``).
+        """Execute the campaign; one result type for every path.
 
         ``auto_capacity=True`` (GATED banks only) sizes ``gated_capacity``
         from the campaign's own demand before the main run: the open-loop
@@ -448,9 +483,14 @@ class ArchesSession:
         """
         if auto_capacity:
             return self._run_auto_capacity()
-        if self.path is ExecutionPath.CLOSED_LOOP:
-            return self._run_closed_loop()
-        return self._run_open_loop()
+        runner = {
+            ExecutionPath.HOST: self._run_host,
+            ExecutionPath.BATCHED: self._run_open_loop,
+            ExecutionPath.GATED: self._run_open_loop,
+            ExecutionPath.CLOSED_LOOP: self._run_closed_loop,
+            ExecutionPath.PERTURBED: self._run_perturbed,
+        }[self.path]
+        return runner()
 
     def _run_auto_capacity(self) -> BatchedRunHistory:
         spec = self.spec
@@ -492,9 +532,35 @@ class ArchesSession:
 
     def _run_closed_loop(self, provisioned_capacity: int | None = None) -> BatchedRunHistory:
         spec = self.spec
-        _, final_switch, traj = self.engine.run_closed_loop(
-            self.schedule, self.device_policy, spec.switch.to_config(spec.feature_names),
-            n_slots=spec.n_slots, n_ues=spec.n_ues,
-            key=jr.PRNGKey(spec.seed, self.device))
-        return BatchedRunHistory.from_closed_loop(traj, final_switch,
-                                                  provisioned_capacity=provisioned_capacity)
+        runtime = ArchesRuntime.from_spec(spec, engine=self.engine,
+                                          device_policy=self.device_policy)
+        return runtime.run_batched(self.schedule, n_slots=spec.n_slots, n_ues=spec.n_ues,
+                                   key=jr.PRNGKey(spec.seed, self.device),
+                                   provisioned_capacity=provisioned_capacity)
+
+    def _run_host(self) -> BatchedRunHistory:
+        from repro_torch.core.dapp import DApp, connect_dapp
+        from repro_torch.core.e3 import E3Agent
+
+        spec = self.spec
+        agent = E3Agent()
+        # the single UE may still be assigned any declared policy table
+        pol = spec.policy_assignment[0] if spec.policy_assignment else 0
+        self.dapp = DApp(self.host_policies[pol], spec.feature_names,
+                         window_slots=spec.switch.window_slots,
+                         period_slots=spec.switch.period_slots)
+        connect_dapp(agent, self.dapp)
+        runtime = ArchesRuntime(
+            self.pipeline.make_slot_fn(self.schedule), agent,
+            default_mode=spec.switch.default_mode,
+            fail_safe_mode=spec.switch.default_mode,
+            ttl_slots=spec.switch.ttl_slots, keep_outputs=True)
+        return BatchedRunHistory.from_host(runtime.run(range(spec.n_slots)))
+
+    def _run_perturbed(self) -> BatchedRunHistory:
+        spec = self.spec
+        _, traj = self.engine.run_perturbed(self.schedule, spec.rho, n_slots=spec.n_slots,
+                                            key=jr.PRNGKey(spec.seed, self.device))
+        # stage 1 is MMSE-only by construction: the mode grid is all-1
+        modes = np.ones((spec.n_slots, spec.n_ues), np.int32)
+        return BatchedRunHistory.from_trajectory(modes, traj)

@@ -35,10 +35,11 @@ NVCC_FLAGS = (
 #: adds one where it launches its kernel, and nowhere else
 launch_counts: dict[str, int] = {
     "mmse_interp": 0, "switch_select_batched": 0, "tree_infer": 0,
-    "switch_gather_batched": 0, "gated_expert": 0,
+    "switch_gather_batched": 0, "gated_expert": 0, "switch_select": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -114,6 +115,17 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """C entry point ``symbol`` of kernel library ``name``, typed once and
+    cached, so a launch pays no ctypes set-up."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        _functions[(name, symbol)] = fn
+    return fn
 
 
 def check(code: int, what: str) -> None:

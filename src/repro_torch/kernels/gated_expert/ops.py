@@ -57,22 +57,19 @@ def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> None:
     w, b = _operands(ai, compute_dtype)
     if w.device != h_ls.device:
         raise ValueError(f"estimator operands on {w.device}, LS input on {h_ls.device}")
-    lib = build.library("gated_expert")
-    smem = lib.gated_expert_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    smem = build.function("gated_expert", "gated_expert_smem_bytes",
+                          [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
     limit = torch.cuda.get_device_properties(h_ls.device).shared_memory_per_block_optin
     if smem(n_sym, channels) > limit:
         raise ValueError(f"{channels} channels need {smem(n_sym, channels)} B of shared "
                          f"memory per block; the card grants {limit}")
-    ws_floats = lib.gated_expert_workspace_floats
-    ws_floats.argtypes = [ctypes.c_int] * 3
-    ws_floats.restype = ctypes.c_longlong
+    ws_floats = build.function("gated_expert", "gated_expert_workspace_floats",
+                               [ctypes.c_int] * 3, ctypes.c_longlong)
     capacity = idx.shape[0]
     workspace = torch.empty(capacity * n_ant * ws_floats(n_sym, n_p, channels),
                             dtype=torch.float32, device=h_ls.device)
-    fn = lib.gated_expert_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("gated_expert", "gated_expert_launch",
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     build.check(fn(idx.data_ptr(), src.data_ptr(), h_ls.data_ptr(), designated.data_ptr(),
                    w.data_ptr(), b.data_ptr(), workspace.data_ptr(), capacity, n_ant, n_sym,
                    n_p, channels, n_res, int(compute_dtype == torch.bfloat16),

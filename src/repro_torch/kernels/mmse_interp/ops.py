@@ -31,10 +31,8 @@ def _launch(h2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, np_ = h2.shape
     nsc = w.shape[1]
     out = torch.empty((b, nsc), dtype=torch.complex64, device=h2.device)
-    lib = build.library("mmse_interp")
-    fn = lib.mmse_interp_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("mmse_interp", "mmse_interp_launch",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     build.check(fn(h2.data_ptr(), w.data_ptr(), out.data_ptr(), b, np_, nsc,
                    build.stream_ptr(h2)), "mmse_interp")
     build.launch_counts["mmse_interp"] += 1

@@ -3,7 +3,8 @@ from repro_torch.kernels.switch_select.ops import (
     switch_scatter,
     switch_select,
     switch_select_batched_ref,
+    switch_select_ref,
 )
 
 __all__ = ["switch_gather_batched_ref", "switch_scatter", "switch_select",
-           "switch_select_batched_ref"]
+           "switch_select_batched_ref", "switch_select_ref"]

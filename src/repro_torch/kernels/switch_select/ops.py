@@ -1,19 +1,27 @@
-"""Per-UE expert switch: the wrapper of the hand-written kernel and its plain
-PyTorch version.
+"""The expert switch: the wrappers of the hand-written kernels and their plain
+PyTorch versions.
 
-``switch_select(modes, outputs)`` replaces the batched branch of
+``switch_select(mode, outputs)`` replaces
 ``repro.kernels.switch_select.ops.switch_select``: ``outputs`` lists one
-tensor per expert, designated expert first, each with a leading UE axis;
-UE ``u`` ends up holding expert ``modes[u]``'s output.
+tensor per expert, designated expert first.  With a scalar ``mode`` (a
+Python int or a 0-d tensor) the designated buffer ends up holding expert
+``mode``'s whole output (the single-UE host loop); with an ``(U,)`` vector
+every tensor carries a leading UE axis and UE ``u`` ends up holding expert
+``modes[u]``'s slice (the batched engine).
 
 On a CUDA tensor the kernel (``csrc/switch_select.cu``) switches **in place
-into the designated tensor** and returns it: mode-0 UEs cost nothing, the
-others copy their alternative's slice.  The reference aliases the
+into the designated tensor** and returns it: mode 0 (or a mode-0 UE) costs a
+launch whose blocks return at once, the others copy their alternative.  The
+scalar kernel takes an int mode by value (nothing is uploaded) or a 0-d
+int32 mode on the card by pointer; an int mode outside ``[0, n_experts)``
+raises, and a mode on the card that names no alternative keeps the
+designated buffer.  The reference aliases the
 designated buffer to the output too, but JAX keeps the pre-switch value
 alive, so there ``outputs[0]`` still reads the unswitched designated
 output afterwards; in the port ``outputs[0]`` *is* the switched buffer.
-On a CPU tensor the plain version ``switch_select_batched_ref`` gathers
-into a new tensor and leaves the inputs untouched.
+On a CPU tensor the plain versions ``switch_select_ref`` (scalar) and
+``switch_select_batched_ref`` gather into a new tensor and leave the inputs
+untouched.
 
 ``switch_scatter(src, compact, designated)`` replaces
 ``repro.kernels.switch_select.ops.switch_scatter``, the GATED bank's
@@ -30,9 +38,15 @@ from __future__ import annotations
 import ctypes
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
+
+
+def switch_select_ref(mode: int, outputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Plain version of the scalar switch: stack the experts, take row ``mode``."""
+    return torch.stack(list(outputs), dim=0)[mode]
 
 
 def switch_select_batched_ref(modes: torch.Tensor,
@@ -69,26 +83,85 @@ def _launch(modes: torch.Tensor, alt: torch.Tensor, designated: torch.Tensor,
             want: int) -> None:
     n_ues = designated.shape[0]
     per_ue = designated.numel() // max(n_ues, 1)
-    lib = build.library("switch_select")
-    fn = lib.switch_select_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("switch_select", "switch_select_launch",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                                 ctypes.c_int, ctypes.c_void_p])
     build.check(fn(modes.data_ptr(), alt.data_ptr(), designated.data_ptr(), n_ues,
                    per_ue, want, build.stream_ptr(designated)), "switch_select")
     build.launch_counts["switch_select_batched"] += 1
 
 
-def switch_select(modes: torch.Tensor, outputs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Per-UE zero-gap switch over a designated-first list of expert outputs."""
+def _launch_scalar(mode: int | torch.Tensor, alt: torch.Tensor, designated: torch.Tensor,
+                   want: int) -> None:
+    fn = build.function("switch_select", "switch_select_scalar_launch",
+                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    on_card = isinstance(mode, torch.Tensor)
+    build.check(fn(mode.data_ptr() if on_card else None, 0 if on_card else mode,
+                   alt.data_ptr(), designated.data_ptr(), designated.numel(), want,
+                   build.stream_ptr(designated)), "switch_select_scalar")
+    build.launch_counts["switch_select"] += 1
+
+
+def _check_outputs(outputs: Sequence[torch.Tensor]) -> None:
     designated, *alternatives = outputs
-    if modes.ndim != 1 or modes.shape[0] != designated.shape[0]:
-        raise ValueError(f"modes {tuple(modes.shape)} vs UE axis {designated.shape[0]}")
+    if not alternatives:
+        raise ValueError("the switch needs at least two expert outputs")
     for a in alternatives:
         if a.shape != designated.shape or a.dtype != designated.dtype:
             raise ValueError("expert outputs must share shape and dtype")
-        if a.device != designated.device or modes.device != designated.device:
-            raise ValueError("modes and expert outputs must share one device")
+        if a.device != designated.device:
+            raise ValueError("expert outputs must share one device")
+
+
+def switch_select(mode: int | torch.Tensor,
+                  outputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Zero-gap switch over a designated-first list of expert outputs.
+
+    ``mode`` is a scalar (Python int, or a 0-d tensor) selecting one whole
+    output, or an ``(U,)`` int32 vector selecting per UE along the leading
+    axis.  Returns the designated tensor, switched in place, on the card,
+    and a new tensor on the CPU.
+    """
+    _check_outputs(outputs)
+    if isinstance(mode, torch.Tensor) and mode.ndim == 1:
+        return _switch_batched(mode, outputs)
+    designated, *alternatives = outputs
+    if isinstance(mode, torch.Tensor):
+        if mode.ndim != 0:
+            raise ValueError(f"mode must be a scalar or (n_ues,), got {tuple(mode.shape)}")
+        if mode.device.type == "cpu":
+            mode = int(mode)
+        elif mode.device != designated.device:
+            raise ValueError("mode and expert outputs must share one device")
+    elif isinstance(mode, (int, np.integer)):
+        mode = int(mode)
+    else:
+        raise TypeError(f"mode must be an int or a tensor, got {type(mode).__name__}")
+    if isinstance(mode, int) and not 0 <= mode < len(outputs):
+        raise ValueError(f"mode {mode} outside [0, {len(outputs)})")
+    if designated.device.type != "cuda":
+        return switch_select_ref(mode, outputs)
+    if isinstance(mode, torch.Tensor) and mode.dtype != torch.int32:
+        raise TypeError(f"a mode on the card must be int32, got {mode.dtype}")
+    des = _float_view(designated)
+    if not des.is_contiguous():
+        raise ValueError("switch kernel needs a contiguous designated buffer")
+    for k, a in enumerate(alternatives):
+        alt = _float_view(a)
+        if not alt.is_contiguous():
+            raise ValueError("switch kernel needs contiguous alternatives")
+        _launch_scalar(mode, alt, des, k + 1)
+    return designated
+
+
+def _switch_batched(modes: torch.Tensor, outputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-UE switch: UE ``u`` receives expert ``modes[u]``'s slice."""
+    designated, *alternatives = outputs
+    if modes.shape[0] != designated.shape[0]:
+        raise ValueError(f"modes {tuple(modes.shape)} vs UE axis {designated.shape[0]}")
+    if modes.device != designated.device:
+        raise ValueError("modes and expert outputs must share one device")
     if designated.device.type != "cuda":
         return switch_select_batched_ref(modes, outputs)
     if modes.dtype != torch.int32:
@@ -137,11 +210,9 @@ def switch_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.T
     if not (des.is_contiguous() and comp.is_contiguous() and src.is_contiguous()):
         raise ValueError("scatter kernel needs contiguous src, compact and designated")
     n_ues = designated.shape[0]
-    lib = build.library("switch_select")
-    fn = lib.switch_gather_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("switch_select", "switch_gather_launch",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                                 ctypes.c_int, ctypes.c_void_p])
     build.check(fn(src.data_ptr(), comp.data_ptr(), des.data_ptr(), n_ues,
                    des.numel() // max(n_ues, 1), compact.shape[0],
                    build.stream_ptr(designated)), "switch_gather")

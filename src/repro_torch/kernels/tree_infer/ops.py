@@ -48,10 +48,8 @@ def tree_infer(x: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
             raise ValueError("tree_infer kernel needs contiguous float32 x/threshold/"
                              "leaves and int32 feature on one device")
     out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    lib = build.library("tree_infer")
-    fn = lib.tree_infer_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("tree_infer", "tree_infer_launch",
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     build.check(fn(x.data_ptr(), feature.data_ptr(), threshold.data_ptr(),
                    leaf_values.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
                    depth, build.stream_ptr(x)), "tree_infer")

@@ -1,6 +1,13 @@
 """Expert B: the residual-CNN channel estimator, inference only (paper 5.2).
 
-Port of ``repro.phy.ai_estimator``'s batched path.  Every 3x3 convolution
+Two forms, as in ``repro.phy.ai_estimator``:
+
+* the eager single-UE path of the host loop, ``ai_estimate_from_ls``: the
+  convolutions are ``torch.nn.functional.conv2d`` with 'same' padding on
+  the raw ``(O, I, kh, kw)`` weights, as the reference runs
+  ``lax.conv_general_dilated`` outside any Pallas kernel (with TF32 off,
+  which ``resolve_device`` sees to);
+* the batched path of the slot engine.  Every 3x3 convolution
 runs in the reference's folded-GEMM form: activations in a channel-leading
 ``(C, W, B, H)`` layout, the symbol axis ``W`` folded into ``(O*W, kh*C*W)``
 tap matrices, one matrix product per layer.  The products are plain
@@ -26,6 +33,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import random as jr
@@ -86,6 +94,51 @@ def init_params(key: torch.Tensor, cfg: SlotConfig,
             "b2": zeros(c),
         })
     return params
+
+
+# -- eager single-UE path (host loop) -------------------------------------------
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """NCHW 'same' conv: ``x (N, C, H, W)``, ``w (O, I, kh, kw)``, ``b (O,)``;
+    the bias is added after the convolution, as the reference adds it."""
+    return F.conv2d(x, w, padding="same") + b[:, None, None]
+
+
+def _baseline_interp(x: torch.Tensor) -> torch.Tensor:
+    """Naive comb-2 -> full-band interpolation, ``(..., Np, S) -> (..., 2*Np, S)``:
+    even subcarriers take the pilot, odd ones the midpoint of the two
+    neighbouring pilots (edge clamped)."""
+    nxt = torch.cat([x[..., 1:, :], x[..., -1:, :]], dim=-2)
+    out = torch.stack([x, 0.5 * (x + nxt)], dim=-2)  # (..., Np, 2, S)
+    return out.reshape(*x.shape[:-2], 2 * x.shape[-2], x.shape[-1])
+
+
+def _forward_one_antenna(params: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """``(N, 2, n_pilot_sc, n_dmrs_sym) -> (N, 2, n_sc, n_dmrs_sym)``: one
+    antenna image per leading row (the reference maps it over antennas)."""
+    base = _baseline_interp(x)
+    h = _conv(x, params["stem_w"], params["stem_b"])
+    for blk in params["res"]:
+        y = torch.relu(_conv(h, blk["w1"], blk["b1"]))
+        h = h + _conv(y, blk["w2"], blk["b2"])
+    u = _conv(h, params["up_w"], params["up_b"])  # (N, 2C, Np, S)
+    n, c2, n_p, s = u.shape
+    c = c2 // 2
+    # sub-pixel upsample x2 in frequency (comb-2 -> full band)
+    u = u.reshape(n, 2, c, n_p, s).movedim(1, 3).reshape(n, c, 2 * n_p, s)
+    return base + _conv(u, params["head_w"], params["head_b"])
+
+
+def ai_estimate_from_ls(params: dict[str, Any], h_ls: torch.Tensor) -> torch.Tensor:
+    """``(n_ant, n_dmrs_sym, n_pilot_sc)`` complex LS -> the AI estimate
+    ``(n_ant, 1, n_sc, n_dmrs_sym)`` complex64, contiguous (Expert A's contract)."""
+    x = torch.stack([h_ls.real, h_ls.imag], dim=1).to(torch.float32).transpose(-1, -2)
+    out = _forward_one_antenna(params, x)  # (ant, 2, n_sc, sym)
+    return torch.complex(out[:, 0], out[:, 1])[:, None]
+
+
+# -- batched path (slot engine) ---------------------------------------------------
 
 
 def _wfold_matrices(w: torch.Tensor, width: int) -> torch.Tensor:

@@ -1,7 +1,10 @@
 """TDL multipath channel + interference simulator (paper 6, Fig. 7).
 
 The port of ``repro.phy.channel``'s traced path, batched over a leading UE
-axis: one call simulates every UE of a slot from its ``(U, 2)`` keys.  The
+axis: one call simulates every UE of a slot from its ``(U, 2)`` keys.
+``simulate_slot_channel`` is the host loop's form: one UE, a static
+``ChannelConfig``, and with interference off it draws nothing for the
+interferer, as the reference does.  The
 AR(1) fading ``lax.scan`` of the reference is a 14-step loop.  Random
 draws go through ``repro_torch.random`` with the reference's key
 derivation (including the raw ``key + 1`` for imaginary parts), so the
@@ -254,6 +257,33 @@ def simulate_slot_channel_traced(
     masked = _scale(sym, re_mask)[:, None]  # (U, 1, sc, sym)
     interference = _scale(hi, amp[:, None, None, None]) * masked
     return {"h": h, "noise_var": p.noise_var, "interference": interference}
+
+
+def simulate_slot_channel(key: torch.Tensor, cfg: SlotConfig,
+                          ch: ChannelConfig) -> dict[str, torch.Tensor]:
+    """One UE's slot channel from its ``(2,)`` key and a static config:
+    ``h (ant, l, sc, sym)``, ``noise_var ()`` and ``interference (ant, sc, sym)``.
+
+    With interference on this is the traced simulation for one UE (its
+    fields are the reference's host form up to float rounding, as the
+    reference's own traced and static forms are); with it off the
+    interferer is neither drawn nor computed and the field is zeros.  The
+    per-config parameters are built once per device.
+    """
+    dev = key.device
+    if ch.interference:
+        p = cached_const(("channel_params", cfg, ch), dev,
+                         lambda: _channel_params_np(cfg, ch))
+        fields = simulate_slot_channel_traced(key[None], cfg, ch.profile,
+                                              per_ue_params(ChannelParams(*p), 1))
+        return {k: v[0] for k, v in fields.items()}
+    k_h = jr.split(key, 3)[0]
+    h = _normalize_power(_freq_response(k_h[None], cfg, ch.profile))[0]
+    noise_var = cached_const(("noise_var", ch.snr_db), dev,
+                             lambda: np.float32(10.0 ** (-ch.snr_db / 10.0)))
+    interference = torch.zeros((cfg.n_ant, cfg.n_sc, cfg.n_sym), dtype=torch.complex64,
+                               device=dev)
+    return {"h": h, "noise_var": noise_var, "interference": interference}
 
 
 def apply_channel(key: torch.Tensor, tx_grid: torch.Tensor,

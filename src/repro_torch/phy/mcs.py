@@ -1,7 +1,8 @@
 """MCS table, TBS computation and link adaptation (TS 38.214 5.1.3).
 
-Host tables are numpy (a copy of ``repro.phy.mcs``); ``select_mcs_index``
-is the traced, per-UE device lookup the batched engine runs every slot.
+Host tables are numpy (a copy of ``repro.phy.mcs``); ``select_mcs`` is the
+host loop's link adaptation on a Python float, and ``select_mcs_index`` the
+per-UE device lookup the batched engine runs every slot.
 """
 
 from __future__ import annotations
@@ -65,6 +66,13 @@ def _snr_threshold_db(mcs: McsEntry) -> float:
 SNR_THRESHOLDS_DB = np.asarray(
     [_snr_threshold_db(mcs_entry(i)) for i in range(MAX_MCS + 1)]
 )
+
+def select_mcs(snr_db: float, *, backoff_db: float = 1.0) -> McsEntry:
+    """Outer-loop-free link adaptation: highest MCS whose threshold fits."""
+    eligible = np.nonzero(SNR_THRESHOLDS_DB <= snr_db - backoff_db)[0]
+    idx = int(eligible[-1]) if eligible.size else 0
+    return mcs_entry(idx)
+
 
 QM_BY_MCS = np.asarray([q for q, _ in _MCS_TABLE], np.int32)
 RATE_BY_MCS = np.asarray([r / 1024.0 for _, r in _MCS_TABLE], np.float32)

@@ -1,33 +1,44 @@
-"""The batched multi-UE PUSCH slot engine with the ARCHES expert bank
-(paper Fig. 2, nodes 2a-2e).
+"""The PUSCH receive pipeline with the ARCHES expert bank (paper Fig. 2,
+nodes 2a-2e): the single-UE host pipeline and the batched multi-UE engine.
 
-Per slot, for every UE at once (a leading UE axis replaces the reference's
-``vmap``; a Python slot loop over device-resident tensors replaces its
-``lax.scan``):
+Per slot:
 
   TX   link adaptation (previous slot's SNR + OLLA -> MCS/TBS) -> bits -> QAM
        -> grid + DMRS
   CH   TDL fading + interference + AWGN
-  RX   LS -> expert bank {AI (folded-GEMM CNN), MMSE (``mmse_interp``)}
-       -> per-UE switch (``switch_select``) -> time interpolation + MMSE
-       equalizer -> decision-directed SINR, MIESM TB outcome, OLLA
-       (GATED: MMSE densely, the AI expert only on the UEs that select it,
-       through ``switch_scatter`` or the fused ``gated_expert`` kernel)
+  RX   LS -> expert bank {AI (CNN), MMSE (``mmse_interp``)} -> switch
+       (``switch_select``) -> time interpolation + MMSE equalizer ->
+       decision-directed SINR, MIESM TB outcome, OLLA
   KPM  per-slot Aerial + OAI telemetry
 
+``PuschPipeline`` is one UE's chain for the host loop (``ArchesRuntime``):
+link state and KPM assembly are Python floats on the host, the slot's
+tensors live on the device, the AI expert is the eager convolution path and
+the switch is the scalar kernel.  Each slot reads the measured SINR, the
+RSRP and the TB outcome back to the host in one copy: that is the slot's one
+synchronisation with the card, by design (link adaptation is host logic).
+
+``BatchedPuschPipeline`` runs every UE of a slot at once (a leading UE axis
+replaces the reference's ``vmap``; a Python slot loop over device-resident
+tensors replaces its ``lax.scan``), with the folded-GEMM AI expert and the
+per-UE switch; under GATED the AI expert runs only on the UEs that select
+it, through ``switch_scatter`` or the fused ``gated_expert`` kernel.
 ``run`` is the open-loop campaign (a declared mode grid);
 ``run_closed_loop`` decides each UE's next mode inside the loop through the
-device policy and the switch register.  PRNG derivation matches the
-reference: UE ``u`` in slot ``s`` uses ``fold_in(fold_in(key, u), s)``.
+device policy and the switch register; ``run_perturbed`` is the
+methodology's stage 1 (MMSE only, AWGN injected at a per-UE ``rho``).  PRNG
+derivation matches the reference: UE ``u`` in slot ``s`` uses
+``fold_in(fold_in(key, u), s)``.
 
-Left for later slices (they raise): fault injection, multi-cell topology,
-the streaming ``active`` mask and the perturbation sweep.  There is one
-slot loop, so ``use_scan`` has no effect.
+Left for later slices (they raise): fault injection, multi-cell topology and
+the streaming ``active`` mask.  There is one slot loop, so ``use_scan`` has
+no effect.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+import dataclasses
+from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -41,11 +52,16 @@ from repro_torch.core.closed_loop import (
     switch_update,
 )
 from repro_torch.core.expert_bank import ExecutionMode, Expert, ExpertBank
+from repro_torch.core.methodology import perturb_estimate
 from repro_torch.core.telemetry import trajectory_kpm_matrix
 from repro_torch.device import resolve_device
 from repro_torch.phy import dmrs as dmrs_mod
 from repro_torch.phy import qam
-from repro_torch.phy.ai_estimator import AiEstimator, AiEstimatorConfig
+from repro_torch.phy.ai_estimator import (
+    AiEstimator,
+    AiEstimatorConfig,
+    ai_estimate_from_ls,
+)
 from repro_torch.phy.channel import (
     ChannelConfig,
     ChannelParams,
@@ -54,19 +70,23 @@ from repro_torch.phy.channel import (
     channel_params_schedule,
     channel_params_ue_schedule,
     per_ue_params,
+    simulate_slot_channel,
     simulate_slot_channel_traced,
 )
 from repro_torch.phy.equalizer import mmse_equalize
 from repro_torch.phy.estimators import WienerInterpolator, estimator_flops, ls_estimate
-from repro_torch.phy.link import tb_success_dynamic
+from repro_torch.phy.link import tb_success, tb_success_dynamic, throughput_bits
 from repro_torch.phy.mcs import (
     QM_BY_MCS,
     QM_INDEX_BY_MCS,
     QM_VALUES,
     RATE_BY_MCS,
+    n_code_blocks,
     n_code_blocks_table,
+    select_mcs,
     select_mcs_index,
     tbs_table,
+    transport_block_size,
 )
 from repro_torch.phy.nr import SlotConfig
 
@@ -79,6 +99,212 @@ _LCID4_FRACTION = 0.95
 _OLLA_UP_DB = 0.15
 _OLLA_DOWN_DB = 1.35
 _OLLA_CLAMP_DB = 10.0
+
+
+@dataclasses.dataclass
+class LinkState:
+    """The host loop's link-adaptation and cumulative-counter state.
+
+    ``olla_offset_db`` is outer-loop link adaptation: the HARQ ACK/NACK
+    driven SINR offset that absorbs the bias of the decision-directed SINR
+    measurement, so estimator quality surfaces in the granted MCS.
+    """
+
+    reported_snr_db: float = 20.0
+    ndi: int = 1
+    cum_phy_bits: float = 0.0
+    cum_mac_bytes: float = 0.0
+    cum_lcid4_bytes: float = 0.0
+    slots: int = 0
+    olla_offset_db: float = 0.0
+
+
+class PuschPipeline:
+    """One UE's UL PUSCH receive chain with a switchable estimator bank.
+
+    ``ai_params`` is the AI expert's raw weight dict in the port's format
+    (``repro_torch.convert.ai_params_from_reference`` carries the
+    reference's across).  The bank holds the AI expert first (mode 0, the
+    designated buffer) and MMSE as the fail-safe (mode 1); on the card the
+    CONCURRENT bank switches with the scalar kernel every slot, mode 0
+    included.
+    """
+
+    def __init__(
+        self,
+        cfg: SlotConfig,
+        ai_params: Any,
+        *,
+        net: AiEstimatorConfig = AiEstimatorConfig(),
+        execution_mode: ExecutionMode = ExecutionMode.CONCURRENT,
+        use_pallas_switch: bool = True,
+        rms_delay_spread_s: float = 100e-9,
+        device: torch.device | str = "cuda",
+    ):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.ai_params = _params_to(ai_params, self.device)
+        self.interpolator = WienerInterpolator.build(
+            cfg, rms_delay_spread_s=rms_delay_spread_s, device=self.device)
+        self._pilots = dmrs_mod.dmrs_sequence(cfg, self.device)
+        self.bank = ExpertBank(
+            [
+                Expert(name="ai", fn=ai_estimate_from_ls, params=self.ai_params,
+                       flops=net.flops(cfg)),
+                Expert(name="mmse", fn=lambda _p, h_ls: self._mmse_from_ls(h_ls),
+                       flops=estimator_flops(cfg)),
+            ],
+            default_mode=1,
+            execution_mode=execution_mode,
+            use_pallas_switch=use_pallas_switch,
+        )
+
+    def _mmse_from_ls(self, h_ls: torch.Tensor) -> torch.Tensor:
+        """(ant, dmrs_sym, pilot_sc) -> (ant, 1, n_sc, dmrs_sym), contiguous."""
+        from repro_torch.kernels.mmse_interp import mmse_interp
+
+        h_full = mmse_interp(h_ls, self.interpolator.w)
+        return h_full.movedim(-2, -1)[:, None].contiguous()
+
+    def _tx_slot(self, key: torch.Tensor, qm: int, tbs_bits: int):
+        """bits -> QAM symbols -> resource grid (+ pilots)."""
+        cfg = self.cfg
+        bits = jr.bernoulli(key, 0.5, (cfg.n_data_re() * qm,)).to(torch.uint8)
+        grid = dmrs_mod.map_slot_grid(cfg, qam.modulate(bits, qm)[None], self._pilots)[0]
+        return bits, grid, self._pilots
+
+    def _rx_slot(self, mode, rx_grid: torch.Tensor, pilots: torch.Tensor,
+                 tx_data_syms: torch.Tensor, noise_var: torch.Tensor, qm: int, *,
+                 perturb: bool = False, rho: float = 0.0,
+                 perturb_key: torch.Tensor | None = None) -> dict[str, Any]:
+        """LS -> expert bank -> switch -> equalize -> demap.
+
+        The measured SINR is decision-directed EVM on the data REs (what the
+        receiver reports; it drives link adaptation and the LLR scale); the
+        genie per-RE SINR against the known TX symbols drives only the MIESM
+        TB model.
+        """
+        cfg = self.cfg
+        h_ls = ls_estimate(cfg, rx_grid, pilots)
+        if perturb:
+            # methodology stage 1 (paper Fig. 3): MMSE only, AWGN injected at
+            # node 2c -- no switching, no AI in the loop
+            h_sel = perturb_estimate(self._mmse_from_ls(h_ls), rho, perturb_key)
+            all_outputs = None
+        else:
+            out = self.bank(mode, h_ls)
+            h_sel, all_outputs = out.selected, out.all_outputs
+        x_hat, _ = mmse_equalize(cfg, rx_grid[None], h_sel[None], noise_var.reshape(1))
+        data_hat = dmrs_mod.extract_data_re(cfg, x_hat[0])
+
+        # measured SINR: decision-directed EVM against the nearest point
+        points = qam.constellation(qm, data_hat.device)
+        nearest = points[torch.argmin(torch.abs(data_hat[:, None] - points[None, :]), dim=1)]
+        dd_err = (torch.abs(data_hat - nearest) ** 2).mean()
+        sig_pow = (torch.abs(nearest) ** 2).mean()
+        sinr_meas = sig_pow / torch.clamp(dd_err, min=1e-9)
+
+        # genie per-RE SINR, smoothed over PRB-sized windows (LDPC averages bursts)
+        genie_err = torch.abs(data_hat - tx_data_syms) ** 2
+        n = genie_err.shape[0] - genie_err.shape[0] % 12
+        genie_sinr = 1.0 / torch.clamp(genie_err[:n].reshape(-1, 12).mean(dim=1), min=1e-9)
+        return {
+            "h_selected": h_sel,
+            "all_outputs": all_outputs,
+            "llr": qam.demap_llr(data_hat, 1.0 / sinr_meas, qm),
+            "genie_sinr": genie_sinr,
+            "rsrp": (torch.abs(h_sel) ** 2).mean(),
+            "post_snr_lin": sinr_meas,
+        }
+
+    def run_slot(self, key: torch.Tensor, mode, link: LinkState, channel_cfg: ChannelConfig,
+                 *, perturb_rho: float | None = None
+                 ) -> tuple[LinkState, dict[str, Any], dict[str, Mapping[str, float]]]:
+        """Execute one slot; returns (new link state, outputs, KPMs by source)."""
+        cfg = self.cfg
+        k_tx, k_ch, k_n, k_crc, k_p = jr.split(key, 5)
+
+        # link adaptation from last slot's report + OLLA offset (L2 behaviour)
+        mcs = select_mcs(link.reported_snr_db + link.olla_offset_db)
+        tbs = transport_block_size(cfg.n_data_re(), mcs)
+        bits, tx_grid, pilots = self._tx_slot(k_tx, mcs.qm, tbs)
+
+        fields = simulate_slot_channel(k_ch, cfg, channel_cfg)
+        rx_grid = apply_channel(k_n[None], tx_grid[None], {
+            "h": fields["h"][None], "interference": fields["interference"][None],
+            "noise_var": fields["noise_var"].reshape(1)})[0]
+
+        tx_syms = dmrs_mod.extract_data_re(cfg, tx_grid[0])
+        rx = self._rx_slot(mode, rx_grid, pilots, tx_syms, fields["noise_var"], mcs.qm,
+                           perturb=perturb_rho is not None,
+                           rho=0.0 if perturb_rho is None else perturb_rho,
+                           perturb_key=k_p)
+        ok = tb_success(rx["genie_sinr"], mcs, key=k_crc)
+        # the slot's one read back to the host: link adaptation and the KPMs
+        post_snr_lin, rsrp, ok_f = torch.stack(
+            [rx["post_snr_lin"], rx["rsrp"], ok.to(torch.float32)]).tolist()
+        phy_bits = float(throughput_bits(tbs, torch.tensor(ok_f > 0), cfg.slot_duration_s))
+
+        # -- host-side KPM assembly (Aerial Data Lake + OAI, paper 4.3/6) --
+        tb_bytes = tbs / 8.0
+        mac_sdu_bytes = max(tb_bytes - _MAC_HEADER_BYTES, 0.0) * ok_f
+        lcid4_bytes = max(mac_sdu_bytes - _RLC_HEADER_BYTES, 0.0) * _LCID4_FRACTION
+        olla = link.olla_offset_db + (_OLLA_UP_DB if ok_f else -_OLLA_DOWN_DB)
+        olla = float(np.clip(olla, -_OLLA_CLAMP_DB, _OLLA_CLAMP_DB))
+        snr_db = float(10.0 * np.log10(post_snr_lin + 1e-9))
+        new_link = LinkState(
+            reported_snr_db=snr_db,
+            ndi=1 if ok_f else 0,  # NDI toggles on new data; retx keeps it
+            cum_phy_bits=link.cum_phy_bits + phy_bits * cfg.slot_duration_s,
+            cum_mac_bytes=link.cum_mac_bytes + mac_sdu_bytes,
+            cum_lcid4_bytes=link.cum_lcid4_bytes + lcid4_bytes,
+            slots=link.slots + 1,
+            olla_offset_db=olla,
+        )
+        elapsed = new_link.slots * cfg.slot_duration_s
+        kpms = {
+            "aerial": {
+                "code_rate": mcs.code_rate,
+                "sinr": snr_db,
+                "qam_order": float(mcs.qm),
+                "mcs_index": float(mcs.index),
+                "tb_size": float(tbs) * ok_f,
+                "n_code_blocks": float(n_code_blocks(tbs)) * ok_f,
+                "pdu_length": tb_bytes * ok_f,
+                "ndi": float(new_link.ndi),
+                "rsrp": rsrp,
+                "phy_throughput": new_link.cum_phy_bits / elapsed,  # cumulative
+            },
+            "oai": {
+                "snr": snr_db,
+                "mac_throughput": new_link.cum_mac_bytes * 8.0 / elapsed,
+                "lcid4_throughput": new_link.cum_lcid4_bytes * 8.0 / elapsed,
+                "mac_rx_bytes": mac_sdu_bytes,
+                "lcid4_rx_bytes": lcid4_bytes,
+            },
+        }
+        outputs = {
+            "tb_ok": ok_f,
+            "tbs": tbs,
+            "mcs": mcs.index,
+            "phy_bits_per_s": phy_bits,
+            "bits": bits,
+            "llr": rx["llr"],
+            "rx": rx,
+        }
+        return new_link, outputs, kpms
+
+    def make_slot_fn(self, channel_schedule: Callable[[int], ChannelConfig]):
+        """Adapter for ``ArchesRuntime``: carry = ``LinkState``, input = slot
+        index.  Slot ``s`` runs on key ``PRNGKey(s * 2654435761 % 2**31)``,
+        as in the reference (independent of the campaign seed)."""
+
+        def slot_fn(active_mode, carry, slot_idx):
+            link = carry if carry is not None else LinkState()
+            key = jr.PRNGKey(int(slot_idx) * 2654435761 % 2**31, self.device)
+            return self.run_slot(key, active_mode, link, channel_schedule(int(slot_idx)))
+
+        return slot_fn
 
 
 class DeviceLinkState(NamedTuple):
@@ -149,9 +375,12 @@ def resolve_schedule(cfg: SlotConfig, schedule, n_slots: int, n_ues: int,
 
 
 def _stack_tree(items: list) -> Any:
+    """Stack per-slot outputs into a trajectory.  Dict keys come out sorted,
+    as a ``lax.scan`` trajectory's do in the reference, so KPM names list in
+    the same order in both packages."""
     first = items[0]
     if isinstance(first, dict):
-        return {k: _stack_tree([it[k] for it in items]) for k in first}
+        return {k: _stack_tree([it[k] for it in items]) for k in sorted(first)}
     return torch.stack(items, dim=0)
 
 
@@ -361,22 +590,36 @@ class BatchedPuschPipeline:
     # -- one batched slot ------------------------------------------------------
 
     def _slot_core(self, profile: TdlProfile, link: DeviceLinkState,
-                   modes: torch.Tensor, keys: torch.Tensor, p: ChannelParams):
-        """One slot for every UE.  The reference's perturbation (``rho``),
+                   modes: torch.Tensor, keys: torch.Tensor, p: ChannelParams,
+                   rho: torch.Tensor | None = None):
+        """One slot for every UE.  With ``rho (U,)`` it is the methodology's
+        stage 1 (paper Fig. 3): MMSE only, AWGN injected at node 2c at each
+        UE's intensity, no switching and no AI in the loop.  The reference's
         topology, streaming-mask and fault arguments wait for their slices
-        (ROADMAP, Queue 1: faults, topology, streaming, methodology)."""
+        (ROADMAP, Queue 1: faults, topology, streaming)."""
         n_ues = keys.shape[0]
         p = per_ue_params(p, n_ues)
         pre = self._ue_pre(profile, p, link.reported_snr_db, link.olla_offset_db, keys)
-        out = self.bank(modes.to(torch.int32), pre["h_ls"])
-        exec_flops = self.bank.executed_flops_per_ue(out)
-        new_link, outputs = self._ue_post(link, pre, out.selected)
         zeros = torch.zeros(n_ues, dtype=torch.int32, device=keys.device)
+        overflow = audit_tripped = zeros
+        if rho is None:
+            out = self.bank(modes.to(torch.int32), pre["h_ls"])
+            h_sel = out.selected
+            exec_flops = self.bank.executed_flops_per_ue(out)
+            if out.overflow is not None:
+                overflow = out.overflow.to(torch.int32)
+            if out.audit_tripped is not None:
+                audit_tripped = out.audit_tripped.to(torch.int32)
+        else:
+            h_mmse = self._mmse_from_ls_batched(pre["h_ls"])
+            h_sel = perturb_estimate(h_mmse, rho, jr.fold_in(keys, 0x9E7))
+            exec_flops = torch.full(
+                (n_ues,), self.bank.experts[self.bank.default_mode].flops,
+                dtype=torch.float32, device=keys.device)
+        new_link, outputs = self._ue_post(link, pre, h_sel)
         outputs["executed_flops"] = exec_flops
-        outputs["gated_overflow"] = (zeros if out.overflow is None
-                                     else out.overflow.to(torch.int32))
-        outputs["audit_tripped"] = (zeros if out.audit_tripped is None
-                                    else out.audit_tripped.to(torch.int32))
+        outputs["gated_overflow"] = overflow
+        outputs["audit_tripped"] = audit_tripped
         outputs["health_tripped"] = zeros
         return new_link, outputs
 
@@ -410,6 +653,29 @@ class BatchedPuschPipeline:
         for s in range(n_slots):
             keys = jr.fold_in(ue_keys, s)
             link, out = self._slot_core(profile, link, modes[s], keys, params.at(s))
+            outs.append(out)
+        return link, _stack_tree(outs)
+
+    def run_perturbed(self, schedule: Callable[[int], ChannelConfig], rho, *,
+                      n_slots: int, key=None, ue_keys=None):
+        """Methodology stage-1 campaign: the rho grid rides the UE axis.
+
+        UE ``u`` runs the MMSE-only pipeline with AWGN injected at intensity
+        ``rho[u]`` every slot.  Keys derive as in ``run``, with the injected
+        noise on its own stream (``fold_in(slot key, 0x9e7)``).  Returns
+        ``(final_link, trajectory)``.
+        """
+        dev = self.device
+        rho = torch.as_tensor(np.asarray(rho, np.float32)).to(dev)
+        n_ues = rho.shape[0]
+        profile, params = resolve_schedule(self.cfg, schedule, n_slots, n_ues, dev)
+        ue_keys = self._ue_keys(key, ue_keys, n_ues)
+        modes = torch.ones(n_ues, dtype=torch.int32, device=dev)  # MMSE-only stage
+        link = init_device_link(n_ues, dev)
+        outs = []
+        for s in range(n_slots):
+            keys = jr.fold_in(ue_keys, s)
+            link, out = self._slot_core(profile, link, modes, keys, params.at(s), rho=rho)
             outs.append(out)
         return link, _stack_tree(outs)
 

@@ -1,4 +1,5 @@
-"""Gray-coded QAM modulation and the per-axis nearest-point slicer."""
+"""Gray-coded QAM modulation, max-log LLR demapping and the per-axis
+nearest-point slicer (TS 38.211 5.1)."""
 
 from __future__ import annotations
 
@@ -42,6 +43,35 @@ def modulate(bits: torch.Tensor, qm: int) -> torch.Tensor:
         [1 << (qm - 1 - i) for i in range(qm)], np.int64))
     labels = (groups * weights).sum(dim=-1)
     return constellation(qm, bits.device)[labels]
+
+
+def demap_llr(y: torch.Tensor, noise_var: torch.Tensor | float, qm: int) -> torch.Tensor:
+    """Max-log LLRs: ``(..., n)`` equalized symbols -> ``(..., n*qm)``.
+
+    Positive LLR means bit 0 is more likely (``log P(b=0) / P(b=1)``).
+    """
+    pts = constellation(qm, y.device)
+    d2 = torch.abs(y[..., None] - pts) ** 2  # (..., n, M)
+    nv = torch.clamp(torch.as_tensor(noise_var, dtype=torch.float32, device=y.device),
+                     min=1e-9)
+    if nv.ndim:  # per-RE noise variance: broadcast over the constellation
+        nv = nv[..., None]
+    metric = -d2 / nv
+    labels = np.arange(1 << qm)
+    neg_inf = torch.full((), float("-inf"), dtype=metric.dtype, device=y.device)
+    llrs = []
+    for b in range(qm):
+        is_one = cached_const(("llr_bit", qm, b), y.device,
+                              lambda b=b: ((labels >> (qm - 1 - b)) & 1).astype(bool))
+        m0 = torch.where(is_one, neg_inf, metric).amax(dim=-1)
+        m1 = torch.where(is_one, metric, neg_inf).amax(dim=-1)
+        llrs.append(m0 - m1)
+    return torch.stack(llrs, dim=-1).reshape(y.shape[:-1] + (-1,))
+
+
+def hard_bits(llr: torch.Tensor) -> torch.Tensor:
+    """LLR -> hard decisions (bit 1 where the LLR is negative)."""
+    return (llr < 0).to(torch.uint8)
 
 
 def _gray_inverse(bits_per_axis: int) -> np.ndarray:

@@ -26,6 +26,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.device import cached_const
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -51,8 +53,10 @@ def threefry2x32(k1, k2, x1, x2) -> tuple[torch.Tensor, torch.Tensor]:
 def PRNGKey(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` with 64-bit types off, as the reference
     runs: the seed is taken as a 32-bit integer, so the words are
-    ``(0, seed mod 2**32)``."""
-    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64, device=device)
+    ``(0, seed mod 2**32)``.  Built on ``device`` as a cached ``(0, 1)``
+    times the seed, so a key made every slot uploads nothing."""
+    basis = cached_const(("key_basis",), device, lambda: np.asarray([0, 1], np.int64))
+    return basis * (int(seed) & MASK)
 
 
 def as_key(key, device: torch.device | str | None = None) -> torch.Tensor:

@@ -237,3 +237,125 @@ def test_cuda_gated_closed_loop_equals_host_replay(cuda, fused):
     engine = sess.engine
     want = (engine.bank.experts[1].flops + engine.bank.experts[0].flops * served)
     np.testing.assert_allclose(hist.outputs["executed_flops"], want, rtol=1e-6)
+
+
+# -- the host-loop slice: the scalar switch -------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_experts", [2, 3, 4])
+@pytest.mark.parametrize("shape,complex_", [((4, 1, 1272, 3), True), ((1001,), False),
+                                            ((3, 5, 7), True), ((2,), False)])
+def test_cuda_scalar_switch_vs_plain(cuda, n_experts, shape, complex_):
+    """Every mode, by value and from an int32 on the card: bitwise the plain
+    version, in place, one launch per alternative; mode 0 leaves the
+    designated bytes as they were."""
+    from repro_torch.kernels.switch_select import switch_select_ref
+
+    g = torch.Generator(device=cuda).manual_seed(n_experts)
+    make = (lambda: _cplx(g, shape, cuda)) if complex_ else (
+        lambda: torch.randn(shape, generator=g, device=cuda))
+    outs = [make() for _ in range(n_experts)]
+    for mode in range(n_experts):
+        want = switch_select_ref(mode, outs)
+        for m in (mode, torch.tensor(mode, dtype=torch.int32, device=cuda)):
+            des = outs[0].clone()
+            before = build.launch_counts["switch_select"]
+            got = switch_select(m, [des, *outs[1:]])
+            torch.cuda.synchronize()
+            assert build.launch_counts["switch_select"] == before + n_experts - 1
+            assert got.data_ptr() == des.data_ptr()
+            assert torch.equal(got, want)
+            if mode == 0:
+                assert torch.equal(des, outs[0])
+
+
+@pytest.mark.cuda
+def test_cuda_scalar_switch_scalar_tail_and_unaligned(cuda):
+    """Payloads that are not a multiple of four floats, and views that start
+    off the 16-byte grid, take the scalar path of the copy."""
+    base = torch.randn(4 * 1000 + 7, device=cuda)
+    alt = torch.randn_like(base)
+    for lo, hi in ((0, 4003), (1, 4003), (3, 4006)):  # aligned + tail, unaligned
+        des = base.clone()
+        got = switch_select(1, [des[lo:hi], alt[lo:hi]])
+        torch.cuda.synchronize()
+        assert torch.equal(got, alt[lo:hi])
+        assert torch.equal(des[:lo], base[:lo]) and torch.equal(des[hi:], base[hi:])
+
+
+@pytest.mark.cuda
+def test_cuda_scalar_switch_out_of_range_device_mode_keeps_buffer(cuda):
+    outs = [torch.randn(333, device=cuda) for _ in range(3)]
+    for bad in (3, 17, -1):
+        des = outs[0].clone()
+        got = switch_select(torch.tensor(bad, dtype=torch.int32, device=cuda),
+                            [des, *outs[1:]])
+        torch.cuda.synchronize()
+        assert torch.equal(got, outs[0])
+    with pytest.raises(ValueError, match="outside"):
+        switch_select(3, [outs[0].clone(), *outs[1:]])
+
+
+@pytest.mark.cuda
+def test_cuda_scalar_switch_never_takes_the_plain_version(cuda, monkeypatch):
+    from repro_torch.kernels.switch_select import ops
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ops, "switch_select_ref", refuse)
+    outs = [torch.randn(5, 7, device=cuda) for _ in range(2)]
+    got = ops.switch_select(1, [outs[0].clone(), outs[1]])
+    torch.cuda.synchronize()
+    assert torch.equal(got, outs[1])
+    with pytest.raises(TypeError):  # a device mode must be int32: raise, never fall back
+        ops.switch_select(torch.tensor(1, device=cuda), [outs[0].clone(), outs[1]])
+
+
+@pytest.mark.cuda
+def test_cuda_host_slot_keeps_ai_estimate_unswitched(cuda):
+    """A mode-1 host slot on the card: the kernel switches a copy of the AI
+    estimate, so ``all_outputs[0]`` is still the AI estimate while the
+    selected buffer holds the MMSE one.  A mode-0 slot launches the kernel
+    too, on the AI estimate itself: it writes nothing, so no copy is made."""
+    from repro_torch import random as jr
+    from repro_torch.phy import ai_estimator as tai
+    from repro_torch.phy.pipeline import LinkState, PuschPipeline
+    from repro_torch.phy.scenario import GOOD
+
+    torch.use_deterministic_algorithms(True)
+    cfg = SlotConfig(n_prb=24)
+    net = tai.AiEstimatorConfig(channels=8, n_res_blocks=1)
+    pipe = PuschPipeline(cfg, tai.init_params(jr.PRNGKey(0), cfg, net), net=net,
+                         device=cuda)
+    for mode in (1, 0):
+        build.reset_launch_counts()
+        _, out, kpms = pipe.run_slot(jr.PRNGKey(3, cuda), mode, LinkState(), GOOD)
+        torch.cuda.synchronize()
+        assert build.launch_counts["switch_select"] == 1, build.launch_counts
+        assert build.launch_counts["mmse_interp"] == 1, build.launch_counts
+        ai, mmse = out["rx"]["all_outputs"]
+        sel = out["rx"]["h_selected"]
+        assert torch.equal(sel, (ai, mmse)[mode])
+        assert (sel.data_ptr() == ai.data_ptr()) == (mode == 0)
+        if mode == 1:
+            assert not torch.equal(ai, sel)
+        assert np.isfinite(kpms["aerial"]["sinr"])
+
+
+@pytest.mark.cuda
+def test_cuda_host_session_launches_the_scalar_switch_every_slot(cuda):
+    from repro_torch.core.session import ArchesSession, CampaignSpec, PolicySpec
+
+    torch.use_deterministic_algorithms(True)
+    spec = CampaignSpec(path="host", scenario="good_poor_good", n_ues=1, n_slots=9,
+                        scenario_args=(("poor_start", 3), ("poor_end", 6)),
+                        policies=(PolicySpec(kind="threshold", threshold=18.0),))
+    sess = ArchesSession(spec, device=cuda)
+    build.reset_launch_counts()
+    hist = sess.run()
+    assert build.launch_counts["switch_select"] == 9, build.launch_counts
+    assert hist.modes.shape == (9, 1)
+    for v in hist.kpms.values():
+        assert np.isfinite(v).all()

@@ -180,8 +180,10 @@ def test_constructor_errors():
         _toy(tbank, audit_threshold=1.0)  # needs GATED
     with pytest.raises(ValueError):
         _toy(tbank, execution_mode="gated", audit_threshold=0.0)
-    with pytest.raises(NotImplementedError):
-        _toy(tbank, execution_mode="selected_only")
+    # SELECTED_ONLY builds now (tests/test_torch_host_path.py); its static
+    # cost needs the selected mode
+    with pytest.raises(ValueError):
+        _toy(tbank, execution_mode="selected_only").flops_for()
     with pytest.raises(ValueError):
         _toy(tbank, execution_mode="gated")(torch.tensor(0), torch.zeros(4, 4))
 

@@ -181,20 +181,24 @@ def test_spec_hash_matches_reference():
 
 
 def test_unported_paths_raise():
+    """Faults, topology and the ``multi_cell`` scenario still raise, naming
+    their ROADMAP item; the host and perturbed paths and SELECTED_ONLY banks
+    now build (they run in tests/test_torch_host_path.py and
+    tests/test_torch_methodology.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tses.CampaignSpec(faults={"decision_loss": 0.1})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tses.CampaignSpec(topology={"n_cells": 2})
-    for path in ("host", "perturbed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tses.ArchesSession(tses.CampaignSpec(path=path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tses.ArchesSession(tses.CampaignSpec(
-            bank=tses.ExpertBankSpec(execution_mode="selected_only")), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         from repro_torch.phy.scenario import get_scenario
 
         get_scenario("multi_cell").schedule(n_ues=4)
+    for spec in (
+            tses.CampaignSpec(path="host", n_ues=1, policies=(tses.PolicySpec(),)),
+            tses.CampaignSpec(path="perturbed", n_ues=2, rho=(0.0, 1.0)),
+            tses.CampaignSpec(bank=tses.ExpertBankSpec(execution_mode="selected_only"))):
+        sess = tses.ArchesSession(spec, device="cpu")
+        assert sess.path is tses.ExecutionPath.coerce(spec.path)
 
 
 def test_cuda_default_raises_without_a_card():
