@@ -13,10 +13,17 @@ Phases, each of which raises on failure (exit code != 0):
    one process per source, all started together;
 3. kernels: each kernel at its path's shapes against its plain
    PyTorch version (switches, scatter and tree bitwise, ``mmse_interp``
-   within ``MMSE_TOL``, the fused gated expert within ``GATED_F32_TOL`` /
+   within ``MMSE_TOL`` at the host loop's, the sweep's and the closed
+   loop's row counts and at n_prb 24 and 273, with each error against a
+   complex128 product beside the plain version's, bitwise the same twice
+   and for one UE alone or in a batch, the fused gated expert within ``GATED_F32_TOL`` /
    ``GATED_BF16_TOL`` with untouched UEs bitwise and one UE's estimate
    bitwise the same at any capacity), with kernel, plain-version and
-   library times and the card's lower bound for the same work;
+   library times and the card's lower bound for the same work; the
+   switches, the scatter and ``mmse_interp`` are timed against their
+   library call in turns (kernel, library, library, kernel) and print the
+   ratio, and the scalar switch prints the host time of a call alone
+   against ``copy_``'s;
 4. main path: ``ArchesSession(...).run()`` of the closed-loop campaign at
    the paper's 106-PRB slot with 32 UEs and the estimator's default width,
    on a CONCURRENT bank; every kernel of that path must launch during the
@@ -40,7 +47,10 @@ Phases, each of which raises on failure (exit code != 0):
    then the stage-2 filter and ``design_policy_inputs``;
 9. reference: small CONCURRENT, GATED, host and perturbed campaigns on the
    card against the same campaigns run by the plain versions on the CPU;
-10. profile: one more run of each closed loop and of the host loop under
+10. device alone: each kernel's and its yardstick's device time per call,
+    under ``torch.profiler``, queued by phase 3 (a profiler session slows
+    every later launch on the host, so it runs after the timed paths);
+11. profile: one more run of each closed loop and of the host loop under
     ``torch.profiler``: the device's busy share, the launches per slot,
     the AI expert's device time per slot, and kernel time by name.
 
@@ -74,6 +84,7 @@ import torch  # noqa: E402
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 #: mmse_interp kernel vs its plain version: both accumulate 636 fp32 products
 #: per output in different orders, and the Gauss form's p3 - p1 - p2
@@ -128,9 +139,59 @@ def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def turns(kernel, library, iters: int = 50) -> tuple[float, float, str]:
+    """A kernel's and its yardstick's call times, taken in turns (kernel,
+    library, library, kernel): the means, and both readings of each."""
+    k1, l1, l2, k2 = (time_ms(f, iters) for f in (kernel, library, library, kernel))
+    return ((k1 + k2) / 2, (l1 + l2) / 2,
+            f"{k1 * 1e3:.2f} / {k2 * 1e3:.2f} us vs {l1 * 1e3:.2f} / {l2 * 1e3:.2f} us, "
+            f"ratio {(k1 + k2) / (l1 + l2):.3f}")
+
+
+#: device-alone measurements the kernel phases queue for ``phase_device_alone``:
+#: (label, call, kernel-name substring or None for every kernel, calls)
+DEVICE_ALONE: list[tuple[str, object, str | None, int]] = []
+
+
+def device_alone(label: str, fn, match: str | None, iters: int = 200) -> None:
+    """Queue a device-alone measurement.  They run after the main paths,
+    because a ``torch.profiler`` session leaves every later launch slower on
+    the host, which would bias the call and loop times taken after it."""
+    DEVICE_ALONE.append((label, fn, match, iters))
+
+
+def device_us(fn, match: str | None, iters: int = 200) -> float:
+    """Device time per call of the kernels ``fn`` launches whose name holds
+    ``match`` (all of them with ``None``), from ``torch.profiler`` over
+    ``iters`` calls back to back: the device work alone, without the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and (match is None or match in e.key)]
+    if not events:
+        raise AssertionError(f"the profiler saw no device kernel named {match!r}")
+    return sum(e.self_device_time_total for e in events) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn``, ``iters`` calls back to back."""
+    fn()
+    t0 = time.perf_counter_ns()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter_ns() - t0) / iters / 1e3
+
+
+def bound_ms(n_bytes: float, n_flops: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -176,36 +237,76 @@ def phase_kernels() -> list[dict]:
     rows = []
 
     # -- mmse_interp: (U*ant*dmrs, Np) @ (Np, Nsc) ------------------------------
-    # at each path's row count: the closed loop's 32 UEs (a whole number of
-    # 64-row tiles), the host loop's one UE and the sweep's 168 UEs (both
-    # end in a partial tile, which exercises the row-edge mask)
+    # at each path's row count: the host loop's one UE (12 of a 64-row tile,
+    # 16 subcarriers a block), the sweep's 168 UEs (2,016 rows end in a partial
+    # tile) and last the closed loop's 32 UEs, which the kernel row reports
     w = WienerInterpolator.build(cfg, device=dev).w
     per_ue = cfg.n_ant * cfg.n_dmrs_sym
-    err = 0.0
+    np_, nsc = cfg.n_pilot_sc, cfg.n_sc
+    err, alone = 0.0, None
     for n_ues in (1, sweep_ues(), N_UES):
         b = n_ues * per_ue
-        h = torch.complex(torch.randn(b, cfg.n_pilot_sc, generator=gen, device=dev),
-                          torch.randn(b, cfg.n_pilot_sc, generator=gen, device=dev))
+        h = torch.complex(torch.randn(b, np_, generator=gen, device=dev),
+                          torch.randn(b, np_, generator=gen, device=dev))
         got = mmse_interp(h, w)
         want = mmse_interp_ref(h, w)
+        again = mmse_interp(h, w)
+        exact = torch.matmul(h.to(torch.complex128), w.to(torch.complex128))
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
-        log(f"  mmse_interp at {b} rows ({n_ues} UEs): max |err| {e:.3g}")
+        e64 = (float((got - exact).abs().max()), float((want - exact).abs().max()))
         if not e <= MMSE_TOL:
             raise AssertionError(f"mmse_interp max |err| {e} > {MMSE_TOL} at {b} rows")
+        if not torch.equal(got, again):
+            raise AssertionError(f"mmse_interp differs between two calls at {b} rows")
+        if alone is None:
+            alone = (h, got)
         err = max(err, e)
-    ms = time_ms(lambda: mmse_interp(h, w))
+        # bound: the cheapest form at the kernel's accuracy, 3xTF32 in the Gauss
+        # form (3 real GEMMs x 3 TF32 products); this kernel's 4-multiply form
+        # and the fp32 CUDA-core bound are printed beside it
+        n_bytes = 8.0 * (b * np_ + np_ * nsc + b * nsc)
+        bms, by = bound_ms(n_bytes, 18.0 * b * np_ * nsc, PEAK_TF32_FLOPS)
+        four_m_ms, _ = bound_ms(n_bytes, 24.0 * b * np_ * nsc, PEAK_TF32_FLOPS)
+        f32_ms, _ = bound_ms(n_bytes, 6.0 * b * np_ * nsc)
+        ms, lib, reading = turns(lambda: mmse_interp(h, w), lambda: torch.matmul(h, w))
+        device_alone(f"mmse_interp at {b} rows", lambda h=h: mmse_interp(h, w),
+                     "mmse_interp", 50)
+        device_alone(f"torch.matmul at {b} rows", lambda h=h: torch.matmul(h, w), None, 50)
+        log(f"  mmse_interp at {b} rows ({n_ues} UEs): max |err| {e:.3g} (vs complex128: "
+            f"kernel {e64[0]:.3g}, plain {e64[1]:.3g}), bitwise the same twice; call "
+            f"{ms * 1e3:.2f} us vs torch.matmul {lib * 1e3:.2f} us ({reading}); "
+            f"bound {bms * 1e3:.2f} us (3xTF32 Gauss form, {by} at 495 TFLOP/s), the "
+            f"kernel's 4-multiply form {four_m_ms * 1e3:.2f} us, fp32 bound "
+            f"{f32_ms * 1e3:.2f} us")
+    # one UE's rows alone and at the head of the closed loop's batch: the
+    # same bits (each output is summed in one order, whatever the tile)
+    one = torch.cat([alone[0], h[alone[0].shape[0]:]])
+    if not torch.equal(mmse_interp(one, w)[:per_ue], alone[1]):
+        raise AssertionError(f"mmse_interp: one UE's rows differ between {per_ue} and "
+                             f"{b} rows")
+    # accuracy at the other carrier widths, up to NR's widest at 30 kHz
+    for n_prb in (24, 273):
+        w2 = WienerInterpolator.build(SlotConfig(n_prb=n_prb), device=dev).w
+        h2 = torch.complex(torch.randn(b, w2.shape[0], generator=gen, device=dev),
+                           torch.randn(b, w2.shape[0], generator=gen, device=dev))
+        got, want = mmse_interp(h2, w2), mmse_interp_ref(h2, w2)
+        exact = torch.matmul(h2.to(torch.complex128), w2.to(torch.complex128))
+        e = float((got - want).abs().max())
+        if not e <= MMSE_TOL:
+            raise AssertionError(f"mmse_interp max |err| {e} > {MMSE_TOL} at n_prb {n_prb}")
+        log(f"  mmse_interp at {b} rows, n_prb {n_prb}: max |err| {e:.3g} (vs complex128: "
+            f"kernel {float((got - exact).abs().max()):.3g}, plain "
+            f"{float((want - exact).abs().max()):.3g})")
+        err = max(err, e)
     plain = time_ms(lambda: mmse_interp_ref(h, w))
-    lib = time_ms(lambda: torch.matmul(h, w))
-    np_, nsc = cfg.n_pilot_sc, cfg.n_sc
-    bms, by = bound_ms(8.0 * (b * np_ + np_ * nsc + b * nsc), 6.0 * b * np_ * nsc)
     rows.append(dict(
         name="mmse_interp", route="cuda", source="src/repro_torch/csrc/mmse_interp.cu",
         replaces="src/repro/kernels/mmse_interp/mmse_interp.py:54",
         launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bms, bound_by=by, library_ms=lib,
         shape=f"H ({b}, {np_}) @ W ({np_}, {nsc}) complex64 (also checked at "
-              f"{per_ue} and {sweep_ues() * per_ue} rows)",
+              f"{per_ue} and {sweep_ues() * per_ue} rows, and at n_prb 24 and 273)",
     ))
 
     # -- switch_select: (U, ant, 1, Nsc, dmrs) complex64, mixed modes -----------
@@ -226,13 +327,17 @@ def phase_kernels() -> list[dict]:
         if not torch.equal(switch_select(m, [d, alt]),
                            switch_select_batched_ref(m, [des0, alt])):
             raise AssertionError("switch_select differs on a uniform mode vector")
-    ms = time_ms(lambda: switch_select(modes, [des, alt]))
     plain = time_ms(lambda: switch_select_batched_ref(modes, [des0, alt]))
     mask = (modes != 0).reshape(-1, 1, 1, 1, 1)
-    lib = time_ms(lambda: torch.where(mask, alt, des0))
+    ms, lib, reading = turns(lambda: switch_select(modes, [des, alt]),
+                             lambda: torch.where(mask, alt, des0))
+    device_alone("switch_select_batched", lambda d=des: switch_select(modes, [d, alt]),
+                 "switch_select_kernel")
+    device_alone("torch.where, per-UE", lambda d=des0: torch.where(mask, alt, d), None)
     per_ue = des0[0].numel() * 8
     n_sw = int((modes != 0).sum())
     bms, by = bound_ms(2.0 * per_ue * n_sw + 4 * N_UES, 0.0)
+    log(f"  switch_select_batched: call {reading} (torch.where)")
     rows.append(dict(
         name="switch_select_batched", route="cuda",
         source="src/repro_torch/csrc/switch_select.cu",
@@ -283,8 +388,9 @@ def phase_scalar_switch() -> dict:
     """The host loop's scalar switch at its shape: one UE's estimate
     ``(ant, 1, Nsc, dmrs)`` complex64, two experts.  Bitwise on both modes
     (by value and from an int32 on the card) and on a device mode that names
-    no expert (the buffer is kept); no-op and copy times beside the bound,
-    the plain version and the library calls."""
+    no expert (the buffer is kept).  Copy and no-op call times against
+    ``copy_`` in turns, the device time alone of each, and the host time of a
+    call alone against ``copy_``'s, 200 calls back to back."""
     from repro_torch.kernels.switch_select import switch_select, switch_select_ref
     from repro_torch.phy.nr import SlotConfig
 
@@ -310,10 +416,16 @@ def phase_scalar_switch() -> dict:
     if not torch.equal(got, des0):
         raise AssertionError("scalar switch: an out-of-range device mode did not keep the buffer")
     des = des0.clone()
-    noop = time_ms(lambda: switch_select(0, [des, alt]), iters=200)
-    copy = time_ms(lambda: switch_select(1, [des, alt]), iters=200)
+    copy, lib_copy, copy_reading = turns(lambda: switch_select(1, [des, alt]),
+                                         lambda: des.copy_(alt), iters=200)
+    noop, lib_noop, noop_reading = turns(lambda: switch_select(0, [des, alt]),
+                                         lambda: des.copy_(alt), iters=200)
     plain = time_ms(lambda: switch_select_ref(1, [des0, alt]), iters=200)
-    lib_copy = time_ms(lambda: des.copy_(alt), iters=200)
+    device_alone("scalar switch, copy", lambda: switch_select(1, [des, alt]),
+                 "switch_select_scalar")
+    device_alone("scalar switch, no-op", lambda: switch_select(0, [des, alt]),
+                 "switch_select_scalar")
+    device_alone("copy_ of the host leaf", lambda: des.copy_(alt), None)
     # the host bank switches into a copy of the AI estimate on a slot that
     # may switch, so that all_outputs[0] stays unswitched
     clone = time_ms(lambda: des0.clone(), iters=200)
@@ -322,15 +434,25 @@ def phase_scalar_switch() -> dict:
     modes = {m: torch.tensor(m, dtype=torch.int32, device=dev) for m in (0, 1)}
     lib_where = {m: time_ms(lambda m=m: torch.where(modes[m] == 0, des0, alt), iters=200)
                  for m in (0, 1)}
+
+    # -- host time of a call alone, against copy_'s ---------------------------
+    torch.cuda.synchronize()
+    host = {name: host_us(f) for name, f in (
+        ("copy", lambda: switch_select(1, [des, alt])),
+        ("no-op", lambda: switch_select(0, [des, alt])),
+        ("copy_", lambda: des.copy_(alt)))}
+    torch.cuda.synchronize()
+    log("  scalar switch, host time per call alone (200 calls back to back): "
+        + "; ".join(f"{k} {v:.2f} us" for k, v in host.items()))
     n_bytes = des0.numel() * 8
     bms, by = bound_ms(2.0 * n_bytes, 0.0)
-    log(f"kernel switch_select (scalar): no-op {noop * 1e3:.2f} us, copy {copy * 1e3:.2f} us "
-        f"(plain {plain * 1e3:.2f} us; library copy_ {lib_copy * 1e3:.2f} us, torch.where "
-        f"mode 0 {lib_where[0] * 1e3:.2f} us / mode 1 {lib_where[1] * 1e3:.2f} us; bound "
-        f"{bms * 1e3:.3f} us by {by} for the copy; the host bank's clone of the estimate "
-        f"{clone * 1e3:.2f} us, of which torch.empty_like {empty * 1e3:.2f} us), bitwise "
-        f"on modes 0, 1 and an "
-        f"out-of-range device mode, {shape} complex64 = {n_bytes} B")
+    log(f"kernel switch_select (scalar): copy {copy * 1e3:.2f} us ({copy_reading} copy_), "
+        f"no-op {noop * 1e3:.2f} us ({noop_reading} copy_); plain "
+        f"{plain * 1e3:.2f} us; torch.where mode 0 {lib_where[0] * 1e3:.2f} us / mode 1 "
+        f"{lib_where[1] * 1e3:.2f} us; bound {bms * 1e3:.3f} us by {by} for the copy; the "
+        f"host bank's clone of the estimate {clone * 1e3:.2f} us, of which "
+        f"torch.empty_like {empty * 1e3:.2f} us; bitwise on modes 0, 1 and an out-of-range "
+        f"device mode, {shape} complex64 = {n_bytes} B")
     return dict(
         name="switch_select", route="cuda", source="src/repro_torch/csrc/switch_select.cu",
         replaces="src/repro/kernels/switch_select/switch_select.py:62",
@@ -400,10 +522,14 @@ def phase_gated_kernels() -> list[dict]:
         d = des0.clone()
         if not torch.equal(switch_scatter(s_, c, d), switch_gather_batched_ref(s_, c, des0)):
             raise AssertionError(f"switch_gather differs at capacity {k}")
-    ms = time_ms(lambda: switch_scatter(src, compact, des))
     plain = time_ms(lambda: switch_gather_batched_ref(src, compact, des0))
     sel = torch.nonzero(src >= 0).flatten()
-    lib = time_ms(lambda: des.index_copy_(0, sel, compact[:n_sel]))
+    ms, lib, reading = turns(lambda: switch_scatter(src, compact, des),
+                             lambda: des.index_copy_(0, sel, compact[:n_sel]))
+    device_alone("switch_gather_batched", lambda d=des: switch_scatter(src, compact, d),
+                 "switch_gather_kernel")
+    device_alone("index_copy_", lambda d=des: d.index_copy_(0, sel, compact[:n_sel]), None)
+    log(f"  switch_gather_batched: call {reading} (index_copy_)")
     per_ue = des0[0].numel() * 8
     bms, by = bound_ms(2.0 * per_ue * n_sel + 4 * N_UES, 0.0)
     rows.append(dict(
@@ -746,6 +872,14 @@ def phase_sweep(sess) -> None:
         f"{sorted(kept)}; design_policy_inputs keeps {list(selected)}; launches {launches}")
 
 
+def phase_device_alone() -> None:
+    """The kernels' and their yardsticks' device time alone, queued by the
+    kernel phases, under ``torch.profiler``."""
+    for label, fn, match, iters in DEVICE_ALONE:
+        log(f"device alone: {label} {device_us(fn, match, iters):.2f} us per call "
+            f"({iters} calls under torch.profiler)")
+
+
 def phase_profile(sess, label: str, ai_kernels: tuple[str, ...]) -> None:
     """One more ``run()`` of a session under ``torch.profiler``: device busy
     share, the launches per slot, the AI expert's device time per slot
@@ -808,6 +942,7 @@ def main() -> int:
     log(f"kernels held against their plain versions: {[r['name'] for r in rows]}")
     phase_gated_vs_concurrent(conc_hist, conc.host_policies)
     phase_reference()
+    phase_device_alone()
     phase_profile(conc, "CONCURRENT", ("gemm",))
     phase_profile(gated, "GATED fused", ("gated_expert",))
     phase_profile(host, "host loop", ("conv", "fprop", "cudnn"))

@@ -36,6 +36,16 @@
 // keeps the buffer.  The switches make one launch per alternative (the banks of
 // the main paths have exactly one); the scatter one in all.  The scatter clamps
 // src[u] to the last compact row, as the plain version does.
+//
+// The lean launch path (kernels/switch_select/ops.py, kernels/build.py): at the
+// host loop's size the scalar switch's call time is all host work, so its
+// wrapper does only what the kernel needs.  Complex payloads go in as their own
+// data_ptr() with twice their numel() floats (no view_as_real), the stream is the
+// raw handle from torch._C._cuda_getCurrentRawStream (no torch.cuda.Stream
+// object), the ctypes entry points are typed once, and each tensor's dtype,
+// device, shape, contiguity and lazy conjugate/negative bits are checked once,
+// cheapest first.  The per-UE switch and the scatter launch through the same
+// path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -10,8 +10,10 @@ per source, all started together.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on a non-zero code, so a refused launch never passes
-silently.  Nothing here runs at import: this module is imported on hosts
-with no CUDA toolkit.
+silently.  A launch takes its pointers as ``data_ptr()`` ints (a complex64
+tensor's as it is: the kernels read it as float pairs) and the current
+stream from ``stream``, an int read afresh at every launch.  Nothing here
+builds at import: this module is imported on hosts with no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 KERNELS = ("mmse_interp", "switch_select", "tree_infer", "gated_expert")
@@ -134,8 +138,15 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
-def stream_ptr(tensor) -> ctypes.c_void_p:
-    """The current CUDA stream of ``tensor``'s device, for the launch."""
-    import torch
+#: ``torch._C._cuda_getCurrentRawStream(device_index) -> int`` (None on a
+#: PyTorch built without CUDA)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
-    return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)
+
+def stream(tensor: torch.Tensor) -> int:
+    """Raw handle of the current CUDA stream on ``tensor``'s device.
+
+    Read afresh at every launch (a caller may switch streams) with the
+    int-returning binding, which builds no ``torch.cuda.Stream`` object.
+    """
+    return _raw_stream(tensor.get_device())

@@ -73,7 +73,7 @@ def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> None:
     build.check(fn(idx.data_ptr(), src.data_ptr(), h_ls.data_ptr(), designated.data_ptr(),
                    w.data_ptr(), b.data_ptr(), workspace.data_ptr(), capacity, n_ant, n_sym,
                    n_p, channels, n_res, int(compute_dtype == torch.bfloat16),
-                   build.stream_ptr(designated)), "gated_expert")
+                   build.stream(designated)), "gated_expert")
     build.launch_counts["gated_expert"] += 1
 
 

@@ -4,8 +4,10 @@ plain PyTorch version.
 ``mmse_interp(h_pilot, w)`` replaces ``repro.kernels.mmse_interp.ops.mmse_interp``:
 complex ``(..., Np)`` pilot estimates times the complex ``(Np, Nsc)`` Wiener
 matrix -> ``(..., Nsc)``.  On a CUDA tensor it launches
-``csrc/mmse_interp.cu`` (or raises); on a CPU tensor it runs
-``mmse_interp_ref``, the same Gauss 3-multiply arithmetic over real planes.
+``csrc/mmse_interp.cu`` (or raises), a 3xTF32 tensor-core product whose
+k-tiles are summed in float32 on the CUDA cores; on a CPU tensor it runs
+``mmse_interp_ref``, the reference's Gauss 3-multiply form over float32
+planes.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def _launch(h2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     fn = build.function("mmse_interp", "mmse_interp_launch",
                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     build.check(fn(h2.data_ptr(), w.data_ptr(), out.data_ptr(), b, np_, nsc,
-                   build.stream_ptr(h2)), "mmse_interp")
+                   build.stream(h2)), "mmse_interp")
     build.launch_counts["mmse_interp"] += 1
     return out
 

@@ -69,49 +69,68 @@ def switch_gather_batched_ref(src: torch.Tensor, compact: torch.Tensor,
     return torch.where(keep, designated, taken)
 
 
-def _float_view(x: torch.Tensor) -> torch.Tensor:
-    if x.is_complex():
-        if x.dtype != torch.complex64:
-            raise TypeError(f"complex leaves must be complex64, got {x.dtype}")
-        return torch.view_as_real(x)
-    if x.dtype != torch.float32:
-        raise TypeError(f"switch leaves must be float32/complex64, got {x.dtype}")
-    return x
+def _floats(x: torch.Tensor) -> int:
+    """Float32 count of a switch leaf.  The kernels read a complex64 leaf as
+    float pairs through its own ``data_ptr()``, so no real view is made."""
+    dt = x.dtype
+    if dt is torch.complex64:
+        n = 2 * x.numel()
+    elif dt is torch.float32:
+        n = x.numel()
+    elif x.is_complex():
+        raise TypeError(f"complex leaves must be complex64, got {dt}")
+    else:
+        raise TypeError(f"switch leaves must be float32/complex64, got {dt}")
+    _check_resolved(x)
+    return n
 
 
-def _launch(modes: torch.Tensor, alt: torch.Tensor, designated: torch.Tensor,
-            want: int) -> None:
-    n_ues = designated.shape[0]
-    per_ue = designated.numel() // max(n_ues, 1)
-    fn = build.function("switch_select", "switch_select_launch",
-                        [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
-                                                 ctypes.c_int, ctypes.c_void_p])
-    build.check(fn(modes.data_ptr(), alt.data_ptr(), designated.data_ptr(), n_ues,
-                   per_ue, want, build.stream_ptr(designated)), "switch_select")
-    build.launch_counts["switch_select_batched"] += 1
+def _check_resolved(x: torch.Tensor) -> None:
+    """A lazily conjugated or negated tensor's ``data_ptr()`` holds the values
+    before the conjugation or negation: the kernels would read or write those."""
+    if x.is_conj() or x.is_neg():
+        raise TypeError("switch kernel needs resolved tensors: call resolve_conj() "
+                        "and resolve_neg() first")
 
 
-def _launch_scalar(mode: int | torch.Tensor, alt: torch.Tensor, designated: torch.Tensor,
-                   want: int) -> None:
-    fn = build.function("switch_select", "switch_select_scalar_launch",
-                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    on_card = isinstance(mode, torch.Tensor)
-    build.check(fn(mode.data_ptr() if on_card else None, 0 if on_card else mode,
-                   alt.data_ptr(), designated.data_ptr(), designated.numel(), want,
-                   build.stream_ptr(designated)), "switch_select_scalar")
-    build.launch_counts["switch_select"] += 1
-
-
-def _check_outputs(outputs: Sequence[torch.Tensor]) -> None:
-    designated, *alternatives = outputs
-    if not alternatives:
-        raise ValueError("the switch needs at least two expert outputs")
+def _check_like(designated: torch.Tensor, alternatives: Sequence[torch.Tensor]) -> None:
+    dtype, shape, device = designated.dtype, designated.shape, designated.get_device()
     for a in alternatives:
-        if a.shape != designated.shape or a.dtype != designated.dtype:
+        if a.dtype is not dtype or a.shape != shape:
             raise ValueError("expert outputs must share shape and dtype")
-        if a.device != designated.device:
+        if a.get_device() != device:
             raise ValueError("expert outputs must share one device")
+
+
+def _check_contiguous(alternatives: Sequence[torch.Tensor]) -> None:
+    for a in alternatives:
+        if not a.is_contiguous():
+            raise ValueError("switch kernel needs contiguous alternatives")
+        _check_resolved(a)
+
+
+_PTRS = [ctypes.c_void_p] * 3
+#: (modes, alternative, designated, n_ues, floats per UE, wanted mode, stream)
+_BATCHED_ARGS = _PTRS + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+#: (mode pointer or None, mode value, alternative, designated, floats, wanted mode,
+#: stream)
+_SCALAR_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
+def _scalar_mode(mode, designated: torch.Tensor) -> int | torch.Tensor:
+    """A scalar mode as a Python int, or as a 0-d int32 tensor on the card."""
+    if isinstance(mode, torch.Tensor):
+        if mode.ndim != 0:
+            raise ValueError(f"mode must be a scalar or (n_ues,), got {tuple(mode.shape)}")
+        if mode.device.type == "cpu":
+            return int(mode)
+        if mode.device != designated.device:
+            raise ValueError("mode and expert outputs must share one device")
+        return mode
+    if isinstance(mode, (int, np.integer)):
+        return int(mode)
+    raise TypeError(f"mode must be an int or a tensor, got {type(mode).__name__}")
 
 
 def switch_select(mode: int | torch.Tensor,
@@ -122,58 +141,62 @@ def switch_select(mode: int | torch.Tensor,
     output, or an ``(U,)`` int32 vector selecting per UE along the leading
     axis.  Returns the designated tensor, switched in place, on the card,
     and a new tensor on the CPU.
+
+    The host loop calls this once a slot with an int mode, so the card's
+    scalar path is kept lean: each tensor is checked once, cheapest check
+    first, and the launch passes ``data_ptr()`` ints and the raw stream.
     """
-    _check_outputs(outputs)
-    if isinstance(mode, torch.Tensor) and mode.ndim == 1:
-        return _switch_batched(mode, outputs)
     designated, *alternatives = outputs
-    if isinstance(mode, torch.Tensor):
-        if mode.ndim != 0:
-            raise ValueError(f"mode must be a scalar or (n_ues,), got {tuple(mode.shape)}")
-        if mode.device.type == "cpu":
-            mode = int(mode)
-        elif mode.device != designated.device:
-            raise ValueError("mode and expert outputs must share one device")
-    elif isinstance(mode, (int, np.integer)):
-        mode = int(mode)
-    else:
-        raise TypeError(f"mode must be an int or a tensor, got {type(mode).__name__}")
-    if isinstance(mode, int) and not 0 <= mode < len(outputs):
+    if not alternatives:
+        raise ValueError("the switch needs at least two expert outputs")
+    _check_like(designated, alternatives)
+    if type(mode) is not int:
+        if isinstance(mode, torch.Tensor) and mode.ndim == 1:
+            return _switch_batched(mode, designated, alternatives)
+        mode = _scalar_mode(mode, designated)
+    on_card = isinstance(mode, torch.Tensor)
+    if not on_card and not 0 <= mode < len(outputs):
         raise ValueError(f"mode {mode} outside [0, {len(outputs)})")
-    if designated.device.type != "cuda":
+    if not designated.is_cuda:
         return switch_select_ref(mode, outputs)
-    if isinstance(mode, torch.Tensor) and mode.dtype != torch.int32:
+    if on_card and mode.dtype is not torch.int32:
         raise TypeError(f"a mode on the card must be int32, got {mode.dtype}")
-    des = _float_view(designated)
-    if not des.is_contiguous():
+    n = _floats(designated)
+    if not designated.is_contiguous():
         raise ValueError("switch kernel needs a contiguous designated buffer")
-    for k, a in enumerate(alternatives):
-        alt = _float_view(a)
-        if not alt.is_contiguous():
-            raise ValueError("switch kernel needs contiguous alternatives")
-        _launch_scalar(mode, alt, des, k + 1)
+    _check_contiguous(alternatives)
+    fn = build.function("switch_select", "switch_select_scalar_launch", _SCALAR_ARGS)
+    mode_ptr, mode_value = (mode.data_ptr(), 0) if on_card else (None, mode)
+    des, stream = designated.data_ptr(), build.stream(designated)
+    for k, a in enumerate(alternatives, 1):
+        build.check(fn(mode_ptr, mode_value, a.data_ptr(), des, n, k, stream),
+                    "switch_select_scalar")
+        build.launch_counts["switch_select"] += 1
     return designated
 
 
-def _switch_batched(modes: torch.Tensor, outputs: Sequence[torch.Tensor]) -> torch.Tensor:
+def _switch_batched(modes: torch.Tensor, designated: torch.Tensor,
+                    alternatives: list[torch.Tensor]) -> torch.Tensor:
     """Per-UE switch: UE ``u`` receives expert ``modes[u]``'s slice."""
-    designated, *alternatives = outputs
     if modes.shape[0] != designated.shape[0]:
         raise ValueError(f"modes {tuple(modes.shape)} vs UE axis {designated.shape[0]}")
     if modes.device != designated.device:
         raise ValueError("modes and expert outputs must share one device")
-    if designated.device.type != "cuda":
-        return switch_select_batched_ref(modes, outputs)
-    if modes.dtype != torch.int32:
+    if not designated.is_cuda:
+        return switch_select_batched_ref(modes, [designated, *alternatives])
+    if modes.dtype is not torch.int32:
         raise TypeError(f"modes must be int32, got {modes.dtype}")
-    des = _float_view(designated)
-    if not (des.is_contiguous() and modes.is_contiguous()):
+    n = _floats(designated)
+    if not (designated.is_contiguous() and modes.is_contiguous()):
         raise ValueError("switch kernel needs contiguous designated buffer and modes")
-    for k, a in enumerate(alternatives):
-        alt = _float_view(a)
-        if not alt.is_contiguous():
-            raise ValueError("switch kernel needs contiguous alternatives")
-        _launch(modes, alt, des, k + 1)
+    _check_contiguous(alternatives)
+    fn = build.function("switch_select", "switch_select_launch", _BATCHED_ARGS)
+    n_ues = designated.shape[0]
+    per_ue = n // max(n_ues, 1)
+    des, m, stream = designated.data_ptr(), modes.data_ptr(), build.stream(designated)
+    for k, a in enumerate(alternatives, 1):
+        build.check(fn(m, a.data_ptr(), des, n_ues, per_ue, k, stream), "switch_select")
+        build.launch_counts["switch_select_batched"] += 1
     return designated
 
 
@@ -204,17 +227,16 @@ def switch_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.T
         raise ValueError("src, compact and designated must share one device")
     if backend == "ref" or designated.device.type != "cuda":
         return switch_gather_batched_ref(src, compact, designated)
-    if src.dtype != torch.int32:
+    if src.dtype is not torch.int32:
         raise TypeError(f"src must be int32, got {src.dtype}")
-    des, comp = _float_view(designated), _float_view(compact)
-    if not (des.is_contiguous() and comp.is_contiguous() and src.is_contiguous()):
+    n = _floats(designated)
+    if not (designated.is_contiguous() and compact.is_contiguous() and src.is_contiguous()):
         raise ValueError("scatter kernel needs contiguous src, compact and designated")
+    _check_resolved(compact)
     n_ues = designated.shape[0]
-    fn = build.function("switch_select", "switch_gather_launch",
-                        [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
-                                                 ctypes.c_int, ctypes.c_void_p])
-    build.check(fn(src.data_ptr(), comp.data_ptr(), des.data_ptr(), n_ues,
-                   des.numel() // max(n_ues, 1), compact.shape[0],
-                   build.stream_ptr(designated)), "switch_gather")
+    fn = build.function("switch_select", "switch_gather_launch", _BATCHED_ARGS)
+    build.check(fn(src.data_ptr(), compact.data_ptr(), designated.data_ptr(), n_ues,
+                   n // max(n_ues, 1), compact.shape[0], build.stream(designated)),
+                "switch_gather")
     build.launch_counts["switch_gather_batched"] += 1
     return designated

@@ -52,6 +52,6 @@ def tree_infer(x: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     build.check(fn(x.data_ptr(), feature.data_ptr(), threshold.data_ptr(),
                    leaf_values.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-                   depth, build.stream_ptr(x)), "tree_infer")
+                   depth, build.stream(x)), "tree_infer")
     build.launch_counts["tree_infer"] += 1
     return out

@@ -39,8 +39,12 @@ def _random_tree(rng, depth, n_feat):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_prb,batch", [(4, 7), (24, 24), (106, 384)])
+@pytest.mark.parametrize("batch", [1, 7, 12, 384, 2016])
+@pytest.mark.parametrize("n_prb", [4, 24, 106, 273])
 def test_cuda_mmse_interp_vs_plain(cuda, n_prb, batch):
+    """Ragged in every dimension (rows against the 16- and 64-row tiles,
+    pilots against the 16-pilot k-tile, subcarriers against the 32-wide
+    block), up to NR's widest 30 kHz carrier; two calls give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(n_prb)
     w = WienerInterpolator.build(SlotConfig(n_prb=n_prb), device=cuda).w
     h = torch.complex(torch.randn(batch, w.shape[0], generator=g, device=cuda),
@@ -50,6 +54,18 @@ def test_cuda_mmse_interp_vs_plain(cuda, n_prb, batch):
     torch.cuda.synchronize()
     assert build.launch_counts["mmse_interp"] == before + 1
     torch.testing.assert_close(got, mmse_interp_ref(h, w), rtol=0, atol=MMSE_ATOL)
+    assert torch.equal(mmse_interp(h, w), got)
+
+
+@pytest.mark.cuda
+def test_cuda_mmse_interp_rows_do_not_depend_on_the_batch(cuda):
+    """One UE's 12 rows give the same bits alone (16-row tile) and at the head
+    of 384 rows (64-row tiles): every output is summed in one order."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = WienerInterpolator.build(SlotConfig(n_prb=106), device=cuda).w
+    h = torch.complex(torch.randn(384, w.shape[0], generator=g, device=cuda),
+                      torch.randn(384, w.shape[0], generator=g, device=cuda))
+    assert torch.equal(mmse_interp(h[:12], w), mmse_interp(h, w)[:12])
 
 
 @pytest.mark.cuda
@@ -295,6 +311,37 @@ def test_cuda_scalar_switch_out_of_range_device_mode_keeps_buffer(cuda):
         assert torch.equal(got, outs[0])
     with pytest.raises(ValueError, match="outside"):
         switch_select(3, [outs[0].clone(), *outs[1:]])
+
+
+@pytest.mark.cuda
+def test_cuda_scalar_switch_lean_path_raises(cuda):
+    """The lean launch path keeps every check the kernel needs, with the same
+    exception types: a wrong dtype, a non-contiguous view and mixed devices
+    raise before any launch, and so does a tensor with a lazy conjugate or
+    negative bit, whose ``data_ptr()`` holds the values before it."""
+    before = build.launch_counts["switch_select"]
+    for dt in (torch.complex128, torch.float64):
+        outs = [torch.zeros(4, 6, dtype=dt, device=cuda) for _ in range(2)]
+        with pytest.raises(TypeError):
+            switch_select(1, outs)
+    base = [torch.zeros(4, 6, dtype=torch.complex64, device=cuda) for _ in range(2)]
+    with pytest.raises(ValueError):  # a non-contiguous designated buffer
+        switch_select(1, [base[0].t(), base[1].t().contiguous()])
+    with pytest.raises(ValueError):  # a non-contiguous alternative
+        switch_select(1, [base[0][:, :3].contiguous(), base[1][:, ::2]])
+    with pytest.raises(ValueError):  # mixed devices
+        switch_select(1, [base[0], base[1].cpu()])
+    with pytest.raises(ValueError):  # a device mode beside CPU outputs
+        switch_select(torch.tensor(1, dtype=torch.int32, device=cuda),
+                      [b.cpu() for b in base])
+    with pytest.raises(TypeError):  # a lazily conjugated designated buffer
+        switch_select(1, [base[0].conj(), base[1]])
+    with pytest.raises(TypeError):  # a lazily conjugated alternative
+        switch_select(0, [base[0], base[1].conj()])
+    real = [torch.zeros(4, 6, device=cuda) for _ in range(2)]
+    with pytest.raises(TypeError):  # a lazily negated alternative
+        switch_select(1, [real[0], torch._neg_view(real[1])])
+    assert build.launch_counts["switch_select"] == before
 
 
 @pytest.mark.cuda

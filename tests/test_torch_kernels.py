@@ -57,6 +57,103 @@ def test_mmse_interp_plain_vs_reference_kernel(n_prb, lead, rng):
     np.testing.assert_allclose(got.numpy(), h @ w, **MMSE_TOL)
 
 
+#: the card's kernel against the plain Gauss form (chip_smoke.py, the card
+#: tests): Np float32 products per output, the Gauss form's p3 - p1 - p2
+#: cancellation, on unit-variance pilots whose outputs are O(10)
+KERNEL_MMSE_TOL = 1e-4
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on finite float32: keep 10 mantissa bits, round to
+    nearest with ties away from zero (a half-unit carry into the kept bits)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _trunc_f32(x: torch.Tensor) -> torch.Tensor:
+    """A float64 rounded toward zero to float32's 24-bit significand, kept in
+    float64 (clearing the low 29 mantissa bits of a sign-magnitude float)."""
+    return (x.view(torch.int64) & -(1 << 29)).view(torch.float64)
+
+
+def _interp_3xtf32(h: torch.Tensor, w: torch.Tensor, form: str) -> torch.Tensor:
+    """The card kernel's arithmetic, emulated.
+
+    The complex product is one real GEMM ``[Hr Hi] @ [[Wr Wi], [-Wi Wr]]``
+    whose k8 step ``j`` holds ``Re h[4j:4j+4]`` then ``Im h[4j:4j+4]``, Np
+    zero-padded to the 16-pilot k-tile.  Each operand splits into
+    ``hi = tf32(x)`` and ``lo = tf32(x - hi)``.  A ``wgmma`` k8 step is
+    modelled as the exact sum of its products and the accumulator, truncated
+    to float32 (the tensor core's accumulation does not round to nearest).
+
+    ``"kernel"``: each k-tile starts a fresh accumulator, takes lo*hi and hi*lo
+    of its four k8 steps, then their hi*hi, and is added to a float32 sum,
+    rounded to nearest.  ``"one_accumulator"``: lo*hi, hi*lo, hi*hi of every
+    k8 step into one accumulator over all of k (the kernel's first form).
+    ``"single_pass"``: hi*hi alone, one TF32 pass, summed in float32.
+    """
+    np_, nsc = w.shape
+    n = np_ + (-np_) % 16
+    hp = torch.nn.functional.pad(h, (0, n - np_))
+    wp = torch.nn.functional.pad(w, (0, 0, 0, n - np_))
+    a = torch.stack([hp.real.reshape(-1, n // 4, 4), hp.imag.reshape(-1, n // 4, 4)],
+                    2).reshape(-1, 2 * n)
+    wr, wi = wp.real.reshape(n // 4, 4, nsc), wp.imag.reshape(n // 4, 4, nsc)
+    b = torch.stack([torch.cat([wr, wi], 2), torch.cat([-wi, wr], 2)],
+                    1).reshape(2 * n, 2 * nsc)
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    if form == "single_pass":
+        out = a_hi @ b_hi
+        return torch.complex(out[:, :nsc], out[:, nsc:])
+    # TF32 x TF32 products and their sums are exact in float64
+    a_lo, b_lo = _tf32_rna(a - a_hi).double(), _tf32_rna(b - b_hi).double()
+    a_hi, b_hi = a_hi.double(), b_hi.double()
+    acc = torch.zeros(h.shape[0], 2 * nsc, dtype=torch.float64)
+    total = torch.zeros(h.shape[0], 2 * nsc, dtype=torch.float32)
+    for t in range(n // 16):
+        ks = [slice(8 * j, 8 * j + 8) for j in range(4 * t, 4 * t + 4)]
+        lo = [((a_lo[:, k], b_hi[k]), (a_hi[:, k], b_lo[k])) for k in ks]
+        hi = [(a_hi[:, k], b_hi[k]) for k in ks]
+        if form == "kernel":
+            acc = torch.zeros_like(acc)
+            order = [p for pair in lo for p in pair] + hi
+        else:
+            order = [p for pair, h8 in zip(lo, hi) for p in (*pair, h8)]
+        for x, y in order:
+            acc = _trunc_f32(torch.addmm(acc, x, y))
+        if form == "kernel":
+            total += acc.float()
+    out = total if form == "kernel" else acc.float()
+    return torch.complex(out[:, :nsc], out[:, nsc:])
+
+
+@pytest.mark.parametrize("rows", [12, 384])
+def test_mmse_interp_3xtf32_split_within_tolerance(rows, rng):
+    """Why the card kernel splits its operands and sums its k-tiles apart: at
+    n_prb 106 its order of arithmetic, emulated with a truncating
+    accumulator, stays within the kernel tolerance of ``repro``'s
+    mmse_interp; one accumulator over all of k errs several times more, and
+    a single TF32 pass misses the tolerance."""
+    w = np.asarray(RWiener.build(RSlotConfig(n_prb=106)).w)
+    h = _cplx(rng, (rows, w.shape[0]))
+    want = np.asarray(r_mmse_interp(jnp.asarray(h), jnp.asarray(w)))
+    th, tw = torch.as_tensor(h), torch.as_tensor(w)
+    # the rounding rules themselves, both signs
+    x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 3.0], dtype=torch.float32)
+    assert _tf32_rna(x).tolist() == [1 + 2**-10, -(1 + 2**-10), 1.0, 3.0]
+    y = torch.tensor([1 + 2**-30, -(1 + 2**-23 + 2**-30), 2.0**-40], dtype=torch.float64)
+    assert _trunc_f32(y).tolist() == [1.0, -(1 + 2**-23), 2.0**-40]
+
+    def err(form):
+        return np.abs(_interp_3xtf32(th, tw, form).numpy() - want).max()
+
+    kernel = err("kernel")
+    assert kernel <= KERNEL_MMSE_TOL, kernel
+    assert err("one_accumulator") > 5 * kernel
+    single = err("single_pass")
+    assert single > KERNEL_MMSE_TOL, single
+    assert single > 30 * kernel
+
+
 def test_mmse_interp_wrapper_checks():
     h = torch.zeros(3, 8, dtype=torch.complex64)
     with pytest.raises(ValueError):
