@@ -17,13 +17,16 @@ Phases, each of which raises on failure (exit code != 0):
    loop's row counts and at n_prb 24 and 273, with each error against a
    complex128 product beside the plain version's, bitwise the same twice
    and for one UE alone or in a batch, the fused gated expert within ``GATED_F32_TOL`` /
-   ``GATED_BF16_TOL`` with untouched UEs bitwise and one UE's estimate
-   bitwise the same at any capacity), with kernel, plain-version and
+   ``GATED_BF16_TOL`` at n_prb 24, 106 and 273 with untouched UEs bitwise,
+   bitwise the same twice and one UE's estimate bitwise the same at any
+   capacity, its float32 error against a float64 plain version at most
+   ``GATED_EXACT_RATIO`` times the float32 plain version's), with kernel, plain-version and
    library times and the card's lower bound for the same work; the
-   switches, the scatter and ``mmse_interp`` are timed against their
-   library call in turns (kernel, library, library, kernel) and print the
-   ratio, and the scalar switch prints the host time of a call alone
-   against ``copy_``'s;
+   switches, the scatter, ``mmse_interp`` and the fused gated expert (against
+   the unfused GATED path, also at K = 32 with every UE selected) are timed
+   against their yardstick in turns (kernel, library, library, kernel) and
+   print the ratio, and the scalar switch prints the host time of a call
+   alone against ``copy_``'s;
 4. main path: ``ArchesSession(...).run()`` of the closed-loop campaign at
    the paper's 106-PRB slot with 32 UEs and the estimator's default width,
    on a CONCURRENT bank; every kernel of that path must launch during the
@@ -85,6 +88,7 @@ import torch  # noqa: E402
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 
 #: mmse_interp kernel vs its plain version: both accumulate 636 fp32 products
 #: per output in different orders, and the Gauss form's p3 - p1 - p2
@@ -100,6 +104,11 @@ MMSE_TOL = 1e-4
 #: that differs in its last float32 bit to the neighbouring bf16 value
 GATED_F32_TOL = dict(rtol=1e-4, atol=1e-5)
 GATED_BF16_TOL = dict(rtol=2e-3, atol=2e-3)
+#: the fused expert's float32 error against the float64 plain version may be at
+#: most this multiple of the float32 plain version's: 3xTF32 with one
+#: accumulator per tap errs like a float32 conv, one truncating accumulator
+#: across taps errs many times more (PERF.md, the fused gated expert)
+GATED_EXACT_RATIO = 4.0
 #: GATED against CONCURRENT: discrete agreement the card must reach
 AGREE_MIN = 0.95
 #: card vs CPU on the small reference campaign: float32 stages that round
@@ -366,6 +375,7 @@ def phase_kernels() -> list[dict]:
     leaves = torch.tensor([1.0, 0.0, 0.0, 1.0], device=dev)
     ms = time_ms(lambda: tree_infer(x, feat, thr, leaves, 2))
     plain = time_ms(lambda: tree_infer_ref(x, feat, thr, leaves, 2))
+    device_alone("tree_infer", lambda: tree_infer(x, feat, thr, leaves, 2), "tree_infer")
     bms, by = bound_ms(4.0 * N_UES * n_feat + 4 * N_UES + 4 * 3 * 2 + 4 * 4,
                        2.0 * N_UES)
     rows.append(dict(
@@ -484,9 +494,17 @@ def direct_conv_flops(cfg, channels: int, n_res: int, n_rows: int) -> float:
 
 def phase_gated_kernels() -> list[dict]:
     """The GATED slice's two kernels at the GATED main path's shapes: U = 32,
-    capacity 16, 11 UEs selected (so 5 padding rows), full width."""
+    capacity 16, 11 UEs selected (so 5 padding rows), full width.  The fused
+    expert's bound is its float32 work as 3xTF32 (three TF32 products a
+    product); the fp32 and bf16 bounds are logged beside it, with the cluster
+    geometry.  The float32 kernel's error against a float64 plain version is
+    held to ``GATED_EXACT_RATIO`` times the float32 plain version's, at n_prb
+    24, 106 and 273."""
+    import copy
+
     from repro_torch import random as jr
     from repro_torch.kernels.gated_expert import gated_expert_apply, gated_expert_apply_ref
+    from repro_torch.kernels.gated_expert.ops import cluster_size
     from repro_torch.kernels.switch_select import switch_gather_batched_ref, switch_scatter
     from repro_torch.phy import ai_estimator as tai
     from repro_torch.phy.nr import SlotConfig
@@ -499,6 +517,19 @@ def phase_gated_kernels() -> list[dict]:
     def cplx(shape):
         return torch.complex(torch.randn(shape, generator=gen, device=dev),
                              torch.randn(shape, generator=gen, device=dev))
+
+    def against_float64(label, idx, src, h_ls, des0, ai, got, want):
+        """The kernel's and the float32 plain version's max |err| against the
+        float64 plain version; raises past ``GATED_EXACT_RATIO``."""
+        ai64 = copy.deepcopy(ai).to(torch.float64)
+        exact = gated_expert_apply_ref(idx, src, h_ls.to(torch.complex128),
+                                       des0.to(torch.complex128), ai64)
+        e_k, e_p = (float((x - exact).abs().max()) for x in (got, want))
+        log(f"  {label} f32 vs float64: kernel {e_k:.3g}, plain f32 {e_p:.3g} "
+            f"({e_k / e_p:.2f}x)")
+        if not e_k <= GATED_EXACT_RATIO * e_p:
+            raise AssertionError(f"{label}: kernel errs {e_k:.3g} against float64, over "
+                                 f"{GATED_EXACT_RATIO}x the plain version's {e_p:.3g}")
 
     rows = []
     mode = (torch.arange(N_UES, device=dev) % 3 != 1).to(torch.int32)  # 11 of 32 select AI
@@ -548,20 +579,45 @@ def phase_gated_kernels() -> list[dict]:
     h_ls = cplx((N_UES, cfg.n_ant, cfg.n_dmrs_sym, cfg.n_pilot_sc))
     des0 = cplx((N_UES,) + shape)
     kept = src < 0
+    ai = tai.AiEstimator(params, cfg.n_dmrs_sym).to(dev)
+    ai16 = tai.AiEstimator(params, cfg.n_dmrs_sym, torch.bfloat16).to(dev)
+    modules = {None: ai, torch.bfloat16: ai16}
     errs = {}
     for cd, tol in ((None, GATED_F32_TOL), (torch.bfloat16, GATED_BF16_TOL)):
-        ai = tai.AiEstimator(params, cfg.n_dmrs_sym, cd).to(dev)
-        want = gated_expert_apply_ref(idx, src, h_ls, des0, ai, compute_dtype=cd)
+        m_ = modules[cd]
+        want = gated_expert_apply_ref(idx, src, h_ls, des0, m_, compute_dtype=cd)
         des = des0.clone()
-        got = gated_expert_apply(idx, src, h_ls, des, ai, compute_dtype=cd)
+        got = gated_expert_apply(idx, src, h_ls, des, m_, compute_dtype=cd)
+        again = gated_expert_apply(idx, src, h_ls, des0.clone(), m_, compute_dtype=cd)
         torch.cuda.synchronize()
         if got.data_ptr() != des.data_ptr():
             raise AssertionError("gated_expert did not write in place")
         if not torch.equal(got[kept], des0[kept]):
             raise AssertionError("gated_expert touched a padding row's or unselected UE")
+        if not torch.equal(got, again):
+            raise AssertionError("gated_expert differs between two calls")
         torch.testing.assert_close(got, want, **tol)
         errs[cd] = float((got - want).abs().max())
-    ai = tai.AiEstimator(params, cfg.n_dmrs_sym).to(dev)
+        if cd is None:
+            against_float64(f"gated_expert at n_prb {N_PRB}", idx, src, h_ls, des0, m_, got,
+                            want)
+    # accuracy at the other carrier widths, one to eight blocks a cluster
+    for n_prb in (24, 273):
+        c2 = SlotConfig(n_prb=n_prb)
+        p2 = tai.init_params(jr.PRNGKey(11), c2, net)
+        h2 = cplx((N_UES, c2.n_ant, c2.n_dmrs_sym, c2.n_pilot_sc))
+        d2 = cplx((N_UES, c2.n_ant, 1, c2.n_sc, c2.n_dmrs_sym))
+        for cd, tol in ((None, GATED_F32_TOL), (torch.bfloat16, GATED_BF16_TOL)):
+            a2 = tai.AiEstimator(p2, c2.n_dmrs_sym, cd).to(dev)
+            got = gated_expert_apply(idx, src, h2, d2.clone(), a2, compute_dtype=cd)
+            want = gated_expert_apply_ref(idx, src, h2, d2, a2, compute_dtype=cd)
+            torch.testing.assert_close(got, want, **tol)
+            log(f"  gated_expert at n_prb {n_prb} ({cluster_size(c2.n_pilot_sc)} blocks a "
+                f"cluster), {'bf16' if cd else 'f32'}: max |err| "
+                f"{float((got - want).abs().max()):.3g}")
+            if cd is None:
+                against_float64(f"gated_expert at n_prb {n_prb}", idx, src, h2, d2, a2, got,
+                                want)
     ue = 10  # selected in every case: row 0 alone, row 3 of 16, row 10 of 32
     alone = torch.ones_like(mode)
     alone[ue] = 0
@@ -573,29 +629,60 @@ def phase_gated_kernels() -> list[dict]:
         outs.append(gated_expert_apply(i_, s_, h_ls, des0.clone(), ai)[ue])
     if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])):
         raise AssertionError("gated_expert: one UE's estimate depends on the batch")
-    ms = time_ms(lambda: gated_expert_apply(idx, src, h_ls, des, ai), iters=20)
-    ai16 = tai.AiEstimator(params, cfg.n_dmrs_sym, torch.bfloat16).to(dev)
-    ms16 = time_ms(lambda: gated_expert_apply(idx, src, h_ls, des, ai16,
-                                              compute_dtype=torch.bfloat16), iters=20)
-    plain = time_ms(lambda: gated_expert_apply_ref(idx, src, h_ls, des0, ai), iters=20)
 
     def unfused():  # the unfused GATED path: gather, cuBLAS forward, scatter kernel
         compact_out = ai(h_ls.index_select(0, idx.to(torch.int64)))
         return switch_scatter(src, compact_out, des)
 
-    lib = time_ms(unfused, iters=20)
+    des = des0.clone()
+    ms, lib, reading = turns(lambda: gated_expert_apply(idx, src, h_ls, des, ai), unfused,
+                             iters=20)
+    ms16, _, reading16 = turns(lambda: gated_expert_apply(idx, src, h_ls, des, ai16,
+                                                          compute_dtype=torch.bfloat16),
+                               unfused, iters=20)
+    plain = time_ms(lambda: gated_expert_apply_ref(idx, src, h_ls, des0, ai), iters=20)
+    # K = 32 with every UE selected: 128 (row, antenna) chains
+    i32, s32 = _compaction(torch.zeros_like(mode), N_UES)
+    ms32, lib32, reading32 = turns(
+        lambda: gated_expert_apply(i32, s32, h_ls, des, ai),
+        lambda: switch_scatter(s32, ai(h_ls.index_select(0, i32.to(torch.int64))), des),
+        iters=10)
+    for label, fn in (("gated_expert f32", lambda: gated_expert_apply(idx, src, h_ls, des, ai)),
+                      ("gated_expert bf16", lambda: gated_expert_apply(
+                          idx, src, h_ls, des, ai16, compute_dtype=torch.bfloat16)),
+                      ("gated_expert f32, K 32 all selected",
+                       lambda: gated_expert_apply(i32, s32, h_ls, des, ai))):
+        device_alone(label, fn, "gated_expert", 20)
+    device_alone("unfused GATED path", unfused, None, 20)
     flops = direct_conv_flops(cfg, CHANNELS, N_RES, n_sel)
     io_bytes = 8.0 * n_sel * cfg.n_ant * cfg.n_dmrs_sym * (cfg.n_pilot_sc + cfg.n_sc)
-    bms, by = bound_ms(io_bytes + 4.0 * (ai.kernel_w.numel() + ai.kernel_b.numel()), flops)
+    w_bytes = 4.0 * (ai.kernel_w.numel() + ai.kernel_b.numel())
+    # bound: the kernel's float32 accuracy as 3xTF32 (three TF32 products a product);
+    # the CUDA cores' fp32 bound and bf16's bound beside it
+    bms, by = bound_ms(io_bytes + w_bytes, 3.0 * flops, PEAK_TF32_FLOPS)
+    f32_ms, _ = bound_ms(io_bytes + w_bytes, flops)
+    bf16_ms, _ = bound_ms(io_bytes + w_bytes, flops, PEAK_BF16_FLOPS)
+    b32_ms, _ = bound_ms(io_bytes * N_UES / n_sel + w_bytes,
+                         3.0 * direct_conv_flops(cfg, CHANNELS, N_RES, N_UES), PEAK_TF32_FLOPS)
+    n_cl = cluster_size(cfg.n_pilot_sc)
+    log(f"  gated_expert: clusters of {n_cl} blocks, "
+        f"{-(-cfg.n_pilot_sc // n_cl)} subcarriers a block, {n_sel * cfg.n_ant * n_cl} blocks at "
+        f"K {cap}")
+    log(f"  gated_expert f32 vs the unfused path: {reading}; bf16: {reading16}; "
+        f"K {N_UES} all selected vs unfused: {reading32}")
+    log(f"  gated_expert max |err| f32 {errs[None]:.3g}, bf16 {errs[torch.bfloat16]:.3g}; "
+        f"bound {bms * 1e3:.2f} us (3xTF32, {by}), fp32 "
+        f"bound {f32_ms * 1e3:.2f} us, bf16 bound {bf16_ms * 1e3:.2f} us, 3xTF32 bound at K "
+        f"{N_UES} all selected {b32_ms * 1e3:.2f} us")
     rows.append(dict(
         name="gated_expert", route="cuda", source="src/repro_torch/csrc/gated_expert.cu",
         replaces="src/repro/kernels/gated_expert/gated_expert.py:67",
         launches=0, max_abs_err=errs[None], ms=ms, plain_ms=plain, bound_ms=bms,
         bound_by=by, library_ms=lib,
         shape=f"K {cap}, {n_sel} rows valid, {CHANNELS} ch x {N_RES} blocks, "
-              f"{flops / 1e9:.2f} GFLOP as direct convs; bf16 {ms16 * 1e3:.2f} us, "
-              f"bf16 max|err| {errs[torch.bfloat16]:.3g}; one UE bitwise at K 1, {cap}, "
-              f"{N_UES}",
+              f"{flops / 1e9:.2f} GFLOP as direct convs; bf16 {ms16 * 1e3:.2f} us; "
+              f"K {N_UES} all selected {ms32 * 1e3:.2f} us "
+              f"(unfused {lib32 * 1e3:.2f} us); one UE bitwise at K 1, {cap}, {N_UES}",
     ))
     for r in rows:
         log(f"kernel {r['name']}: {r['ms'] * 1e3:.2f} us (plain "

@@ -1,5 +1,7 @@
 // The fused GATED hot path: gather -> residual-CNN channel estimator -> scatter, in
-// one kernel, IEEE fp32 arithmetic on the CUDA cores (bf16 operands optional).
+// one launch: each (compact row, antenna) chain runs on a thread-block cluster spread
+// along the subcarrier axis, its 3x3 convolutions as implicit GEMMs on the tensor
+// cores (3xTF32 for float32, bf16 operands for bf16).
 //
 // Replaces: src/repro/kernels/gated_expert/gated_expert.py::gated_expert_fused (Pallas
 // TPU kernel, one grid step per compact row), reached through ops.py::gated_expert_apply.
@@ -12,261 +14,781 @@
 // complex64, in place.  Otherwise the row is capacity padding and its UE's bytes are
 // left untouched, as are the bytes of every UE that no row names.  Every conv is the
 // 3x3 'SAME' cross-correlation over (subcarrier, symbol) of the reference's folded
-// GEMMs, computed directly: the folded form's two structurally zero tap blocks
+// GEMMs, computed directly: the folded form's structurally zero tap blocks
 // (|w_in - w_out| = 2) are skipped, the rest is the same arithmetic in another order.
 // bf16 mode rounds every conv operand to bf16 (round to nearest even) and keeps the
 // products, sums, bias and residual adds in fp32, as the plain version does.
 //
 // What bounds it on the H100: arithmetic.  At the paper's width (32 channels, 4
-// residual blocks, Np = 636) one UE costs about 1.1 GFLOP as direct convolutions
-// (1.43 GFLOP in the folded form) against 122 KB of input and output, so fp32 FMA
-// throughput is the limit.  TF32 tensor cores would round operands to a 10-bit
-// mantissa, which the estimator's float32 contract forbids.
+// residual blocks, Np = 636) one (UE, antenna) chain is 0.28 GFLOP of direct
+// convolutions against 30 KB of input and output.  The first form of this kernel ran
+// each chain in one 512-thread block with scalar FMAs on the CUDA cores: 11 selected
+// UEs x 4 antennas = 44 blocks left 88 of 132 SMs idle, and one SM's share of the
+// fp32 rate bounds a chain at 550 us however many rows there are.  This form spreads
+// the chain over SMs and moves 98 % of its work (the residual convs and the
+// up-projection) to the tensor cores; the float32 contract holds through 3xTF32.
 //
-// Design: one 512-thread block per (compact row, antenna) -- the GEMM columns of
-// different antennas never mix.  The 2R + 3 layers run in sequence inside the block;
-// activations live in a per-block workspace in device memory (L2-resident at the main
-// path's size) that the wrapper allocates: h (C, S, Np), and y (C, S, Np) that the
-// up-projection reuses as u (C, S, 2 Np).  Per layer the block stages the layer's
-// weights in shared memory as (C_in, 3, 3, C_out) and walks the subcarrier axis in
-// tiles of 128: it stages the tile's input for every channel and symbol, with a
-// one-subcarrier halo on each side (zero outside the band), and each warp computes 4
-// output channels x S symbols x 2 subcarriers per lane from registers.  Each output
-// is summed in one fixed order (input channel, subcarrier tap, symbol tap), whatever
-// the capacity or the row's position, so one UE's estimate is bitwise the same at any
-// K.  A tiled form that keeps activations in shared memory with growing halos, and
-// wgmma, are later work.
+// Design.
+//
+// * A cluster per (row, antenna), along the subcarrier axis: a cluster of CL blocks
+//   (CL = ceil(Np / 80), at most 8, the portable size), each block one warpgroup
+//   owning P = ceil(Np / CL) subcarriers (2P at the head) through every layer.  At
+//   n_prb 106 that is 8 x 80: the phase shape's 44 pairs make 352 blocks, and three
+//   fit an SM (3 x 128 threads x 168 registers; 3 x (37 KB dynamic + 16 KB of weights)
+//   of shared memory), 396 block slots for 352 blocks, so they run in one wave.
+// * Where activations live: design (b), an L2 workspace, with the block's own slice
+//   kept in shared memory between layers.  Design (a), every plane of the block's
+//   slice on chip, needs S x (P + 2) x 36 floats a plane: at n_prb 106 with CL 8 the
+//   two planes h and y are 71 KB a block, two blocks an SM, 264 slots for 352
+//   blocks; over all 44 pairs the planes alone are 24 MB of the card's 30 MB of
+//   shared memory, which clusters cannot pack into one wave; at n_prb 273 (P 205) a
+//   block would need 179 KB.  So each block holds one staged slice (S, P + 2, CP + 4)
+//   -- 35 KB at n_prb 106, 89 KB at n_prb 273; CP the channel count padded to 16 or
+//   32, position 0 and P + 1 the one-subcarrier halo, zero outside the band -- and a
+//   per-(row, antenna) workspace holds h (S, Np, CP), and y (S, Np, CP) that the
+//   up-projection reuses as u (S, 2 Np, CP), channel-innermost.  When the slice is
+//   at most four 64-row tiles (n_prb 106), each layer's epilogue writes its output
+//   over the slice it has finished reading, for the next layer, and to the
+//   workspace only what others read: the slice's two edge positions, and h in full
+//   (the next residual add reads it); the next layer then fetches only its halo.
+//   A wider slice restages from the workspace every layer.  Reads of the workspace
+//   go through L2 (cp.async.cg).  Between layers the cluster waits on one barrier
+//   (barrier.cluster.arrive.release / wait.acquire), which orders the edge writes
+//   before the neighbours' halo reads; a layer never writes the plane its
+//   neighbours read for it (h->y, y->h, h->u, u->des), so one barrier a layer is
+//   enough.  A padding row's whole cluster returns at once, before any barrier, and
+//   no block reads another's shared memory.
+// * Implicit GEMMs on the tensor cores for the residual convs and the up-projection
+//   (two passes of N = CP, one per sub-pixel phase): per block M = S x P rows (symbol
+//   major, so a 64-row tile lies in one or two symbols and skips the symbol taps
+//   that fall outside the slot; a row whose tap does reads a row of zeros), N = CP
+//   output channels, K = CP input channels x 9 taps.  wgmma m64nCPk8 (tf32) or
+//   m64nCPk16 (bf16): A (the staged activations) from registers in mma.m16n8k8's /
+//   m16n8k16's fragment layout per warp, B (one tap's weights) from shared memory by
+//   descriptor (K-major, 8-row x 16-byte core matrices, no swizzle, LBO 128 B),
+//   double-buffered tap by tap with the next tap's weights loaded into registers
+//   while this tap's wgmmas run.  Up to four 64-row tiles a pass keep their float32
+//   sums in registers; a wider slice runs in groups of four.
+// * float32 as 3xTF32: each operand x is split into hi = x rounded to TF32 and lo =
+//   x - hi, exact, truncated to TF32 (integer operations: cvt.rna.tf32 runs on a
+//   quarter-rate pipe); every product is lo*hi + hi*lo + hi*hi, off by under 2^-20 of
+//   the product.  The tensor core's accumulator truncates, so each
+//   k-tile (one tap: all CP input channels, 4 k8 steps at CP 32) starts a fresh
+//   accumulator, takes its lo terms first, then hi*hi, and is added to a float32
+//   register sum rounded to nearest, tap after tap (mmse_interp.cu does the same).
+//   tests/test_torch_gated_kernels.py emulates this order with a truncating
+//   accumulator against repro's unfused reference.  bf16: one wgmma per k16 step
+//   (products of bf16 values are exact in float32), the same per-tap accumulators.
+// * The stem (2 input channels) and the head (2 output channels) are 1.8 % of the
+//   work and would fill a tenth of a tensor-core tile: they run as scalar float32
+//   FMAs on the CUDA cores, the stem reading the complex64 LS row, the head adding
+//   the comb-2 baseline and writing the complex64 estimate, four lanes an output
+//   whose partial sums meet in a fixed butterfly.
+// * Determinism: every output is summed inside one block, in one order fixed by the
+//   shapes (tap by tap, channel by channel within a tap), with no split of K across
+//   blocks and no atomics; the block geometry depends on Np and S only, so one UE's
+//   estimate is bitwise the same at any capacity and in any row of idx.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int TPB = 512;
-constexpr int NWARP = TPB / 32;
-constexpr int SUB = 64;             // subcarriers per warp task (2 per lane)
-constexpr int TILE = 128;           // subcarriers per staged tile
-constexpr int HALO = TILE + 2;      // staged row: one halo subcarrier each side
-constexpr int OB = 4;               // output channels per warp task
-constexpr int KH = 3, KW = 3;       // (subcarrier, symbol) taps
+constexpr int THREADS = 128;     // one warpgroup a block
+constexpr int MAXT = 4;          // 64-row tiles whose sums stay in registers
+constexpr int P_TARGET = 80;     // subcarriers a block aims for
+constexpr int MAX_CLUSTER = 8;   // the portable cluster size
+constexpr int TAPS = 9;          // 3 subcarrier taps x 3 symbol taps
 
-enum Epilogue { STORE, RELU, RESIDUAL, SUBPIXEL, HEAD };
+enum Epilogue { RELU, RESIDUAL, SUBPIXEL };
 
-// The largest layer's weights (the up-projection's) plus one staged input tile.
-long long gated_expert_smem_floats(int n_sym, int C) {
-  const long long cp2 = (2LL * C + OB - 1) / OB * OB;
-  return (long long)C * KH * KW * cp2 + (long long)C * n_sym * HALO;
+struct Geometry {
+  int cluster, P;
+};
+
+Geometry geometry(int np) {
+  int cl = (np + P_TARGET - 1) / P_TARGET;
+  cl = cl < 1 ? 1 : (cl > MAX_CLUSTER ? MAX_CLUSTER : cl);
+  return {cl, (np + cl - 1) / cl};
+}
+
+// channels padded to the GEMM's width: 16 or 32
+int channel_pad(int C) { return C <= 16 ? 16 : 32; }
+
+// floats per staged row (subcarrier, symbol): the padding makes the A-fragment loads
+// conflict-free (rows 4 banks apart)
+template <int CP>
+__host__ __device__ constexpr int row_stride() { return CP + 4; }
+
+// the weight region: two taps' B tiles (hi and lo for float32), or the stem's or
+// head's weights and biases, whichever is larger
+template <int CP, bool BF16>
+__host__ __device__ constexpr size_t weight_bytes() {
+  const size_t b = BF16 ? CP * CP * 4 : 4 * CP * CP * 4;
+  const size_t misc = (19 * CP + 4) * 4;
+  return ((b > misc ? b : misc) + 127) / 128 * 128;
+}
+
+// dynamic shared memory: the staged slice, a row of zeros, the head's LS pilots
+template <int CP>
+size_t smem_bytes(int S, int P) {
+  return ((size_t)S * (P + 2) + 1) * row_stride<CP>() * 4 + (size_t)S * (P + 1) * 8;
+}
+
+// The weight region, static shared memory: its address is a constant, so the wgmma
+// descriptors that point into it are uniform constants too.
+template <int CP, bool BF16>
+__device__ __forceinline__ float* weight_region() {
+  __shared__ __align__(128) float w[weight_bytes<CP, BF16>() / 4];
+  return w;
+}
+
+struct Args {
+  const int32_t* idx;
+  const int32_t* src;
+  const float2* h_ls;
+  float2* designated;
+  const float* w;
+  const float* bias;
+  float* workspace;
+  int n_ant, S, np, C, R, P;
+};
+
+// -- PTX helpers ---------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// x = hi + lo + r: hi = x rounded to TF32 (10 mantissa bits) to nearest, ties away
+// from zero, as cvt.rna.tf32.f32 does for finite x; lo = x - hi (exact) truncated to
+// TF32, |r| below 2^-21 |x|.  Four full-rate operations (cvt.rna.tf32 runs on a
+// quarter-rate pipe).  Truncating hi as well would save one, but biases every
+// product toward zero: a layer then errs twice as much as a float32 convolution.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float operand(float v, bool bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-// One 3x3 'SAME' conv layer over (cin, S, L) -> (cout, S, L), run by the whole block.
-// ``in`` is a workspace activation, or null for the stem, which reads the UE's complex
-// LS row ``ls`` (S, L) as two channels (real, imaginary).  ``w`` is (cin, 3, 3,
-// cout_p), ``b`` (cout_p), with cout_p the channel count rounded up to OB.
-template <int S, bool BF16>
-__device__ void conv_layer(const float* in, const float2* __restrict__ ls, int cin,
-                           int cout, int L, const float* __restrict__ w,
-                           const float* __restrict__ b, Epilogue epi, float* out,
-                           float2* __restrict__ des, float* smem) {
-  const int cout_p = (cout + OB - 1) / OB * OB;
-  const int n_ob = cout_p / OB;
-  float* ws = smem;                              // (cin, 3, 3, cout_p)
-  float* xs = smem + cin * KH * KW * cout_p;     // (cin, S, HALO)
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// Shared-memory matrix descriptor, K-major, no swizzle, of the tile at shared-window
+// address ``saddr``: LBO = 128 B between the two core matrices of a k step, SBO = the
+// stride between 8-row (output channel) groups.  Built from 32-bit halves (the high
+// one a constant), so a k step's descriptor is the low word plus 16 per 256 B.
+template <int SBO>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t saddr) {
+  const uint32_t lo = ((saddr & 0x3FFFF) >> 4) | ((128 >> 4) << 16);
+  return (static_cast<uint64_t>(SBO >> 4) << 32) | lo;
+}
 
-  __syncthreads();  // the previous layer's readers of smem are done
-  for (int i = threadIdx.x; i < cin * KH * KW * cout_p; i += TPB)
-    ws[i] = w[i];  // bf16 engines pack weights already rounded
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-  for (int t0 = 0; t0 < L; t0 += TILE) {
-    __syncthreads();  // the previous tile's readers of xs are done
-    for (int i = threadIdx.x; i < cin * S * HALO; i += TPB) {
-      const int q = i % HALO, cs = i / HALO;
-      const int p = t0 - 1 + q;
-      float v = 0.f;
-      if (p >= 0 && p < L) {
-        if (in != nullptr) {
-          v = in[(size_t)cs * L + p];
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// D (64 x N) = A (64 x k: registers) . B (k x N: shared memory) + (scale_d ? D : 0)
+template <int N>
+struct Mma;
+
+template <>
+struct Mma<32> {
+  __device__ static void tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int sd) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
+  }
+  __device__ static void bf16(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int sd) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
+  }
+};
+
+template <>
+struct Mma<16> {
+  __device__ static void tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int sd) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
+  }
+  __device__ static void bf16(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int sd) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
+  }
+};
+
+// -- the block's view of its chain ---------------------------------------------------
+
+struct Ctx {
+  float* xs;     // staged input slice (S, P + 2, CP + 4), position 0 the left halo
+  const float* zero;  // a row of zeros past the slice
+  float2* lsm;        // the head's LS pilots (S, P + 1), clamped to the band
+  float* wsm;    // weight region
+  int S, P, np, C, p0, V;  // V: positions of the slice inside the band
+};
+
+// Stage positions q0 .. q0 + P + 1 of a workspace plane (S, len, CP) into xs, zero
+// outside [0, len).
+template <int CP>
+__device__ void stage(const Ctx& c, const float* plane, int len, int q0) {
+  constexpr int CH = CP / 4, RS = row_stride<CP>();
+  const int n = c.S * (c.P + 2) * CH;
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int ch = i % CH, r = i / CH, pp = r % (c.P + 2), s = r / (c.P + 2);
+    const int q = q0 + pp;
+    const bool ok = q >= 0 && q < len;
+    cp_async16(c.xs + r * RS + 4 * ch, ok ? plane + ((size_t)s * len + q) * CP + 4 * ch : plane,
+               ok ? 16 : 0);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// Refresh the two halo positions of the staged slice from a workspace plane (S, np,
+// CP): the neighbours' edge outputs.  Positions outside the band stay zero, as the
+// first stage left them.
+template <int CP>
+__device__ void stage_halo(const Ctx& c, const float* plane) {
+  constexpr int CH = CP / 4, RS = row_stride<CP>();
+  if (threadIdx.x < 2 * c.S * CH) {
+    const int ch = threadIdx.x % CH, side = threadIdx.x / CH % 2, s = threadIdx.x / CH / 2;
+    const int q = side ? c.p0 + c.P : c.p0 - 1;
+    if (q >= 0 && q < c.np)
+      cp_async16(c.xs + (s * (c.P + 2) + (side ? c.P + 1 : 0)) * RS + 4 * ch,
+                 plane + ((size_t)s * c.np + q) * CP + 4 * ch, 16);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// One tap's weights, B[k = input channel][n = output channel], from the pack
+// (C, 3, 3, coutp); output channel n reads pack column col0 + n.  Zero past C.
+template <int CP>
+__device__ __forceinline__ void load_tap(float (&wr)[CP * CP / THREADS], const float* wl,
+                                         int coutp, int col0, int C, int tap) {
+  const int n = threadIdx.x % CP;  // THREADS is a multiple of CP: n is the thread's
+  const float* w0 = wl + (threadIdx.x / CP * TAPS + tap) * coutp + col0 + n;
+#pragma unroll
+  for (int i = 0; i < CP * CP / THREADS; ++i) {
+    const int k = threadIdx.x / CP + i * (THREADS / CP);
+    wr[i] = (n < C && k < C) ? __ldg(w0 + i * (THREADS / CP) * TAPS * coutp) : 0.f;
+  }
+}
+
+// ... into the K-major core-matrix layout wgmma reads: hi and lo planes (tf32), or
+// one bf16 plane (the bf16 pack is already rounded, so the conversion is exact)
+template <int CP, bool BF16>
+__device__ __forceinline__ void store_tap(const float (&wr)[CP * CP / THREADS], void* wb) {
+#pragma unroll
+  for (int i = 0; i < CP * CP / THREADS; ++i) {
+    const int n = threadIdx.x % CP, k = threadIdx.x / CP + i * (THREADS / CP);
+    if (BF16) {
+      const int off = ((n / 8) * (CP / 8) + k / 8) * 64 + (n % 8) * 8 + k % 8;
+      static_cast<__nv_bfloat16*>(wb)[off] = __float2bfloat16_rn(wr[i]);
+    } else {
+      const int off = ((n / 8) * (CP / 4) + k / 4) * 32 + (n % 8) * 4 + k % 4;
+      uint32_t hi, lo;
+      split(wr[i], hi, lo);
+      static_cast<uint32_t*>(wb)[off] = hi;
+      static_cast<uint32_t*>(wb)[CP * CP + off] = lo;
+    }
+  }
+}
+
+// One tensor-core conv over the staged slice: out (channels col0 .. col0 + C of the
+// pack) = conv(xs) + bias, through the epilogue.  RELU and RESIDUAL write plane
+// ``out`` (S, np, CP) at the block's positions; SUBPIXEL writes phase ``phase`` of the
+// up-projection into u (S, 2 np, CP) at 2q + phase.
+template <int CP, bool BF16>
+__device__ void tc_layer(const Ctx& c, const float* wl, const float* bl, int coutp,
+                         int col0, Epilogue epi, int phase, float* out, bool keep) {
+  constexpr int ND = CP / 2;             // accumulator floats a thread
+  constexpr int RS = row_stride<CP>();
+  constexpr int WTILE = BF16 ? CP * CP / 2 : 2 * CP * CP;  // a tap's B, in floats
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, tig = threadIdx.x % 4;
+  const int rows = c.S * c.P, n_tiles = (rows + 63) / 64;
+
+  for (int g0 = 0; g0 < n_tiles; g0 += MAXT) {
+    // this thread's two rows of each tile: staged offset and symbol (a symbol far
+    // out of range marks a row past the slice, which reads the zero row)
+    int rbase[MAXT][2], rsym[MAXT][2];
+    unsigned jmask[MAXT];  // bit j: a row of the tile sees symbol tap j
+#pragma unroll
+    for (int t = 0; t < MAXT; ++t) {
+      const int tile = g0 + t;
+      jmask[t] = 0;
+      if (tile < n_tiles) {
+        const int s_first = tile * 64 / c.P, s_last = min(tile * 64 + 63, rows - 1) / c.P;
+        for (int j = 0; j < 3; ++j)
+          if (s_last + j - 1 >= 0 && s_first + j - 1 < c.S) jmask[t] |= 1u << j;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = tile * 64 + warp * 16 + g + 8 * h;
+        const bool ok = tile < n_tiles && m < rows;
+        const int s = ok ? m / c.P : -8, p = ok ? m % c.P : 0;
+        rsym[t][h] = s;
+        rbase[t][h] = ok ? (s * (c.P + 2) + p) * RS : 0;
+      }
+    }
+    float sum[MAXT][ND];
+#pragma unroll
+    for (int t = 0; t < MAXT; ++t)
+#pragma unroll
+      for (int i = 0; i < ND; ++i) sum[t][i] = 0.f;
+
+    float acc[ND];  // a tap's accumulator; its first wgmma ignores what it holds
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+    float wr[CP * CP / THREADS];
+    __syncthreads();  // the last group's wgmmas have read the weight buffers
+    load_tap<CP>(wr, wl, coutp, col0, c.C, 0);
+#pragma unroll 1
+    for (int tap = 0; tap < TAPS; ++tap) {
+      const int d = tap / 3, j = tap % 3;
+      float* wb = c.wsm + (tap & 1) * WTILE;
+      store_tap<CP, BF16>(wr, wb);
+      fence_async_smem();
+      __syncthreads();  // this tap's B is in place; tap - 1's readers are done
+      if (tap + 1 < TAPS) load_tap<CP>(wr, wl, coutp, col0, c.C, tap + 1);
+      const int shift = ((j - 1) * (c.P + 2) + d) * RS;
+      const uint32_t wb_s =
+          static_cast<uint32_t>(__cvta_generic_to_shared(weight_region<CP, BF16>())) +
+          (tap & 1) * WTILE * 4;
+      const uint64_t dhi = smem_desc<(BF16 ? 16 : 32) * CP>(wb_s);
+      const uint64_t dlo = smem_desc<32 * CP>(wb_s + CP * CP * 4);
+#pragma unroll
+      for (int t = 0; t < MAXT; ++t) {
+        if (!((jmask[t] >> j) & 1u)) continue;  // uniform across the warpgroup
+        // a row whose symbol tap falls outside the slot reads the zero row
+        const float* x0 = (unsigned)(rsym[t][0] + j - 1) < (unsigned)c.S
+                              ? c.xs + rbase[t][0] + shift : c.zero;
+        const float* x1 = (unsigned)(rsym[t][1] + j - 1) < (unsigned)c.S
+                              ? c.xs + rbase[t][1] + shift : c.zero;
+        if (BF16) {
+          uint32_t a[CP / 16][4];
+#pragma unroll
+          for (int ks = 0; ks < CP / 16; ++ks) {
+            const int k = 16 * ks + 2 * tig;
+            const float2 v0 = *reinterpret_cast<const float2*>(x0 + k);
+            const float2 v1 = *reinterpret_cast<const float2*>(x1 + k);
+            const float2 v2 = *reinterpret_cast<const float2*>(x0 + k + 8);
+            const float2 v3 = *reinterpret_cast<const float2*>(x1 + k + 8);
+            a[ks][0] = bf16x2(v0.x, v0.y);
+            a[ks][1] = bf16x2(v1.x, v1.y);
+            a[ks][2] = bf16x2(v2.x, v2.y);
+            a[ks][3] = bf16x2(v3.x, v3.y);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < CP / 16; ++ks) Mma<CP>::bf16(acc, a[ks], dhi + 16 * ks, ks > 0);
         } else {
-          const float2 z = ls[(size_t)(cs % S) * L + p];
-          v = (cs / S == 0) ? z.x : z.y;
+          uint32_t ah[CP / 8][4], al[CP / 8][4];
+#pragma unroll
+          for (int ks = 0; ks < CP / 8; ++ks) {
+            const int k = 8 * ks + tig;
+            split(x0[k], ah[ks][0], al[ks][0]);
+            split(x1[k], ah[ks][1], al[ks][1]);
+            split(x0[k + 4], ah[ks][2], al[ks][2]);
+            split(x1[k + 4], ah[ks][3], al[ks][3]);
+          }
+          // a fresh accumulator for the tap: lo*hi and hi*lo of every k8 step, then
+          // hi*hi, in k order (a k8 step's two core matrices are 256 B apart)
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < CP / 8; ++ks) {
+            Mma<CP>::tf32(acc, al[ks], dhi + 16 * ks, ks > 0);
+            Mma<CP>::tf32(acc, ah[ks], dlo + 16 * ks, 1);
+          }
+#pragma unroll
+          for (int ks = 0; ks < CP / 8; ++ks) Mma<CP>::tf32(acc, ah[ks], dhi + 16 * ks, 1);
+        }
+        wgmma_commit();
+        wgmma_wait();
+#pragma unroll
+        for (int i = 0; i < ND; ++i) sum[t][i] += acc[i];
+      }
+    }
+
+    // accumulator layout: element 4 j8 + i is row warp * 16 + g (+ 8 for i >= 2) of
+    // the tile, output channel 8 j8 + 2 tig (+ 1 for odd i)
+    if (keep) __syncthreads();  // every warp is done reading the slice it now overwrites
+#pragma unroll
+    for (int t = 0; t < MAXT; ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = (g0 + t) * 64 + warp * 16 + g + 8 * h;
+        if (g0 + t >= n_tiles || m >= rows) continue;
+        const int s = m / c.P, p = m % c.P;
+        if (p >= c.V) continue;  // past the band: the last block's tail
+        const int q = c.p0 + p;
+        float2 v[CP / 8];
+#pragma unroll
+        for (int j8 = 0; j8 < CP / 8; ++j8) {
+          const int n = 8 * j8 + 2 * tig;
+          v[j8] = make_float2(sum[t][4 * j8 + 2 * h] + (n < c.C ? __ldg(bl + col0 + n) : 0.f),
+                              sum[t][4 * j8 + 2 * h + 1] +
+                                  (n + 1 < c.C ? __ldg(bl + col0 + n + 1) : 0.f));
+        }
+        if (epi == SUBPIXEL) {
+          // up-projection channel phase * C + n at subcarrier q -> channel n at 2q + phase
+          float* dst = out + ((size_t)s * 2 * c.np + 2 * q + phase) * CP + 2 * tig;
+#pragma unroll
+          for (int j8 = 0; j8 < CP / 8; ++j8) *reinterpret_cast<float2*>(dst + 8 * j8) = v[j8];
+          continue;
+        }
+        float* dst = out + ((size_t)s * c.np + q) * CP + 2 * tig;
+        if (epi == RESIDUAL) {  // h + conv(y); h was written by this block at an earlier layer
+          float2 r[CP / 8];
+#pragma unroll
+          for (int j8 = 0; j8 < CP / 8; ++j8) r[j8] = __ldcg(reinterpret_cast<float2*>(dst + 8 * j8));
+#pragma unroll
+          for (int j8 = 0; j8 < CP / 8; ++j8)
+            v[j8] = make_float2(r[j8].x + v[j8].x, r[j8].y + v[j8].y);
+        } else {  // RELU; keeps NaN, as torch.relu
+#pragma unroll
+          for (int j8 = 0; j8 < CP / 8; ++j8)
+            v[j8] = make_float2(v[j8].x < 0.f ? 0.f : v[j8].x, v[j8].y < 0.f ? 0.f : v[j8].y);
+        }
+        if (keep) {  // the next layer's input, in place
+          float* x = c.xs + (s * (c.P + 2) + p + 1) * RS + 2 * tig;
+#pragma unroll
+          for (int j8 = 0; j8 < CP / 8; ++j8) *reinterpret_cast<float2*>(x + 8 * j8) = v[j8];
+        }
+        // the plane gets what others read: h in full (the next residual add), y in full
+        // for a restage, else only at the slice's edges (the neighbours' halo)
+        if (!keep || epi == RESIDUAL || p == 0 || p == c.P - 1) {
+#pragma unroll
+          for (int j8 = 0; j8 < CP / 8; ++j8) *reinterpret_cast<float2*>(dst + 8 * j8) = v[j8];
         }
       }
-      xs[i] = operand(v, BF16);
     }
-    __syncthreads();
+  }
+}
 
-    for (int task = warp; task < n_ob * (TILE / SUB); task += NWARP) {
-      const int ob = task % n_ob, sub = task / n_ob;
-      const int pl = sub * SUB + lane;  // local subcarriers pl and pl + 32
-      float acc[OB][S][2];
+// The stem, on the CUDA cores: h (S, np, CP) = conv(LS (re, im)) + bias at the block's
+// positions, channels past C zero.  ``wl`` (2, 3, 3, cp4), ``bl`` (cp4).
+template <int CP, bool BF16>
+__device__ void stem(const Ctx& c, const float2* __restrict__ ls, const float* wl,
+                     const float* bl, float* h) {
+  const int cp4 = (c.C + 3) / 4 * 4;
+  float* ws = c.wsm;  // (2, 3, 3, CP) then the bias (CP)
+  for (int i = threadIdx.x; i < 19 * CP; i += THREADS) {
+    const int o = i % CP, r = i / CP;
+    ws[i] = o < c.C ? (r < 18 ? wl[r * cp4 + o] : bl[o]) : 0.f;
+  }
+  __syncthreads();
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  for (int item = threadIdx.x; item < c.S * c.V; item += THREADS) {
+    const int s = item / c.V, q = c.p0 + item % c.V;
+    float2 z[3][3];  // the 3x3 neighbourhood, zero outside the band and the slot
 #pragma unroll
-      for (int o = 0; o < OB; ++o)
+    for (int d = 0; d < 3; ++d)
 #pragma unroll
-        for (int s = 0; s < S; ++s) acc[o][s][0] = acc[o][s][1] = 0.f;
-
-      for (int c = 0; c < cin; ++c) {
-        float xa[S][KH], xb[S][KH];
+      for (int j = 0; j < 3; ++j) {
+        const int qi = q + d - 1, si = s + j - 1;
+        z[d][j] = (qi >= 0 && qi < c.np && si >= 0 && si < c.S) ? ls[(size_t)si * c.np + qi]
+                                                                : make_float2(0.f, 0.f);
+      }
+    float acc[CP];
 #pragma unroll
-        for (int s = 0; s < S; ++s)
+    for (int o = 0; o < CP; ++o) acc[o] = 0.f;
+#pragma unroll 1
+    for (int ch = 0; ch < 2; ++ch)
 #pragma unroll
-          for (int d = 0; d < KH; ++d) {
-            xa[s][d] = xs[(c * S + s) * HALO + pl + d];
-            xb[s][d] = xs[(c * S + s) * HALO + pl + 32 + d];
+      for (int d = 0; d < 3; ++d)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float x = operand(ch == 0 ? z[d][j].x : z[d][j].y, BF16);
+          const float4* wv = w4 + ((ch * 3 + d) * 3 + j) * (CP / 4);
+#pragma unroll
+          for (int o4 = 0; o4 < CP / 4; ++o4) {
+            const float4 wo = wv[o4];
+            acc[4 * o4] = fmaf(wo.x, x, acc[4 * o4]);
+            acc[4 * o4 + 1] = fmaf(wo.y, x, acc[4 * o4 + 1]);
+            acc[4 * o4 + 2] = fmaf(wo.z, x, acc[4 * o4 + 2]);
+            acc[4 * o4 + 3] = fmaf(wo.w, x, acc[4 * o4 + 3]);
           }
-        const float4* wc =
-            reinterpret_cast<const float4*>(ws + c * KH * KW * cout_p) + ob;
+        }
+    float4* dst = reinterpret_cast<float4*>(h + ((size_t)s * c.np + q) * CP);
 #pragma unroll
-        for (int d = 0; d < KH; ++d)
+    for (int o4 = 0; o4 < CP / 4; ++o4) {
+      const float4 b = w4[18 * (CP / 4) + o4];
+      dst[o4] = make_float4(acc[4 * o4] + b.x, acc[4 * o4 + 1] + b.y, acc[4 * o4 + 2] + b.z,
+                            acc[4 * o4 + 3] + b.w);
+    }
+  }
+}
+
+// The head, on the CUDA cores: des (2 np, S) = comb-2 baseline + conv(u) + bias, the
+// two output channels as (re, im), at the block's 2V positions.  ``wl`` (C, 3, 3, 4),
+// ``bl`` (4); u is staged P + 2 positions at a time.
+template <int CP, bool BF16>
+__device__ void head(const Ctx& c, const float2* __restrict__ ls, const float* wl,
+                     const float* bl, const float* u, float2* __restrict__ des) {
+  constexpr int RS = row_stride<CP>();
+  float2* wh = reinterpret_cast<float2*>(c.wsm);  // (CP, 3, 3) (w_re, w_im), then bias
+  for (int i = threadIdx.x; i < CP * 9 + 1; i += THREADS) {
+    const int k = i / 9;
+    wh[i] = i == CP * 9 ? make_float2(bl[0], bl[1])
+                        : (k < c.C ? make_float2(wl[i * 4], wl[i * 4 + 1]) : make_float2(0.f, 0.f));
+  }
+  for (int i = threadIdx.x; i < c.S * (c.P + 1); i += THREADS) {
+    const int s = i / (c.P + 1), k = min(c.p0 + i % (c.P + 1), c.np - 1);
+    c.lsm[i] = ls[(size_t)s * c.np + k];
+  }
+  // (the weight region was last read by the up-projection's wgmmas, done before the
+  // cluster barrier that precedes this call; the first chunk's barrier orders these
+  // writes before their readers)
+  for (int chunk = 0; chunk * c.P < 2 * c.V; ++chunk) {
+    const int q_first = 2 * c.p0 + chunk * c.P;
+    __syncthreads();  // the last chunk's readers of xs are done
+    stage<CP>(c, u, 2 * c.np, q_first - 1);
+    const float2 b = wh[CP * 9];
+    // four lanes an output, eight lanes apart: lane ``quad`` sums channel groups quad,
+    // quad + 4, ... (a quarter-warp reads one group of eight neighbouring positions);
+    // the four partial sums meet in a fixed butterfly, so the order is fixed too
+    const int lane = threadIdx.x % 32, quad = lane / 8;
+    for (int base = 0; base < c.S * c.P; base += THREADS / 4) {  // uniform trip count
+      const int item = base + threadIdx.x / 32 * 8 + lane % 8;
+      const int s = item / c.P, qq = item % c.P, q = q_first + qq;
+      const bool live = item < c.S * c.P && q < 2 * (c.p0 + c.V);
+      // the comb-2 baseline: pilot k at 2k, the mean of pilots k and k + 1 at 2k + 1
+      const int k = (q >> 1) - c.p0;  // the pilot, in the block's LS slice
+      float2 la = make_float2(0.f, 0.f), lb = la;
+      if (live && quad == 0) {
+        la = c.lsm[s * (c.P + 1) + k];
+        lb = c.lsm[s * (c.P + 1) + k + 1];  // the slice clamps k + 1 to the band
+      }
+      float re = 0.f, im = 0.f;
+      if (live) {
+        const int j0 = s == 0 ? 1 : 0, j1 = s == c.S - 1 ? 2 : 3;  // symbol taps in the slot
 #pragma unroll
-          for (int j = 0; j < KW; ++j) {
-            const float4 wv = wc[(d * KW + j) * n_ob];
-            const float wo[OB] = {wv.x, wv.y, wv.z, wv.w};
+        for (int k4 = quad; k4 < CP / 4; k4 += 4) {
+          for (int j = j0; j < j1; ++j) {
+            const float* xr = c.xs + ((s + j - 1) * (c.P + 2) + qq) * RS + 4 * k4;
 #pragma unroll
-            for (int so = 0; so < S; ++so) {
-              const int si = so + j - 1;  // symbol tap; outside [0, S) is padding
-              if (si < 0 || si >= S) continue;
+            for (int d = 0; d < 3; ++d) {
+              const float4 x = *reinterpret_cast<const float4*>(xr + d * RS);
+              const float xv[4] = {operand(x.x, BF16), operand(x.y, BF16), operand(x.z, BF16),
+                                   operand(x.w, BF16)};
 #pragma unroll
-              for (int o = 0; o < OB; ++o) {
-                acc[o][so][0] = fmaf(wo[o], xa[si][d], acc[o][so][0]);
-                acc[o][so][1] = fmaf(wo[o], xb[si][d], acc[o][so][1]);
+              for (int kk = 0; kk < 4; ++kk) {
+                const float2 wv = wh[(4 * k4 + kk) * 9 + d * 3 + j];
+                re = fmaf(wv.x, xv[kk], re);
+                im = fmaf(wv.y, xv[kk], im);
               }
             }
           }
-      }
-
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int p = t0 + pl + 32 * half;
-        if (p >= L) continue;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          if (epi == HEAD) {
-            // out = comb-2 baseline + head correction, written as one complex value
-            const int k = p >> 1;
-            const float2 a = ls[(size_t)s * (L / 2) + k];
-            float2 base = a;
-            if (p & 1) {
-              const float2 n = ls[(size_t)s * (L / 2) + min(k + 1, L / 2 - 1)];
-              base = make_float2(0.5f * (a.x + n.x), 0.5f * (a.y + n.y));
-            }
-            des[(size_t)p * S + s] = make_float2(base.x + (acc[0][s][half] + b[0]),
-                                                 base.y + (acc[1][s][half] + b[1]));
-            continue;
-          }
-#pragma unroll
-          for (int o = 0; o < OB; ++o) {
-            const int oc = ob * OB + o;
-            if (oc >= cout) continue;
-            const float v = acc[o][s][half] + b[oc];
-            if (epi == SUBPIXEL) {
-              // up-projection channel r * C + c at subcarrier p -> channel c at 2p + r
-              const int C = cout / 2, r = oc / C, ch = oc % C;
-              out[((size_t)ch * S + s) * (2 * L) + 2 * p + r] = v;
-            } else {
-              float* dst = out + ((size_t)oc * S + s) * L + p;
-              if (epi == RELU) *dst = v < 0.f ? 0.f : v;  // keeps NaN, as torch.relu
-              else if (epi == RESIDUAL) *dst = *dst + v;
-              else *dst = v;
-            }
-          }
         }
       }
+      re += __shfl_xor_sync(0xffffffffu, re, 8);
+      im += __shfl_xor_sync(0xffffffffu, im, 8);
+      re += __shfl_xor_sync(0xffffffffu, re, 16);
+      im += __shfl_xor_sync(0xffffffffu, im, 16);
+      if (!live || quad != 0) continue;
+      const float2 base2 = (q & 1) ? make_float2(0.5f * (la.x + lb.x), 0.5f * (la.y + lb.y)) : la;
+      des[(size_t)q * c.S + s] = make_float2(base2.x + (re + b.x), base2.y + (im + b.y));
     }
   }
 }
 
-template <int S, bool BF16>
-__global__ void __launch_bounds__(TPB, 1)
-gated_expert_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ src,
-                    const float2* __restrict__ h_ls, float2* __restrict__ designated,
-                    const float* __restrict__ w, const float* __restrict__ bias,
-                    float* workspace, int n_ant, int np, int C, int R) {
-  const int row = blockIdx.x, ant = blockIdx.y;
-  const int u = idx[row];
-  if (src[u] < 0) return;  // capacity padding: the UE keeps its buffer
+template <int CP, bool BF16>
+__global__ void __launch_bounds__(THREADS, 3) gated_expert_kernel(Args a) {
+  const int rank = blockIdx.x, row = blockIdx.y, ant = blockIdx.z;
+  const int ue = a.idx[row];
+  if (a.src[ue] < 0) return;  // capacity padding: the whole cluster returns, no barrier
 
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const size_t act = (size_t)C * S * np;
-  float* h = workspace + ((size_t)row * n_ant + ant) * 3 * act;
-  float* y = h + act;  // (C, S, Np); the up-projection's (C, S, 2 Np) output
-  const float2* ls = h_ls + ((size_t)u * n_ant + ant) * S * np;
-  float2* des = designated + ((size_t)u * n_ant + ant) * (size_t)(2 * np) * S;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Ctx c;
+  c.wsm = weight_region<CP, BF16>();
+  c.xs = reinterpret_cast<float*>(smem);
+  float* zero = c.xs + (size_t)a.S * (a.P + 2) * row_stride<CP>();
+  for (int i = threadIdx.x; i < row_stride<CP>(); i += THREADS) zero[i] = 0.f;
+  c.zero = zero;  // (the stem's first barrier orders these writes before any reader)
+  c.lsm = reinterpret_cast<float2*>(zero + row_stride<CP>());
+  c.S = a.S;
+  c.P = a.P;
+  c.np = a.np;
+  c.C = a.C;
+  c.p0 = rank * a.P;
+  c.V = min(a.P, a.np - c.p0);
 
-  // packed operands, layer by layer: stem, R x (conv1, conv2), up, head; each
-  // layer's output channels padded to a multiple of OB
-  const int cp = (C + OB - 1) / OB * OB, cp2 = (2 * C + OB - 1) / OB * OB;
-  const float* wl = w;
-  const float* bl = bias;
-  conv_layer<S, BF16>(nullptr, ls, 2, C, np, wl, bl, STORE, h, des, smem);
-  wl += 2 * KH * KW * cp; bl += cp;
-  for (int r = 0; r < R; ++r) {
-    conv_layer<S, BF16>(h, ls, C, C, np, wl, bl, RELU, y, des, smem);
-    wl += C * KH * KW * cp; bl += cp;
-    conv_layer<S, BF16>(y, ls, C, C, np, wl, bl, RESIDUAL, h, des, smem);
-    wl += C * KH * KW * cp; bl += cp;
+  const size_t plane = (size_t)a.S * a.np * CP;
+  float* h = a.workspace + ((size_t)row * a.n_ant + ant) * 3 * plane;
+  float* y = h + plane;  // (S, np, CP); the up-projection's u (S, 2 np, CP)
+  const float2* ls = a.h_ls + ((size_t)ue * a.n_ant + ant) * a.S * a.np;
+  float2* des = a.designated + ((size_t)ue * a.n_ant + ant) * (size_t)(2 * a.np) * a.S;
+
+  // the pack, layer by layer: stem, R x (conv1, conv2), up, head; each layer
+  // (C_in, 3, 3, C_out padded to 4) then its bias
+  const int C = a.C, cp4 = (C + 3) / 4 * 4, cup = (2 * C + 3) / 4 * 4;
+  const float* wl = a.w;
+  const float* bl = a.bias;
+  stem<CP, BF16>(c, ls, wl, bl, h);
+  wl += 2 * TAPS * cp4;
+  bl += cp4;
+  cluster_sync();
+  // a slice of at most MAXT tiles keeps each layer's output in place for the next
+  // layer, so between layers only the halo is fetched; a wider one restages
+  const bool keep = (a.S * a.P + 63) / 64 <= MAXT;
+  stage<CP>(c, h, a.np, c.p0 - 1);
+  for (int r = 0; r < a.R; ++r) {
+    tc_layer<CP, BF16>(c, wl, bl, cp4, 0, RELU, 0, y, keep);
+    wl += C * TAPS * cp4;
+    bl += cp4;
+    cluster_sync();
+    if (keep) stage_halo<CP>(c, y);
+    else stage<CP>(c, y, a.np, c.p0 - 1);
+    tc_layer<CP, BF16>(c, wl, bl, cp4, 0, RESIDUAL, 0, h, keep);
+    wl += C * TAPS * cp4;
+    bl += cp4;
+    cluster_sync();
+    if (keep) stage_halo<CP>(c, h);
+    else stage<CP>(c, h, a.np, c.p0 - 1);
   }
-  conv_layer<S, BF16>(h, ls, C, 2 * C, np, wl, bl, SUBPIXEL, y, des, smem);
-  wl += C * KH * KW * cp2; bl += cp2;
-  conv_layer<S, BF16>(y, ls, C, 2, 2 * np, wl, bl, HEAD, nullptr, des, smem);
+  tc_layer<CP, BF16>(c, wl, bl, cup, 0, SUBPIXEL, 0, y, false);
+  tc_layer<CP, BF16>(c, wl, bl, cup, C, SUBPIXEL, 1, y, false);
+  wl += C * TAPS * cup;
+  bl += cup;
+  cluster_sync();
+  head<CP, BF16>(c, ls, wl, bl, y, des);
 }
 
-template <int S, bool BF16>
-int launch(const void* idx, const void* src, const void* h_ls, void* designated,
-           const void* w, const void* bias, void* workspace, int capacity, int n_ant,
-           int np, int C, int R, cudaStream_t stream) {
-  const size_t smem = (size_t)gated_expert_smem_floats(S, C) * sizeof(float);
-  auto kernel = gated_expert_kernel<S, BF16>;
-  static size_t granted = 0;  // the opt-in above 48 KB, once per size
-  if (smem > granted) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// the largest dynamic shared memory a block may take beside the static weight region,
+// per device; the kernel's limit is raised to it once per device and instantiation
+template <int CP, bool BF16>
+int prepare(int dev, int* optin) {
+  static std::atomic<int> limit[64];
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  int lim = limit[dev].load(std::memory_order_acquire);
+  if (lim == 0) {
+    cudaError_t err = cudaDeviceGetAttribute(&lim, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    granted = smem;
+    lim -= static_cast<int>(weight_bytes<CP, BF16>());
+    err = cudaFuncSetAttribute(gated_expert_kernel<CP, BF16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, lim);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limit[dev].store(lim, std::memory_order_release);
   }
-  kernel<<<dim3(capacity, n_ant), TPB, smem, stream>>>(
-      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(src),
-      static_cast<const float2*>(h_ls), static_cast<float2*>(designated),
-      static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<float*>(workspace), n_ant, np, C, R);
+  *optin = lim;
+  return 0;
+}
+
+template <int CP, bool BF16>
+int launch(const Args& a, int capacity, cudaStream_t stream) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = prepare<CP, BF16>(dev, &optin);
+  if (rc != 0) return rc;
+  const Geometry geo = geometry(a.np);
+  const size_t smem = smem_bytes<CP>(a.S, geo.P);
+  if (smem > (size_t)optin) return static_cast<int>(cudaErrorInvalidValue);
+  Args args = a;
+  args.P = geo.P;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(geo.cluster, capacity, a.n_ant);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = geo.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gated_expert_kernel<CP, BF16>, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared memory the kernel asks for, in bytes (the wrapper checks it against the card).
-extern "C" long long gated_expert_smem_bytes(int n_sym, int C) {
-  return gated_expert_smem_floats(n_sym, C) * 4;
+// Blocks a (row, antenna) chain's cluster takes at Np pilots.
+extern "C" int gated_expert_cluster_size(int np) { return geometry(np).cluster; }
+
+// Shared memory a block takes, static and dynamic, in bytes (the wrapper checks it
+// against the card).
+extern "C" long long gated_expert_smem_bytes(int n_sym, int np, int C, int bf16) {
+  const int P = geometry(np).P;
+  if (channel_pad(C) == 16)
+    return smem_bytes<16>(n_sym, P) + (bf16 ? weight_bytes<16, true>() : weight_bytes<16, false>());
+  return smem_bytes<32>(n_sym, P) + (bf16 ? weight_bytes<32, true>() : weight_bytes<32, false>());
 }
 
-// Workspace floats per (compact row, antenna): h, y and u.
+// Workspace floats per (compact row, antenna): h, and y that u reuses.
 extern "C" long long gated_expert_workspace_floats(int n_sym, int np, int C) {
-  return 3LL * C * n_sym * np;
+  return 3LL * n_sym * np * channel_pad(C);
 }
 
 extern "C" int gated_expert_launch(const void* idx, const void* src, const void* h_ls,
                                    void* designated, const void* w, const void* bias,
                                    void* workspace, int capacity, int n_ant, int n_sym,
                                    int np, int C, int R, int bf16, void* stream) {
+  if (C < 1 || C > 32 || n_sym < 1 || np < 1 || capacity < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const int32_t*>(idx), static_cast<const int32_t*>(src),
+         static_cast<const float2*>(h_ls), static_cast<float2*>(designated),
+         static_cast<const float*>(w), static_cast<const float*>(bias),
+         static_cast<float*>(workspace), n_ant, n_sym, np, C, R, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GATED_CASE(S_)                                                                \
-  case S_:                                                                            \
-    return bf16 ? launch<S_, true>(idx, src, h_ls, designated, w, bias, workspace,    \
-                                   capacity, n_ant, np, C, R, st)                     \
-                : launch<S_, false>(idx, src, h_ls, designated, w, bias, workspace,   \
-                                    capacity, n_ant, np, C, R, st);
-  switch (n_sym) {
-    GATED_CASE(1)
-    GATED_CASE(2)
-    GATED_CASE(3)
-    GATED_CASE(4)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef GATED_CASE
+  if (channel_pad(C) == 16)
+    return bf16 ? launch<16, true>(a, capacity, st) : launch<16, false>(a, capacity, st);
+  return bf16 ? launch<32, true>(a, capacity, st) : launch<32, false>(a, capacity, st);
 }

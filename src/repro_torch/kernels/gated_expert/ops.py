@@ -17,6 +17,7 @@ estimator and the plain scatter, and returns a new tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Any
 
 import torch
@@ -26,6 +27,8 @@ from repro_torch.kernels.switch_select.ops import switch_scatter
 from repro_torch.phy.ai_estimator import AiEstimator, ai_estimate_folded, kernel_operands
 
 _BACKENDS = ("auto", "pallas", "cuda", "ref")
+#: the widest estimator the kernel takes: its GEMMs pad the channels to 16 or 32
+MAX_CHANNELS = 32
 
 
 def _folded(ai: AiEstimator | dict[str, Any]) -> dict[str, Any]:
@@ -49,20 +52,37 @@ def _operands(ai: AiEstimator | dict[str, Any], compute_dtype):
     return kernel_operands(_folded(ai), compute_dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_optin(device_index: int) -> int:
+    """Shared memory a block may opt in to on a card (read once per device)."""
+    return torch.cuda.get_device_properties(device_index).shared_memory_per_block_optin
+
+
+def cluster_size(n_pilot_sc: int) -> int:
+    """Blocks in the cluster that runs one (row, antenna) chain at ``n_pilot_sc``
+    pilots (builds the kernel library on first use)."""
+    fn = build.function("gated_expert", "gated_expert_cluster_size", [ctypes.c_int])
+    return fn(n_pilot_sc)
+
+
 def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> None:
     folded = _folded(ai)
     n_ues, n_ant, n_sym, n_p = h_ls.shape
     channels = folded["stem_w"].shape[0] // folded["width"]
+    if channels > MAX_CHANNELS:
+        raise ValueError(f"the fused kernel takes at most {MAX_CHANNELS} channels, "
+                         f"not {channels}")
     n_res = len(folded["res"])
+    bf16 = int(compute_dtype == torch.bfloat16)
     w, b = _operands(ai, compute_dtype)
     if w.device != h_ls.device:
         raise ValueError(f"estimator operands on {w.device}, LS input on {h_ls.device}")
     smem = build.function("gated_expert", "gated_expert_smem_bytes",
-                          [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
-    limit = torch.cuda.get_device_properties(h_ls.device).shared_memory_per_block_optin
-    if smem(n_sym, channels) > limit:
-        raise ValueError(f"{channels} channels need {smem(n_sym, channels)} B of shared "
-                         f"memory per block; the card grants {limit}")
+                          [ctypes.c_int] * 4, ctypes.c_longlong)(n_sym, n_p, channels, bf16)
+    limit = _smem_optin(h_ls.device.index)
+    if smem > limit:
+        raise ValueError(f"{n_p} pilots x {n_sym} symbols need {smem} B of shared memory "
+                         f"per block; the card grants {limit}")
     ws_floats = build.function("gated_expert", "gated_expert_workspace_floats",
                                [ctypes.c_int] * 3, ctypes.c_longlong)
     capacity = idx.shape[0]
@@ -72,8 +92,7 @@ def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> None:
                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     build.check(fn(idx.data_ptr(), src.data_ptr(), h_ls.data_ptr(), designated.data_ptr(),
                    w.data_ptr(), b.data_ptr(), workspace.data_ptr(), capacity, n_ant, n_sym,
-                   n_p, channels, n_res, int(compute_dtype == torch.bfloat16),
-                   build.stream(designated)), "gated_expert")
+                   n_p, channels, n_res, bf16, build.stream(designated)), "gated_expert")
     build.launch_counts["gated_expert"] += 1
 
 

@@ -266,9 +266,11 @@ def _forward_batched(folded: dict[str, Any], x: torch.Tensor,
 
 def ai_estimate_folded(folded: dict[str, Any], h_ls: torch.Tensor, *,
                        compute_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """``(U, ant, n_dmrs_sym, n_pilot_sc)`` LS -> ``(U, ant, 1, n_sc, n_dmrs_sym)``."""
+    """``(U, ant, n_dmrs_sym, n_pilot_sc)`` LS -> ``(U, ant, 1, n_sc, n_dmrs_sym)``,
+    computed in the weights' dtype (float32; float64 weights give a float64
+    reference and a complex128 result)."""
     n_ues, n_ant, n_sym, n_p = h_ls.shape
-    x = torch.stack([h_ls.real, h_ls.imag], dim=0).to(torch.float32)
+    x = torch.stack([h_ls.real, h_ls.imag], dim=0).to(folded["stem_w"].dtype)
     x = x.permute(0, 3, 1, 2, 4).reshape(2, n_sym, n_ues * n_ant, n_p)
     out = _forward_batched(folded, x, compute_dtype)  # (2, S, B, n_sc)
     h = torch.complex(out[0], out[1])  # (S, B, n_sc)

@@ -448,6 +448,12 @@ class BatchedPuschPipeline:
         gated_fused_apply = None
         if fused_gated:
             from repro_torch.kernels.gated_expert import gated_expert_apply
+            from repro_torch.kernels.gated_expert.ops import MAX_CHANNELS
+
+            channels = self.ai.stem_w.shape[0] // self.ai.width
+            if use_pallas_switch and dev.type == "cuda" and channels > MAX_CHANNELS:
+                raise ValueError(f"the fused GATED kernel takes at most {MAX_CHANNELS} "
+                                 f"channels, not {channels}")
 
             def gated_fused_apply(idx, src, base, h_ls):
                 return gated_expert_apply(

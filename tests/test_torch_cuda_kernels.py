@@ -123,6 +123,10 @@ GATED_F32_TOL = dict(rtol=1e-4, atol=1e-5)
 #: bf16 operands: an activation that differs in its last float32 bit can
 #: round to the neighbouring bf16 value and carry (see test_torch_ai_estimator)
 GATED_BF16_TOL = dict(rtol=2e-3, atol=2e-3)
+#: float32 kernel vs a float64 plain version: at most this multiple of the
+#: float32 plain version's error (3xTF32 with one accumulator per tap errs
+#: like a float32 conv; one truncating accumulator across taps errs far more)
+GATED_EXACT_RATIO = 4.0
 
 
 def _cplx(g, shape, dev):
@@ -179,16 +183,26 @@ def _gated_setup(cuda, n_prb, channels, n_res, n_ues, compute_dtype, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("n_prb,channels,n_res,n_ues,capacity", [
-    (24, 8, 1, 5, 3), (106, 32, 4, 32, 16)])
-def test_cuda_gated_expert_vs_plain(cuda, bf16, n_prb, channels, n_res, n_ues, capacity):
+@pytest.mark.parametrize("capacity", [1, 16, 32])
+@pytest.mark.parametrize("n_prb", [4, 24, 106, 273])
+@pytest.mark.parametrize("channels,n_res", [(32, 4), (8, 1)])
+def test_cuda_gated_expert_vs_plain(cuda, bf16, n_prb, channels, n_res, capacity):
+    """From NR's narrowest carrier to its widest at 30 kHz (one to eight blocks a
+    cluster), at the paper's width and a narrow one (channels padded to 16), K =
+    1 (UEs overflow), 16 and 32 (padding rows); two calls give the same bits.
+    In float32 the kernel errs against a float64 plain version at most
+    ``GATED_EXACT_RATIO`` times as much as the float32 plain version does."""
+    import copy
+
     from repro_torch.kernels.gated_expert import gated_expert_apply, gated_expert_apply_ref
 
+    n_ues = 32
     cd = torch.bfloat16 if bf16 else None
     ai, h_ls, des0 = _gated_setup(cuda, n_prb, channels, n_res, n_ues, cd)
     mode = (torch.arange(n_ues, device=cuda) % 3 != 1).to(torch.int32)  # 1 of 3 selects AI
     idx, src = _compaction(mode, capacity)
-    assert int((src >= 0).sum()) < capacity  # some rows are padding
+    n_sel = int((src >= 0).sum())
+    assert n_sel == min(capacity, 11)  # K = 16 and 32 have padding rows, K = 1 overflows
     want = gated_expert_apply_ref(idx, src, h_ls, des0, ai, compute_dtype=cd)
     des = des0.clone()
     before = build.launch_counts["gated_expert"]
@@ -199,15 +213,52 @@ def test_cuda_gated_expert_vs_plain(cuda, bf16, n_prb, channels, n_res, n_ues, c
     kept = src < 0  # padding rows' UEs and unselected UEs: bitwise untouched
     assert torch.equal(got[kept], des0[kept])
     torch.testing.assert_close(got, want, **(GATED_BF16_TOL if bf16 else GATED_F32_TOL))
+    again = gated_expert_apply(idx, src, h_ls, des0.clone(), ai, compute_dtype=cd)
+    assert torch.equal(again, got)
+    if not bf16:
+        exact = gated_expert_apply_ref(idx, src, h_ls.to(torch.complex128),
+                                       des0.to(torch.complex128),
+                                       copy.deepcopy(ai).to(torch.float64))
+        e_kernel, e_plain = ((x - exact).abs().max().item() for x in (got, want))
+        assert e_kernel <= GATED_EXACT_RATIO * e_plain, (e_kernel, e_plain)
 
 
 @pytest.mark.cuda
-def test_cuda_gated_expert_batch_composition_bitwise(cuda):
-    """One UE's estimate is the same bits at K = 1, at K = 16 and at another
-    row of ``idx``: every row runs the same code in the same order."""
+def test_cuda_gated_expert_refuses_more_than_32_channels(cuda):
+    """The kernel's GEMMs pad the channels to 16 or 32: a wider estimator is
+    refused before any launch, never run through the plain version, and a
+    fused GATED pipeline on the card refuses it when it is built."""
+    from repro_torch import random as jr
+    from repro_torch.core.expert_bank import ExecutionMode
     from repro_torch.kernels.gated_expert import gated_expert_apply
+    from repro_torch.phy import ai_estimator as tai
+    from repro_torch.phy.pipeline import BatchedPuschPipeline
 
-    ai, h_ls, des0 = _gated_setup(cuda, 106, 32, 4, 32, None, seed=3)
+    ai, h_ls, des0 = _gated_setup(cuda, 24, 40, 1, 4, None)
+    idx, src = _compaction(torch.zeros(4, dtype=torch.int32, device=cuda), 4)
+    before = build.launch_counts["gated_expert"]
+    with pytest.raises(ValueError, match="at most 32 channels"):
+        gated_expert_apply(idx, src, h_ls, des0.clone(), ai)
+    assert build.launch_counts["gated_expert"] == before
+    net = tai.AiEstimatorConfig(channels=40, n_res_blocks=1)
+    params = tai.init_params(jr.PRNGKey(0), SlotConfig(n_prb=24), net)
+    with pytest.raises(ValueError, match="at most 32 channels"):
+        BatchedPuschPipeline(SlotConfig(n_prb=24), params, net=net,
+                             execution_mode=ExecutionMode.GATED, fused_gated=True, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_prb", [24, 106, 273])
+def test_cuda_gated_expert_batch_composition_bitwise(cuda, n_prb):
+    """One UE's estimate is the same bits at K = 1, at K = 16 and at another
+    row of ``idx``: every row runs the same code in the same order.  At these
+    widths the UE's subcarriers span two, eight and eight blocks of a cluster
+    (72, 80 and 205 pilots a block), so the halos between blocks are in it."""
+    from repro_torch.kernels.gated_expert import gated_expert_apply
+    from repro_torch.kernels.gated_expert.ops import cluster_size
+
+    ai, h_ls, des0 = _gated_setup(cuda, n_prb, 32, 4, 32, None, seed=3)
+    assert cluster_size(h_ls.shape[-1]) > 1
     ue = 9
     alone = torch.ones(32, dtype=torch.int32, device=cuda)
     alone[ue] = 0

@@ -222,3 +222,143 @@ def test_kernel_operands_drive_a_direct_conv(weights, channels, n_res, rng):
     module = tai.AiEstimator(params, CFG.n_dmrs_sym, torch.bfloat16)
     assert torch.equal(module.kernel_w, w.to(torch.bfloat16).to(torch.float32))
     assert torch.equal(module.kernel_b, b)
+
+
+# -- the card kernel's arithmetic, emulated -------------------------------------------
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """TF32 with round to nearest, ties away from zero (the kernel's integer
+    form of cvt.rna.tf32.f32 on finite float32)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """TF32 by truncation: the low 13 mantissa bits cleared."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _trunc_f32(x: torch.Tensor) -> torch.Tensor:
+    """A float64 rounded toward zero to float32's 24-bit significand."""
+    return (x.view(torch.int64) & -(1 << 29)).view(torch.float64)
+
+
+def _split(x: torch.Tensor):
+    """The kernel's operand split: hi = rna(x), lo = x - hi (exact) truncated,
+    both as float64 (their TF32 products are exact there)."""
+    hi = _tf32_rna(x)
+    return hi.double(), _tf32_trunc(x - hi).double()
+
+
+def _conv_3xtf32(x, w, b, cp, form):
+    """One tensor-core conv of the kernel: ``x (B, C, H, W)`` float32 (H the
+    subcarriers, W the symbols), ``w (O, C, 3, 3)``, ``b (O,)``, input and
+    output channels zero-padded to ``cp``.  Tap by tap, ``(d, j)`` in order,
+    the k8 steps of a wgmma each add their eight exact products to the
+    accumulator and truncate to float32.  ``"kernel"``: a fresh accumulator a
+    tap, lo*hi and hi*lo of every k8 step, then hi*hi, added to a float32 sum
+    rounded to nearest.  ``"one_accumulator"``: one accumulator over all nine
+    taps.  Returns ``(B, O, H, W)`` float32 with the bias added."""
+    bsz, c, hh, ww = x.shape
+    o = w.shape[0]
+    xp = torch.nn.functional.pad(x, (1, 1, 1, 1, 0, cp - c))  # zero 'SAME' and channels
+    wp = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, cp - c, 0, cp - o))
+    total = torch.zeros(bsz * hh * ww, cp, dtype=torch.float32)
+    acc = torch.zeros(bsz * hh * ww, cp, dtype=torch.float64)
+    for d in range(3):
+        for j in range(3):
+            a = xp[:, :, d:d + hh, j:j + ww].permute(0, 2, 3, 1).reshape(-1, cp)
+            a_hi, a_lo = _split(a)
+            b_hi, b_lo = _split(wp[:, :, d, j].T.contiguous())
+            steps = [slice(8 * s, 8 * s + 8) for s in range(cp // 8)]
+            if form == "kernel":
+                acc = torch.zeros_like(acc)
+                order = ([p for k in steps for p in ((a_lo[:, k], b_hi[k]), (a_hi[:, k], b_lo[k]))]
+                         + [(a_hi[:, k], b_hi[k]) for k in steps])
+            else:
+                order = [p for k in steps for p in
+                         ((a_lo[:, k], b_hi[k]), (a_hi[:, k], b_lo[k]), (a_hi[:, k], b_hi[k]))]
+            for u, v in order:
+                acc = _trunc_f32(torch.addmm(acc, u, v))
+            if form == "kernel":
+                total += acc.float()
+    out = total if form == "kernel" else acc.float()
+    out = out[:, :o].reshape(bsz, hh, ww, o).permute(0, 3, 1, 2)
+    return out + b[None, :, None, None]
+
+
+def _gated_emulated(folded, h_ls: torch.Tensor, form: str) -> torch.Tensor:
+    """The fused kernel's estimate for every UE of ``h_ls``: the stem and the
+    head in float32 (the kernel runs them as FMAs on the CUDA cores), the
+    residual convs and both sub-pixel passes of the up-projection as
+    ``_conv_3xtf32``.  Returns ``(U, ant, 1, n_sc, S)`` complex64."""
+    channels = folded["stem_w"].shape[0] // folded["width"]
+    cp = 16 if channels <= 16 else 32
+    n_res = len(folded["res"])
+    w, b = tai.kernel_operands(folded)
+    shapes = ([(2, channels)] + [(channels, channels)] * (2 * n_res)
+              + [(channels, 2 * channels), (channels, 2)])
+    layers, wo, bo = [], 0, 0
+    for cin, cout in shapes:
+        cpad = -(-cout // 4) * 4
+        wl = w[wo: wo + cin * 9 * cpad].reshape(cin, 3, 3, cpad)[..., :cout]
+        layers.append((wl.permute(3, 0, 1, 2).contiguous(), b[bo: bo + cout]))
+        wo, bo = wo + cin * 9 * cpad, bo + cpad
+    n_ues, n_ant, n_sym, n_p = h_ls.shape
+    x = torch.stack([h_ls.real, h_ls.imag], dim=2).permute(0, 1, 2, 4, 3)
+    x = x.reshape(-1, 2, n_p, n_sym)  # (U*ant, C, H = subcarrier, W = symbol)
+
+    def conv(a, layer):
+        return torch.nn.functional.conv2d(a, layer[0], layer[1], padding=1)
+
+    h = conv(x, layers[0])
+    for r in range(n_res):
+        y = torch.relu(_conv_3xtf32(h, *layers[1 + 2 * r], cp, form))
+        h = h + _conv_3xtf32(y, *layers[2 + 2 * r], cp, form)
+    wu, bu = layers[-2]
+    u = torch.stack([_conv_3xtf32(h, wu[r * channels:(r + 1) * channels],
+                                  bu[r * channels:(r + 1) * channels], cp, form)
+                     for r in range(2)], dim=3)  # (B, C, Np, phase, S)
+    u = u.reshape(u.shape[0], channels, 2 * n_p, n_sym)
+    corr = conv(u, layers[-1])
+    nxt = torch.cat([x[:, :, 1:], x[:, :, -1:]], dim=2)
+    base = torch.stack([x, 0.5 * (x + nxt)], dim=3).reshape(corr.shape)
+    out = (base + corr).reshape(n_ues, n_ant, 2, 2 * n_p, n_sym)
+    return torch.complex(out[:, :, 0], out[:, :, 1])[:, :, None]
+
+
+def test_gated_expert_3xtf32_order_within_tolerance(weights, rng):
+    """Why the card kernel sums its taps apart: its order of arithmetic (3xTF32,
+    a fresh truncating accumulator each tap, added to a float32 sum), emulated
+    at C 8, R 1, n_prb 24, stays within ``F32_TOL`` of ``repro``'s unfused
+    reference.  On one residual conv (the first, on the stem's output), held
+    against the same conv in float64, the kernel's per-tap form errs no more
+    than a float32 convolution, and one accumulator over all nine taps more
+    than twice as much as the per-tap form."""
+    ref, rfolded, tparams = weights
+    n_ues = 2
+    h_ls = _cplx(rng, (n_ues, CFG.n_ant, CFG.n_dmrs_sym, CFG.n_pilot_sc))
+    des = _cplx(rng, (n_ues, CFG.n_ant, 1, CFG.n_sc, CFG.n_dmrs_sym))
+    idx, src = _compaction(np.zeros(n_ues, np.int64), n_ues)
+    want = np.asarray(r_gated_expert_apply(jnp.asarray(idx), jnp.asarray(src), jnp.asarray(h_ls),
+                                           jnp.asarray(des), rfolded, backend="ref"))
+    folded = tai.AiEstimator(tparams, CFG.n_dmrs_sym).folded()
+    th = torch.as_tensor(h_ls)
+    np.testing.assert_allclose(_gated_emulated(folded, th, "kernel").numpy(), want, **F32_TOL)
+
+    x = torch.stack([th.real, th.imag], dim=2).permute(0, 1, 2, 4, 3).reshape(-1, 2, CFG.n_pilot_sc,
+                                                                             CFG.n_dmrs_sym)
+    h = torch.nn.functional.conv2d(x, tparams["stem_w"], tparams["stem_b"], padding=1)
+    w1, b1 = tparams["res"][0]["w1"], tparams["res"][0]["b1"]
+    exact = torch.nn.functional.conv2d(h.double(), w1.double(), b1.double(), padding=1)
+    err = {form: float((_conv_3xtf32(h, w1, b1, 16, form).double() - exact).abs().max())
+           for form in ("kernel", "one_accumulator")}
+    err["float32"] = float((torch.nn.functional.conv2d(h, w1, b1, padding=1).double()
+                            - exact).abs().max())
+    assert err["one_accumulator"] > 2 * err["kernel"], err
+    assert err["kernel"] <= err["float32"], err  # no worse than a float32 convolution
+    # the split's rounding rules, both signs
+    v = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 3 * 2.0**-12])
+    np.testing.assert_array_equal(_tf32_rna(v).numpy(),
+                                  [1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0 + 2.0**-10])
+    np.testing.assert_array_equal(_tf32_trunc(v).numpy(), [1.0, -1.0, 1.0])
