@@ -12,7 +12,9 @@ Phases, each of which raises on failure (exit code != 0):
 2. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a``,
    one process per source, all started together;
 3. kernels: each kernel at its path's shapes against its plain
-   PyTorch version (switches, scatter and tree bitwise, ``mmse_interp``
+   PyTorch version (switches, scatter, tree and the fused decision phase
+   ``policy_step`` bitwise, the per-UE switch and the scatter out of place
+   with their inputs untouched, ``mmse_interp``
    within ``MMSE_TOL`` at the host loop's, the sweep's and the closed
    loop's row counts and at n_prb 24 and 273, with each error against a
    complex128 product beside the plain version's, bitwise the same twice
@@ -20,13 +22,15 @@ Phases, each of which raises on failure (exit code != 0):
    ``GATED_BF16_TOL`` at n_prb 24, 106 and 273 with untouched UEs bitwise,
    bitwise the same twice and one UE's estimate bitwise the same at any
    capacity, its float32 error against a float64 plain version at most
-   ``GATED_EXACT_RATIO`` times the float32 plain version's), with kernel, plain-version and
+   ``GATED_EXACT_RATIO`` times the float32 plain version's, all of it at the
+   paper's 32 channels and at 64), with kernel, plain-version and
    library times and the card's lower bound for the same work; the
    switches, the scatter, ``mmse_interp`` and the fused gated expert (against
-   the unfused GATED path, also at K = 32 with every UE selected) are timed
-   against their yardstick in turns (kernel, library, library, kernel) and
-   print the ratio, and the scalar switch prints the host time of a call
-   alone against ``copy_``'s;
+   the unfused GATED path, also at K = 32 with every UE selected and at 64
+   channels) and ``policy_step`` (against the composition it replaced) are
+   timed against their yardstick in turns (kernel, library, library,
+   kernel) and print the ratio, and the scalar switch prints the host time
+   of a call alone against ``copy_``'s;
 4. main path: ``ArchesSession(...).run()`` of the closed-loop campaign at
    the paper's 106-PRB slot with 32 UEs and the estimator's default width,
    on a CONCURRENT bank; every kernel of that path must launch during the
@@ -50,8 +54,9 @@ Phases, each of which raises on failure (exit code != 0):
    then the stage-2 filter and ``design_policy_inputs``;
 9. reference: small CONCURRENT, GATED, host and perturbed campaigns on the
    card against the same campaigns run by the plain versions on the CPU;
-10. device alone: each kernel's and its yardstick's device time per call,
-    under ``torch.profiler``, queued by phase 3 (a profiler session slows
+10. device alone: each kernel's and its yardstick's device time and
+    launches per call, under ``torch.profiler``, queued by phase 3 (a
+    profiler session slows
     every later launch on the host, so it runs after the timed paths);
 11. profile: one more run of each closed loop and of the host loop under
     ``torch.profiler``: the device's busy share, the launches per slot,
@@ -118,6 +123,8 @@ REF_KPM_RTOL = 1e-3
 
 N_UES, N_PRB, N_SLOTS = 32, 106, 40
 CHANNELS, N_RES = 32, 4
+#: the widest estimator the fused GATED kernel takes, twice the paper's width
+WIDE_CHANNELS = 64
 GATED_CAPACITY, UNFUSED_SLOTS = 16, 12
 #: the perturbation sweep: every default rho x this many trials rides the UE axis
 SWEEP_TRIALS, SWEEP_SLOTS = 8, 8
@@ -169,10 +176,11 @@ def device_alone(label: str, fn, match: str | None, iters: int = 200) -> None:
     DEVICE_ALONE.append((label, fn, match, iters))
 
 
-def device_us(fn, match: str | None, iters: int = 200) -> float:
+def device_us(fn, match: str | None, iters: int = 200) -> tuple[float, float]:
     """Device time per call of the kernels ``fn`` launches whose name holds
     ``match`` (all of them with ``None``), from ``torch.profiler`` over
-    ``iters`` calls back to back: the device work alone, without the host."""
+    ``iters`` calls back to back: the device work alone, without the host;
+    and those kernels' launches per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -185,7 +193,8 @@ def device_us(fn, match: str | None, iters: int = 200) -> float:
               and (match is None or match in e.key)]
     if not events:
         raise AssertionError(f"the profiler saw no device kernel named {match!r}")
-    return sum(e.self_device_time_total for e in events) / iters
+    return (sum(e.self_device_time_total for e in events) / iters,
+            sum(e.count for e in events) / iters)
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -226,7 +235,9 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.1f} s into {build.build_dir()}")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Compiling entry function" in line:  # names the lines that follow
+                log(f"  ptxas {name}: {line.split('entry function')[1].split(' for ')[0]}")
+            elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
@@ -319,41 +330,55 @@ def phase_kernels() -> list[dict]:
     ))
 
     # -- switch_select: (U, ant, 1, Nsc, dmrs) complex64, mixed modes -----------
+    # out of place, one launch for every expert: against torch.where, the same
+    # function out of place, in turns; at U = 1 and 168 and with three experts too
     shape = (N_UES, cfg.n_ant, 1, cfg.n_sc, cfg.n_dmrs_sym)
-    des0 = torch.complex(torch.randn(shape, generator=gen, device=dev),
-                         torch.randn(shape, generator=gen, device=dev))
-    alt = torch.complex(torch.randn(shape, generator=gen, device=dev),
-                        torch.randn(shape, generator=gen, device=dev))
+
+    def cplx(shape_):
+        return torch.complex(torch.randn(shape_, generator=gen, device=dev),
+                             torch.randn(shape_, generator=gen, device=dev))
+
+    for n_ues, n_exp in ((N_UES, 2), (N_UES, 3), (1, 2), (sweep_ues(), 3)):
+        outs = [cplx((n_ues,) + shape[1:]) for _ in range(n_exp)]
+        kept = [o.clone() for o in outs]
+        for m in (torch.arange(n_ues, device=dev) % n_exp, torch.zeros(n_ues, device=dev),
+                  torch.full((n_ues,), n_exp - 1, device=dev)):
+            m = m.to(torch.int32)
+            got = switch_select(m, outs)
+            torch.cuda.synchronize()
+            if not torch.equal(got, switch_select_batched_ref(m, outs)):
+                raise AssertionError(f"switch_select differs from its plain version at "
+                                     f"{n_ues} UEs, {n_exp} experts")
+            if not all(torch.equal(o, k) for o, k in zip(outs, kept)):
+                raise AssertionError("switch_select wrote into an expert output")
+    des0, alt = cplx(shape), cplx(shape)
     modes = (torch.arange(N_UES, device=dev) % 3 == 0).to(torch.int32)
-    want = switch_select_batched_ref(modes, [des0, alt])
-    des = des0.clone()
-    got = switch_select(modes, [des, alt])
-    torch.cuda.synchronize()
-    if got.data_ptr() != des.data_ptr() or not torch.equal(got, want):
-        raise AssertionError("switch_select kernel differs from its plain version")
-    for m in (torch.zeros_like(modes), torch.ones_like(modes)):
-        d = des0.clone()
-        if not torch.equal(switch_select(m, [d, alt]),
-                           switch_select_batched_ref(m, [des0, alt])):
-            raise AssertionError("switch_select differs on a uniform mode vector")
     plain = time_ms(lambda: switch_select_batched_ref(modes, [des0, alt]))
     mask = (modes != 0).reshape(-1, 1, 1, 1, 1)
-    ms, lib, reading = turns(lambda: switch_select(modes, [des, alt]),
+    ms, lib, reading = turns(lambda: switch_select(modes, [des0, alt]),
                              lambda: torch.where(mask, alt, des0))
-    device_alone("switch_select_batched", lambda d=des: switch_select(modes, [d, alt]),
-                 "switch_select_kernel")
-    device_alone("torch.where, per-UE", lambda d=des0: torch.where(mask, alt, d), None)
-    per_ue = des0[0].numel() * 8
+    device_alone("switch_select_batched", lambda: switch_select(modes, [des0, alt]),
+                 "copy_rows_kernel")
+    device_alone("torch.where, per-UE", lambda: torch.where(mask, alt, des0), None)
     n_sw = int((modes != 0).sum())
-    bms, by = bound_ms(2.0 * per_ue * n_sw + 4 * N_UES, 0.0)
-    log(f"  switch_select_batched: call {reading} (torch.where)")
+    # every UE of the fresh output is read from one expert and written once
+    bms, by = bound_ms(2.0 * des0.numel() * 8 + 4 * N_UES, 0.0)
+    torch.cuda.synchronize()
+    host = {name: host_us(f) for name, f in (
+        ("switch", lambda: switch_select(modes, [des0, alt])),
+        ("torch.where", lambda: torch.where(mask, alt, des0)))}
+    torch.cuda.synchronize()
+    log(f"  switch_select_batched: out of place, one launch, bitwise at 1, {N_UES} and "
+        f"{sweep_ues()} UEs with 2 and 3 experts, inputs untouched; call {reading} "
+        f"(torch.where); host time per call alone (200 calls back to back): "
+        + "; ".join(f"{k} {v:.2f} us" for k, v in host.items()))
     rows.append(dict(
         name="switch_select_batched", route="cuda",
         source="src/repro_torch/csrc/switch_select.cu",
         replaces="src/repro/kernels/switch_select/switch_select.py:156",
         launches=0, max_abs_err=0.0, ms=ms,
         plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
-        shape=f"{shape} complex64, {n_sw}/{N_UES} UEs switched",
+        shape=f"{shape} complex64 x 2 experts, {n_sw}/{N_UES} UEs switched, out of place",
     ))
 
     # -- tree_infer: (U, F=10) against random level-order trees ----------------
@@ -373,18 +398,14 @@ def phase_kernels() -> list[dict]:
     feat = torch.tensor([5, 1, 3], dtype=torch.int32, device=dev)
     thr = torch.tensor([0.1, -0.2, 0.3], device=dev)
     leaves = torch.tensor([1.0, 0.0, 0.0, 1.0], device=dev)
-    ms = time_ms(lambda: tree_infer(x, feat, thr, leaves, 2))
-    plain = time_ms(lambda: tree_infer_ref(x, feat, thr, leaves, 2))
-    device_alone("tree_infer", lambda: tree_infer(x, feat, thr, leaves, 2), "tree_infer")
-    bms, by = bound_ms(4.0 * N_UES * n_feat + 4 * N_UES + 4 * 3 * 2 + 4 * 4,
-                       2.0 * N_UES)
-    rows.append(dict(
-        name="tree_infer", route="cuda", source="src/repro_torch/csrc/tree_infer.cu",
-        replaces="src/repro/kernels/tree_infer/tree_infer.py:43",
-        launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain,
-        bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"x ({N_UES}, {n_feat}) float32, depth 2",
-    ))
+    walk_ms = time_ms(lambda: tree_infer(x, feat, thr, leaves, 2))
+    walk_plain = time_ms(lambda: tree_infer_ref(x, feat, thr, leaves, 2))
+    device_alone("tree_infer (the walk alone)", lambda: tree_infer(x, feat, thr, leaves, 2),
+                 "tree_infer")
+    log(f"  tree_infer, the walk alone (PerUEPolicy's route): {walk_ms * 1e3:.2f} us a call, "
+        f"plain {walk_plain * 1e3:.2f} us")
+    rows.append(phase_policy_step(gen))
+
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         log(f"kernel {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
@@ -392,6 +413,75 @@ def phase_kernels() -> list[dict]:
             f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}), "
             f"max|err| {r['max_abs_err']:.3g}, {r['shape']}")
     return rows
+
+
+def phase_policy_step(gen) -> dict:
+    """The closed loop's decision phase for a depth-2 tree at the main path's
+    shape (U = 32, a window of 8 slots over the 10 KPMs): ``policy_step`` (one
+    launch) bitwise against its plain version, the composition the loop ran
+    before it (``switch_update`` then ``switch_boundary``), over 200 slots of a
+    drifting KPM stream with every hysteresis and period setting of the
+    campaigns; the two call times in turns, and both queued for the device-alone
+    phase, which also counts each one's launches per decision slot."""
+    from repro_torch.core import closed_loop as tcl
+    from repro_torch.core.telemetry import SELECTED_KPMS
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tree_infer import policy_step, policy_step_ref
+
+    dev = torch.device("cuda")
+    n_feat, window, n_slots = len(SELECTED_KPMS), 8, 200
+    pol = tcl.export_tree_tables([5, 1, 3], [0.1, -0.2, 0.3], [1.0, 0.0, 0.0, 1.0], dev)
+    phase = torch.where((torch.arange(n_slots, device=dev) // 7) % 2 == 0, -1.0, 1.0)
+    feats = phase[:, None, None] + torch.randn(n_slots, N_UES, n_feat, generator=gen,
+                                               device=dev)
+    switches = 0
+    for hyst, period in ((1, 1), (3, 2)):
+        cfg = tcl.SwitchConfig(feature_names=SELECTED_KPMS, window_slots=window,
+                               hysteresis_slots=hyst, period_slots=period)
+        state = ref = tcl.init_device_switch(N_UES, n_feat, cfg, dev)
+        for s in range(n_slots):
+            decide = s % period == 0
+            before = build.launch_counts["tree_infer"]
+            state, raw = policy_step(state, feats[s], pol, cfg, decide=decide)
+            if build.launch_counts["tree_infer"] != before + 1:
+                raise AssertionError("policy_step is not one launch a slot")
+            ref, ref_raw = policy_step_ref(ref, feats[s], pol, cfg, decide=decide)
+            same = torch.equal(raw, ref_raw) and all(
+                torch.equal(a, b) for a, b in zip((*state.rings, *state[1:]),
+                                                  (*ref.rings, *ref[1:])))
+            if not same:
+                raise AssertionError(f"policy_step differs from its plain version at slot "
+                                     f"{s} (hysteresis {hyst}, period {period})")
+        switches += int(state.n_switches.sum())
+    if switches == 0:
+        raise AssertionError("the policy step's stream never switched a UE")
+    cfg = tcl.SwitchConfig(feature_names=SELECTED_KPMS, window_slots=window)
+    kpm = feats[-1]
+    ms, plain, reading = turns(lambda: policy_step(state, kpm, pol, cfg),
+                               lambda: policy_step_ref(state, kpm, pol, cfg))
+    device_alone("policy_step", lambda: policy_step(state, kpm, pol, cfg), "policy_step")
+    device_alone("decision phase before it (switch_update + switch_boundary)",
+                 lambda: policy_step_ref(state, kpm, pol, cfg), None)
+    # read the state and the KPMs once, write the new state once; the window's
+    # adds are a few thousand operations
+    ring = 4.0 * N_UES * window * n_feat
+    n_bytes = 2 * ring + 4.0 * N_UES * n_feat + 2 * 16 * N_UES + 16 * N_UES + 20 * N_UES + 40
+    bms, by = bound_ms(n_bytes, 2.0 * N_UES * window * n_feat)
+    torch.cuda.synchronize()
+    host = host_us(lambda: policy_step(state, kpm, pol, cfg))
+    torch.cuda.synchronize()
+    log(f"  policy_step: bitwise its plain version over {n_slots} slots at hysteresis 1 / "
+        f"period 1 and hysteresis 3 / period 2 ({switches} switches), one launch a decision "
+        f"slot; call {reading} (the plain composition); host time per call alone "
+        f"{host:.2f} us")
+    return dict(
+        name="tree_infer", route="cuda", source="src/repro_torch/csrc/tree_infer.cu",
+        replaces="src/repro/kernels/tree_infer/tree_infer.py:43",
+        launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"the fused decision phase: ring ({N_UES}, {window}, {n_feat}) float32, "
+              f"depth 2",
+    )
 
 
 def phase_scalar_switch() -> dict:
@@ -540,11 +630,13 @@ def phase_gated_kernels() -> list[dict]:
     shape = (cfg.n_ant, 1, cfg.n_sc, cfg.n_dmrs_sym)
     des0, compact = cplx((N_UES,) + shape), cplx((cap,) + shape)
     want = switch_gather_batched_ref(src, compact, des0)
-    des = des0.clone()
+    des, comp = des0.clone(), compact.clone()
     got = switch_scatter(src, compact, des)
     torch.cuda.synchronize()
-    if got.data_ptr() != des.data_ptr() or not torch.equal(got, want):
+    if not torch.equal(got, want):
         raise AssertionError("switch_gather kernel differs from its plain version")
+    if not (torch.equal(des, des0) and torch.equal(compact, comp)):
+        raise AssertionError("switch_gather wrote into an input")
     full = cplx((N_UES,) + shape)
     for m, c, k in ((torch.ones_like(mode), compact, cap),  # none selected
                     (torch.zeros_like(mode), full, N_UES),  # all selected
@@ -555,14 +647,15 @@ def phase_gated_kernels() -> list[dict]:
             raise AssertionError(f"switch_gather differs at capacity {k}")
     plain = time_ms(lambda: switch_gather_batched_ref(src, compact, des0))
     sel = torch.nonzero(src >= 0).flatten()
+    # both out of place, as the scatter now is
     ms, lib, reading = turns(lambda: switch_scatter(src, compact, des),
-                             lambda: des.index_copy_(0, sel, compact[:n_sel]))
+                             lambda: des.index_copy(0, sel, compact[:n_sel]))
     device_alone("switch_gather_batched", lambda d=des: switch_scatter(src, compact, d),
-                 "switch_gather_kernel")
-    device_alone("index_copy_", lambda d=des: d.index_copy_(0, sel, compact[:n_sel]), None)
-    log(f"  switch_gather_batched: call {reading} (index_copy_)")
-    per_ue = des0[0].numel() * 8
-    bms, by = bound_ms(2.0 * per_ue * n_sel + 4 * N_UES, 0.0)
+                 "copy_rows_kernel")
+    device_alone("index_copy", lambda d=des: d.index_copy(0, sel, compact[:n_sel]), None)
+    log(f"  switch_gather_batched: out of place; call {reading} (index_copy)")
+    # every UE of the fresh output is read (compact row or fail-safe) and written
+    bms, by = bound_ms(2.0 * des0.numel() * 8 + 4 * N_UES, 0.0)
     rows.append(dict(
         name="switch_gather_batched", route="cuda",
         source="src/repro_torch/csrc/switch_select.cu",
@@ -590,8 +683,8 @@ def phase_gated_kernels() -> list[dict]:
         got = gated_expert_apply(idx, src, h_ls, des, m_, compute_dtype=cd)
         again = gated_expert_apply(idx, src, h_ls, des0.clone(), m_, compute_dtype=cd)
         torch.cuda.synchronize()
-        if got.data_ptr() != des.data_ptr():
-            raise AssertionError("gated_expert did not write in place")
+        if not torch.equal(des, des0):
+            raise AssertionError("gated_expert wrote into its designated input")
         if not torch.equal(got[kept], des0[kept]):
             raise AssertionError("gated_expert touched a padding row's or unselected UE")
         if not torch.equal(got, again):
@@ -629,6 +722,30 @@ def phase_gated_kernels() -> list[dict]:
         outs.append(gated_expert_apply(i_, s_, h_ls, des0.clone(), ai)[ue])
     if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])):
         raise AssertionError("gated_expert: one UE's estimate depends on the batch")
+    # twice the paper's width, the widest the kernel takes: 64 channels, held to the
+    # same rules (plain version, float64, one UE bitwise at any capacity)
+    net64 = tai.AiEstimatorConfig(channels=WIDE_CHANNELS, n_res_blocks=N_RES)
+    p64 = tai.init_params(jr.PRNGKey(12), cfg, net64)
+    wide = {cd: tai.AiEstimator(p64, cfg.n_dmrs_sym, cd).to(dev)
+            for cd in (None, torch.bfloat16)}
+    for cd, tol in ((None, GATED_F32_TOL), (torch.bfloat16, GATED_BF16_TOL)):
+        got = gated_expert_apply(idx, src, h_ls, des0, wide[cd], compute_dtype=cd)
+        want = gated_expert_apply_ref(idx, src, h_ls, des0, wide[cd], compute_dtype=cd)
+        torch.testing.assert_close(got, want, **tol)
+        if not torch.equal(got[kept], des0[kept]):
+            raise AssertionError("gated_expert at 64 channels touched an unselected UE")
+        log(f"  gated_expert at {WIDE_CHANNELS} channels, {'bf16' if cd else 'f32'}: max "
+            f"|err| {float((got - want).abs().max()):.3g}")
+        if cd is None:
+            against_float64(f"gated_expert at {WIDE_CHANNELS} channels", idx, src, h_ls, des0,
+                            wide[cd], got, want)
+    outs = []
+    for m, k in ((alone, 1), (mode, cap), (torch.zeros_like(mode), N_UES)):
+        i_, s_ = _compaction(m, k)
+        outs.append(gated_expert_apply(i_, s_, h_ls, des0, wide[None])[ue])
+    if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])):
+        raise AssertionError("gated_expert at 64 channels: one UE's estimate depends on "
+                             "the batch")
 
     def unfused():  # the unfused GATED path: gather, cuBLAS forward, scatter kernel
         compact_out = ai(h_ls.index_select(0, idx.to(torch.int64)))
@@ -647,11 +764,18 @@ def phase_gated_kernels() -> list[dict]:
         lambda: gated_expert_apply(i32, s32, h_ls, des, ai),
         lambda: switch_scatter(s32, ai(h_ls.index_select(0, i32.to(torch.int64))), des),
         iters=10)
+    ms64, lib64, reading64 = turns(
+        lambda: gated_expert_apply(idx, src, h_ls, des, wide[None]),
+        lambda: switch_scatter(src, wide[None](h_ls.index_select(0, idx.to(torch.int64))),
+                               des),
+        iters=10)
     for label, fn in (("gated_expert f32", lambda: gated_expert_apply(idx, src, h_ls, des, ai)),
                       ("gated_expert bf16", lambda: gated_expert_apply(
                           idx, src, h_ls, des, ai16, compute_dtype=torch.bfloat16)),
                       ("gated_expert f32, K 32 all selected",
-                       lambda: gated_expert_apply(i32, s32, h_ls, des, ai))):
+                       lambda: gated_expert_apply(i32, s32, h_ls, des, ai)),
+                      (f"gated_expert f32, {WIDE_CHANNELS} channels",
+                       lambda: gated_expert_apply(idx, src, h_ls, des, wide[None]))):
         device_alone(label, fn, "gated_expert", 20)
     device_alone("unfused GATED path", unfused, None, 20)
     flops = direct_conv_flops(cfg, CHANNELS, N_RES, n_sel)
@@ -668,8 +792,11 @@ def phase_gated_kernels() -> list[dict]:
     log(f"  gated_expert: clusters of {n_cl} blocks, "
         f"{-(-cfg.n_pilot_sc // n_cl)} subcarriers a block, {n_sel * cfg.n_ant * n_cl} blocks at "
         f"K {cap}")
+    b64_ms, _ = bound_ms(io_bytes, 3.0 * direct_conv_flops(cfg, WIDE_CHANNELS, N_RES, n_sel),
+                         PEAK_TF32_FLOPS)
     log(f"  gated_expert f32 vs the unfused path: {reading}; bf16: {reading16}; "
-        f"K {N_UES} all selected vs unfused: {reading32}")
+        f"K {N_UES} all selected vs unfused: {reading32}; {WIDE_CHANNELS} channels vs "
+        f"unfused: {reading64} (3xTF32 bound {b64_ms * 1e3:.2f} us)")
     log(f"  gated_expert max |err| f32 {errs[None]:.3g}, bf16 {errs[torch.bfloat16]:.3g}; "
         f"bound {bms * 1e3:.2f} us (3xTF32, {by}), fp32 "
         f"bound {f32_ms * 1e3:.2f} us, bf16 bound {bf16_ms * 1e3:.2f} us, 3xTF32 bound at K "
@@ -682,7 +809,8 @@ def phase_gated_kernels() -> list[dict]:
         shape=f"K {cap}, {n_sel} rows valid, {CHANNELS} ch x {N_RES} blocks, "
               f"{flops / 1e9:.2f} GFLOP as direct convs; bf16 {ms16 * 1e3:.2f} us; "
               f"K {N_UES} all selected {ms32 * 1e3:.2f} us "
-              f"(unfused {lib32 * 1e3:.2f} us); one UE bitwise at K 1, {cap}, {N_UES}",
+              f"(unfused {lib32 * 1e3:.2f} us); {WIDE_CHANNELS} ch {ms64 * 1e3:.2f} us "
+              f"(unfused {lib64 * 1e3:.2f} us); one UE bitwise at K 1, {cap}, {N_UES}",
     ))
     for r in rows:
         log(f"kernel {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
@@ -963,7 +1091,8 @@ def phase_device_alone() -> None:
     """The kernels' and their yardsticks' device time alone, queued by the
     kernel phases, under ``torch.profiler``."""
     for label, fn, match, iters in DEVICE_ALONE:
-        log(f"device alone: {label} {device_us(fn, match, iters):.2f} us per call "
+        us, launches = device_us(fn, match, iters)
+        log(f"device alone: {label} {us:.2f} us per call, {launches:g} launches a call "
             f"({iters} calls under torch.profiler)")
 
 
@@ -1010,6 +1139,10 @@ def main() -> int:
         "main path GATED fused", _main_spec(execution_mode="gated", fused=True,
                                             gated_capacity=GATED_CAPACITY),
         ("gated_expert", "mmse_interp", "tree_infer"))
+    for label, counts in (("CONCURRENT", launches), ("GATED fused", gated_launches)):
+        if counts["tree_infer"] != N_SLOTS:  # the whole decision phase in one launch
+            raise AssertionError(f"{label}: {counts['tree_infer']} policy-step launches in "
+                                 f"{N_SLOTS} decision slots")
     check_executed_flops(gated, gated_hist)
     unfused = dataclasses.replace(
         _main_spec(execution_mode="gated", gated_capacity=GATED_CAPACITY),

@@ -10,7 +10,9 @@ Port of ``repro.core.closed_loop`` for fault-free campaigns:
   register, carried from slot to slot.
 * ``switch_update`` / ``switch_boundary`` -- a decision made during slot
   ``n`` is written to the register; only the boundary into slot ``n+1``
-  makes it the active mode.
+  makes it the active mode.  For a ``DeviceTreePolicy`` the slot loop runs
+  both as one launch, ``repro_torch.kernels.tree_infer.policy_step``, whose
+  plain version is this composition.
 * ``host_replay_closed_loop`` -- the equivalence oracle: a slot-by-slot
   host loop through the literal host policy.  Device and host mode
   trajectories must match bitwise.

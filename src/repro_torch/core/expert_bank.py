@@ -14,7 +14,8 @@ expert output carries a leading UE axis.
 * ``GATED`` -- the cheap experts run densely on every UE; the designated
   (expensive) expert runs only on the UEs whose mode selects it, compacted
   into a dense capacity-``K`` sub-batch (stable cumsum partition), and the
-  scatter kernel puts its rows back over the fail-safe baseline.  UEs past
+  scatter kernel puts its rows back over a new copy of the fail-safe
+  baseline.  UEs past
   capacity fall back to ``default_mode`` for the slot and are flagged in
   ``BankOutput.overflow``.  ``gated_fused_apply`` replaces the gather /
   expert / scatter triple with one kernel (``repro_torch.kernels.gated_expert``);
@@ -97,24 +98,22 @@ class BankOutput:
     ``executed_ue (n_experts,)`` counts the UEs each expert actually ran on
     (a scalar call's counts are host facts and stay on the CPU).
 
-    Aliasing on the card, where the kernels write in place:
+    Every expert output stays as its expert wrote it, on any device, as in
+    the reference: ``selected`` is a new tensor, except where nothing is
+    switched (a scalar mode-0 call, a GATED bank of capacity 0), where it may
+    be that output itself.
 
-    * CONCURRENT, mode vector: ``all_outputs[0]`` is the switched buffer,
-      the same tensor as ``selected`` (the reference keeps it unswitched);
-      the other entries are the alternatives' untouched outputs and
+    * CONCURRENT, mode vector: the per-UE switch writes ``selected`` out of
+      place, so ``all_outputs`` are the experts' unswitched outputs and
       ``baseline`` is the fail-safe's.
-    * CONCURRENT, scalar mode: the switch writes into a copy of the
-      designated output (one device copy of the estimate per call that may
-      switch: a mode other than the int 0), so ``all_outputs[0]`` stays the
-      unswitched output, as in the reference.
-    * GATED: the gated rows are scattered into the fail-safe output itself.
-      With ``audit_threshold`` set, ``baseline`` is a copy taken before the
-      scatter: the unswitched fail-safe estimate, which the audit compares
-      against and reverts to.  Without the audit no copy is made and
-      ``baseline`` is the scatter's target, the same tensor as ``selected``
-      (on the CPU the plain versions never write in place, so it stays
-      unswitched there).  A consumer that needs the unswitched fail-safe
-      output on the card must turn the audit on or copy first.
+    * CONCURRENT, scalar mode: the scalar switch kernel works in place, so
+      it switches a copy of the designated output (one device copy of the
+      estimate per call that may switch: a mode other than the int 0); a
+      mode-0 call writes nothing, and its ``selected`` is ``all_outputs[0]``.
+    * GATED: the scatter (or the fused expert, on a copy it makes) writes
+      ``selected`` out of place, so ``baseline`` is the unswitched fail-safe
+      estimate, with or without the audit, and the audit compares against
+      it and reverts to it.
     """
 
     selected: Any
@@ -173,7 +172,8 @@ class ExpertBank:
         #: (no overflow possible), ``0`` == the gated expert never runs
         self.gated_capacity = gated_capacity
         #: optional fused GATED hot path ``(idx, src, base, *inputs) ->
-        #: selected`` in place of the gather / expert / scatter triple
+        #: selected`` (a new tensor) in place of the gather / expert / scatter
+        #: triple
         self.gated_fused_apply = gated_fused_apply
         #: optional in-loop NMSE audit of the gated expert (GATED only)
         self.audit_threshold = audit_threshold
@@ -277,9 +277,6 @@ class ExpertBank:
         else:
             # values at gated UEs are placeholders (overwritten below)
             base = switch_select_batched_ref(torch.clamp(eff_mode, min=1) - 1, alt_outputs)
-        # the scatter writes into ``base`` in place on the card: the audit
-        # needs the unswitched fail-safe output, so it gets a copy first
-        baseline = base.clone() if self.audit_threshold is not None else base
 
         if capacity > 0:
             order = torch.argsort((~is_gated).to(torch.int32), stable=True)
@@ -299,11 +296,11 @@ class ExpertBank:
         served_by = torch.where(within, torch.zeros_like(eff_mode), eff_mode)
         audit_tripped = None
         if self.audit_threshold is not None and capacity > 0:
-            nmse = _batched_nmse(selected, baseline)
+            nmse = _batched_nmse(selected, base)
             # NaN/inf-safe: anything not provably within the threshold trips
             tripped = within & ~(nmse <= self.audit_threshold)
             selected = torch.where(tripped.reshape((-1,) + (1,) * (selected.ndim - 1)),
-                                   baseline, selected)
+                                   base, selected)
             served_by = torch.where(tripped, torch.full_like(served_by, self.default_mode),
                                     served_by)
             audit_tripped = tripped
@@ -314,7 +311,7 @@ class ExpertBank:
         return BankOutput(
             selected=selected, all_outputs=None, mode=mode, served_by=served_by,
             executed_ue=executed, overflow=overflow, audit_tripped=audit_tripped,
-            baseline=baseline,
+            baseline=base,
         )
 
     # -- cost model ---------------------------------------------------------------

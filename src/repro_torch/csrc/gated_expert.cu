@@ -43,8 +43,8 @@
 //   blocks; over all 44 pairs the planes alone are 24 MB of the card's 30 MB of
 //   shared memory, which clusters cannot pack into one wave; at n_prb 273 (P 205) a
 //   block would need 179 KB.  So each block holds one staged slice (S, P + 2, CP + 4)
-//   -- 35 KB at n_prb 106, 89 KB at n_prb 273; CP the channel count padded to 16 or
-//   32, position 0 and P + 1 the one-subcarrier halo, zero outside the band -- and a
+//   -- 35 KB at n_prb 106, 89 KB at n_prb 273; CP the channel count padded to 16,
+//   32, 48 or 64, position 0 and P + 1 the one-subcarrier halo, zero outside the band -- and a
 //   per-(row, antenna) workspace holds h (S, Np, CP), and y (S, Np, CP) that the
 //   up-projection reuses as u (S, 2 Np, CP), channel-innermost.  When the slice is
 //   at most four 64-row tiles (n_prb 106), each layer's epilogue writes its output
@@ -69,6 +69,14 @@
 //   double-buffered tap by tap with the next tap's weights loaded into registers
 //   while this tap's wgmmas run.  Up to four 64-row tiles a pass keep their float32
 //   sums in registers; a wider slice runs in groups of four.
+// * Wider estimators, up to 64 channels (CP 48 and 64): a tap's accumulator and each
+//   tile's sums are 24 or 32 floats a thread, so two tiles a group keep their sums
+//   (the n_prb 106 slice's four tiles then restage between layers, as a wider slice
+//   does), a block may take 255 registers, and two blocks share an SM.  At CP 64 in
+//   float32 two taps' hi and lo tiles would be 64 KB, past the 48 KB of static
+//   shared memory, so that weight region holds one tap (32 KB), stored after a
+//   barrier that follows the last tap's wgmmas; it stays static (uniform
+//   descriptors), and the slice at n_prb 273 still fits beside it (207 KB a block).
 // * float32 as 3xTF32: each operand x is split into hi = x rounded to TF32 and lo =
 //   x - hi, exact, truncated to TF32 (integer operations: cvt.rna.tf32 runs on a
 //   quarter-rate pipe); every product is lo*hi + hi*lo + hi*hi, off by under 2^-20 of
@@ -98,7 +106,6 @@
 namespace {
 
 constexpr int THREADS = 128;     // one warpgroup a block
-constexpr int MAXT = 4;          // 64-row tiles whose sums stay in registers
 constexpr int P_TARGET = 80;     // subcarriers a block aims for
 constexpr int MAX_CLUSTER = 8;   // the portable cluster size
 constexpr int TAPS = 9;          // 3 subcarrier taps x 3 symbol taps
@@ -115,19 +122,30 @@ Geometry geometry(int np) {
   return {cl, (np + cl - 1) / cl};
 }
 
-// channels padded to the GEMM's width: 16 or 32
-int channel_pad(int C) { return C <= 16 ? 16 : 32; }
+// channels padded to the GEMM's width: 16, 32, 48 or 64
+int channel_pad(int C) { return (C + 15) / 16 * 16; }
+
+// 64-row tiles whose sums stay in registers: four up to 32 channels, two above,
+// where each tile's sums and its tap accumulator are 24 or 32 floats a thread
+template <int CP>
+__host__ __device__ constexpr int maxt() { return CP <= 32 ? 4 : 2; }
+
+// the taps whose B tiles the weight region holds at once: two (the next tap's is
+// stored while this one's wgmmas run), one for 64 float32 channels, whose two taps'
+// hi and lo tiles (64 KB) would pass the 48 KB of static shared memory
+template <int CP, bool BF16>
+__host__ __device__ constexpr int nbuf() { return CP >= 64 && !BF16 ? 1 : 2; }
 
 // floats per staged row (subcarrier, symbol): the padding makes the A-fragment loads
 // conflict-free (rows 4 banks apart)
 template <int CP>
 __host__ __device__ constexpr int row_stride() { return CP + 4; }
 
-// the weight region: two taps' B tiles (hi and lo for float32), or the stem's or
+// the weight region: nbuf taps' B tiles (hi and lo for float32), or the stem's or
 // head's weights and biases, whichever is larger
 template <int CP, bool BF16>
 __host__ __device__ constexpr size_t weight_bytes() {
-  const size_t b = BF16 ? CP * CP * 4 : 4 * CP * CP * 4;
+  const size_t b = nbuf<CP, BF16>() * (BF16 ? CP * CP * 2 : 2 * CP * CP * 4);
   const size_t misc = (19 * CP + 4) * 4;
   return ((b > misc ? b : misc) + 127) / 128 * 128;
 }
@@ -271,6 +289,72 @@ struct Mma<16> {
   }
 };
 
+template <>
+struct Mma<48> {
+  __device__ static void tf32(float (&d)[24], const uint32_t (&a)[4], uint64_t b, int sd) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
+  }
+  __device__ static void bf16(float (&d)[24], const uint32_t (&a)[4], uint64_t b, int sd) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
+  }
+};
+
+template <>
+struct Mma<64> {
+  __device__ static void tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int sd) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
+  }
+  __device__ static void bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int sd) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
+  }
+};
+
 // -- the block's view of its chain ---------------------------------------------------
 
 struct Ctx {
@@ -304,15 +388,34 @@ __device__ void stage(const Ctx& c, const float* plane, int len, int q0) {
 template <int CP>
 __device__ void stage_halo(const Ctx& c, const float* plane) {
   constexpr int CH = CP / 4, RS = row_stride<CP>();
-  if (threadIdx.x < 2 * c.S * CH) {
-    const int ch = threadIdx.x % CH, side = threadIdx.x / CH % 2, s = threadIdx.x / CH / 2;
+  auto fetch = [&](int i) {  // 16 bytes of one side's halo row
+    const int ch = i % CH, side = i / CH % 2, s = i / CH / 2;
     const int q = side ? c.p0 + c.P : c.p0 - 1;
     if (q >= 0 && q < c.np)
       cp_async16(c.xs + (s * (c.P + 2) + (side ? c.P + 1 : 0)) * RS + 4 * ch,
                  plane + ((size_t)s * c.np + q) * CP + 4 * ch, 16);
+  };
+  if constexpr (CP <= 32) {  // up to 8 symbols: one 16-byte piece a thread
+    if (threadIdx.x < 2 * c.S * CH) fetch(threadIdx.x);
+  } else {
+    for (int i = threadIdx.x; i < 2 * c.S * CH; i += THREADS) fetch(i);
   }
   cp_async_wait_all();
   __syncthreads();
+}
+
+// The (k = input channel, n = output channel) weight a thread holds in its i-th
+// register of a tap: element threadIdx.x + i * THREADS of the CP x CP tile, n fastest.
+template <int CP>
+__device__ __forceinline__ void tap_element(int i, int& n, int& k) {
+  if constexpr (THREADS % CP == 0) {  // n is the thread's own
+    n = threadIdx.x % CP;
+    k = threadIdx.x / CP + i * (THREADS / CP);
+  } else {
+    const int e = threadIdx.x + i * THREADS;
+    n = e % CP;
+    k = e / CP;
+  }
 }
 
 // One tap's weights, B[k = input channel][n = output channel], from the pack
@@ -320,12 +423,21 @@ __device__ void stage_halo(const Ctx& c, const float* plane) {
 template <int CP>
 __device__ __forceinline__ void load_tap(float (&wr)[CP * CP / THREADS], const float* wl,
                                          int coutp, int col0, int C, int tap) {
-  const int n = threadIdx.x % CP;  // THREADS is a multiple of CP: n is the thread's
-  const float* w0 = wl + (threadIdx.x / CP * TAPS + tap) * coutp + col0 + n;
+  if constexpr (THREADS % CP == 0) {  // one base pointer: n is the thread's own
+    const int n = threadIdx.x % CP;
+    const float* w0 = wl + (threadIdx.x / CP * TAPS + tap) * coutp + col0 + n;
 #pragma unroll
-  for (int i = 0; i < CP * CP / THREADS; ++i) {
-    const int k = threadIdx.x / CP + i * (THREADS / CP);
-    wr[i] = (n < C && k < C) ? __ldg(w0 + i * (THREADS / CP) * TAPS * coutp) : 0.f;
+    for (int i = 0; i < CP * CP / THREADS; ++i) {
+      const int k = threadIdx.x / CP + i * (THREADS / CP);
+      wr[i] = (n < C && k < C) ? __ldg(w0 + i * (THREADS / CP) * TAPS * coutp) : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < CP * CP / THREADS; ++i) {
+      int n, k;
+      tap_element<CP>(i, n, k);
+      wr[i] = (n < C && k < C) ? __ldg(wl + (k * TAPS + tap) * coutp + col0 + n) : 0.f;
+    }
   }
 }
 
@@ -335,7 +447,8 @@ template <int CP, bool BF16>
 __device__ __forceinline__ void store_tap(const float (&wr)[CP * CP / THREADS], void* wb) {
 #pragma unroll
   for (int i = 0; i < CP * CP / THREADS; ++i) {
-    const int n = threadIdx.x % CP, k = threadIdx.x / CP + i * (THREADS / CP);
+    int n, k;
+    tap_element<CP>(i, n, k);  // as load_tap holds them
     if (BF16) {
       const int off = ((n / 8) * (CP / 8) + k / 8) * 64 + (n % 8) * 8 + k % 8;
       static_cast<__nv_bfloat16*>(wb)[off] = __float2bfloat16_rn(wr[i]);
@@ -358,6 +471,8 @@ __device__ void tc_layer(const Ctx& c, const float* wl, const float* bl, int cou
                          int col0, Epilogue epi, int phase, float* out, bool keep) {
   constexpr int ND = CP / 2;             // accumulator floats a thread
   constexpr int RS = row_stride<CP>();
+  constexpr int MAXT = maxt<CP>();
+  constexpr int NBUF = nbuf<CP, BF16>();
   constexpr int WTILE = BF16 ? CP * CP / 2 : 2 * CP * CP;  // a tap's B, in floats
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, tig = threadIdx.x % 4;
   const int rows = c.S * c.P, n_tiles = (rows + 63) / 64;
@@ -400,7 +515,8 @@ __device__ void tc_layer(const Ctx& c, const float* wl, const float* bl, int cou
 #pragma unroll 1
     for (int tap = 0; tap < TAPS; ++tap) {
       const int d = tap / 3, j = tap % 3;
-      float* wb = c.wsm + (tap & 1) * WTILE;
+      float* wb = c.wsm + (NBUF == 2 ? tap & 1 : 0) * WTILE;
+      if (NBUF == 1 && tap > 0) __syncthreads();  // tap - 1's wgmmas have read wb
       store_tap<CP, BF16>(wr, wb);
       fence_async_smem();
       __syncthreads();  // this tap's B is in place; tap - 1's readers are done
@@ -408,7 +524,7 @@ __device__ void tc_layer(const Ctx& c, const float* wl, const float* bl, int cou
       const int shift = ((j - 1) * (c.P + 2) + d) * RS;
       const uint32_t wb_s =
           static_cast<uint32_t>(__cvta_generic_to_shared(weight_region<CP, BF16>())) +
-          (tap & 1) * WTILE * 4;
+          (NBUF == 2 ? tap & 1 : 0) * WTILE * 4;
       const uint64_t dhi = smem_desc<(BF16 ? 16 : 32) * CP>(wb_s);
       const uint64_t dlo = smem_desc<32 * CP>(wb_s + CP * CP * 4);
 #pragma unroll
@@ -647,8 +763,9 @@ __device__ void head(const Ctx& c, const float2* __restrict__ ls, const float* w
   }
 }
 
+// three blocks an SM up to 32 channels (168 registers); two above (255)
 template <int CP, bool BF16>
-__global__ void __launch_bounds__(THREADS, 3) gated_expert_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS, CP <= 32 ? 3 : 2) gated_expert_kernel(Args a) {
   const int rank = blockIdx.x, row = blockIdx.y, ant = blockIdx.z;
   const int ue = a.idx[row];
   if (a.src[ue] < 0) return;  // capacity padding: the whole cluster returns, no barrier
@@ -685,7 +802,7 @@ __global__ void __launch_bounds__(THREADS, 3) gated_expert_kernel(Args a) {
   cluster_sync();
   // a slice of at most MAXT tiles keeps each layer's output in place for the next
   // layer, so between layers only the halo is fetched; a wider one restages
-  const bool keep = (a.S * a.P + 63) / 64 <= MAXT;
+  const bool keep = (a.S * a.P + 63) / 64 <= maxt<CP>();
   stage<CP>(c, h, a.np, c.p0 - 1);
   for (int r = 0; r < a.R; ++r) {
     tc_layer<CP, BF16>(c, wl, bl, cp4, 0, RELU, 0, y, keep);
@@ -765,11 +882,19 @@ extern "C" int gated_expert_cluster_size(int np) { return geometry(np).cluster; 
 
 // Shared memory a block takes, static and dynamic, in bytes (the wrapper checks it
 // against the card).
+template <int CP>
+long long block_smem(int n_sym, int P, int bf16) {
+  return smem_bytes<CP>(n_sym, P) + (bf16 ? weight_bytes<CP, true>() : weight_bytes<CP, false>());
+}
+
 extern "C" long long gated_expert_smem_bytes(int n_sym, int np, int C, int bf16) {
   const int P = geometry(np).P;
-  if (channel_pad(C) == 16)
-    return smem_bytes<16>(n_sym, P) + (bf16 ? weight_bytes<16, true>() : weight_bytes<16, false>());
-  return smem_bytes<32>(n_sym, P) + (bf16 ? weight_bytes<32, true>() : weight_bytes<32, false>());
+  switch (channel_pad(C)) {
+    case 16: return block_smem<16>(n_sym, P, bf16);
+    case 32: return block_smem<32>(n_sym, P, bf16);
+    case 48: return block_smem<48>(n_sym, P, bf16);
+    default: return block_smem<64>(n_sym, P, bf16);
+  }
 }
 
 // Workspace floats per (compact row, antenna): h, and y that u reuses.
@@ -781,14 +906,17 @@ extern "C" int gated_expert_launch(const void* idx, const void* src, const void*
                                    void* designated, const void* w, const void* bias,
                                    void* workspace, int capacity, int n_ant, int n_sym,
                                    int np, int C, int R, int bf16, void* stream) {
-  if (C < 1 || C > 32 || n_sym < 1 || np < 1 || capacity < 1)
+  if (C < 1 || C > 64 || n_sym < 1 || np < 1 || capacity < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const int32_t*>(idx), static_cast<const int32_t*>(src),
          static_cast<const float2*>(h_ls), static_cast<float2*>(designated),
          static_cast<const float*>(w), static_cast<const float*>(bias),
          static_cast<float*>(workspace), n_ant, n_sym, np, C, R, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (channel_pad(C) == 16)
-    return bf16 ? launch<16, true>(a, capacity, st) : launch<16, false>(a, capacity, st);
-  return bf16 ? launch<32, true>(a, capacity, st) : launch<32, false>(a, capacity, st);
+  switch (channel_pad(C)) {
+    case 16: return bf16 ? launch<16, true>(a, capacity, st) : launch<16, false>(a, capacity, st);
+    case 32: return bf16 ? launch<32, true>(a, capacity, st) : launch<32, false>(a, capacity, st);
+    case 48: return bf16 ? launch<48, true>(a, capacity, st) : launch<48, false>(a, capacity, st);
+    default: return bf16 ? launch<64, true>(a, capacity, st) : launch<64, false>(a, capacity, st);
+  }
 }

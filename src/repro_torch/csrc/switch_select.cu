@@ -1,6 +1,6 @@
-// The zero-gap switch into the designated buffer, in place: the scalar switch of
-// the single-UE host loop, the per-UE switch of the batched engine, and the
-// per-UE switch's compaction-gated counterpart, the un-compaction scatter.
+// The zero-gap switch into the designated buffer: the scalar switch of the
+// single-UE host loop (in place), and, out of place, the per-UE switch of the
+// batched engine and its compaction-gated counterpart, the un-compaction scatter.
 //
 // Replaces: src/repro/kernels/switch_select/switch_select.py::switch_select_2d
 // (Pallas TPU kernel _switch_kernel), reached through ops.py::switch_select_leaf;
@@ -17,80 +17,74 @@
 // row src[u] when src[u] >= 0 and keeps its (fail-safe) buffer otherwise.
 //
 // What bounds them on the H100: bytes, and at the slot's size really launch
-// latency.  A copy moves its payload twice (read the alternative, write the
-// designated buffer): at n_prb = 106 one UE's estimate is 122,112 B, so the scalar
-// copy is bound at 2 x 122,112 B / 3.35 TB/s = 0.07 us and a 32-UE switch at about
-// 2.3 us, both far below the few microseconds a launch costs.
+// latency.  A copy moves its payload twice (read, write): at n_prb = 106 one UE's
+// estimate is 122,112 B, so the scalar copy is bound at 2 x 122,112 B / 3.35 TB/s
+// = 0.07 us; the per-UE switch and the scatter write every UE of a fresh output,
+// 2 x 3.9 MB at 32 UEs, 2.33 us.  Both are far below the few microseconds a
+// launch and its wrapper cost.
 //
-// Design: every block reads the mode (or its UE's mode, or compact row) and
-// returns at once when the buffer is kept -- the paper's true no-op path, which
-// the Pallas output pipeline could not express (it always rewrites one tile).  A
-// copying block moves 16-byte float4 vectors, neighbouring threads on
-// neighbouring addresses, with a scalar tail for payloads that are not a multiple
-// of four floats; there is no padding.  Complex payloads arrive as float pairs.
-// The batched kernels run a grid (UE, chunk) whose chunks each take 4 vectors a
-// thread.  The scalar kernel runs one grid row whose chunks take one vector a
-// thread, so one 122 KB leaf spreads over 30 blocks; its mode comes by value
-// (the host loop knows it as an int, and uploading it would stall the host on
-// the queue) or from an int32 on the card.  A mode that names no alternative
-// keeps the buffer.  The switches make one launch per alternative (the banks of
-// the main paths have exactly one); the scatter one in all.  The scatter clamps
-// src[u] to the last compact row, as the plain version does.
+// Design of the per-UE switch and the scatter: one launch, out of place.  The
+// output is a fresh tensor the wrapper allocates; UE u's slice is a copy of the
+// row its mode (or compact row) names, the designated one included, so no input
+// is written and the expert outputs stay what they were, as in the reference.
+// The experts come in a by-value table of up to MAX_EXPERTS pointers, so every
+// alternative goes in the same launch.  The grid is a grid-stride loop over the
+// whole output, sized to fill the SMs once (2,048 threads an SM), moving 16-byte
+// float4 vectors, neighbouring threads on neighbouring addresses, when every
+// pointer is 16-byte aligned and a UE's payload is a multiple of four floats, and
+// single floats otherwise; each element finds its UE with one 32-bit division
+// (64-bit past 2^31 elements).  A mode that names no expert keeps the designated
+// row; the scatter clamps src[u] to the last compact row, as the plain version
+// does.
 //
-// The lean launch path (kernels/switch_select/ops.py, kernels/build.py): at the
-// host loop's size the scalar switch's call time is all host work, so its
-// wrapper does only what the kernel needs.  Complex payloads go in as their own
-// data_ptr() with twice their numel() floats (no view_as_real), the stream is the
-// raw handle from torch._C._cuda_getCurrentRawStream (no torch.cuda.Stream
-// object), the ctypes entry points are typed once, and each tensor's dtype,
-// device, shape, contiguity and lazy conjugate/negative bits are checked once,
-// cheapest first.  The per-UE switch and the scatter launch through the same
-// path.
+// The scalar switch stays in place: every block reads the mode and returns at once
+// when the buffer is kept -- the paper's true no-op path, which the Pallas output
+// pipeline could not express (it always rewrites one tile).  A copying block
+// moves float4 vectors with a scalar tail; one grid row whose chunks take one
+// vector a thread, so one 122 KB leaf spreads over 30 blocks.  Its mode comes by
+// value (the host loop knows it as an int, and uploading it would stall the host
+// on the queue) or from an int32 on the card; one launch per alternative.
+//
+// The lean launch path (kernels/switch_select/ops.py, kernels/build.py): at these
+// sizes a call's time is host work, so each wrapper does only what its kernel
+// needs.  Complex payloads go in as their own data_ptr() with twice their numel()
+// floats (no view_as_real), the stream is the raw handle from
+// torch._C._cuda_getCurrentRawStream, the ctypes entry points are typed once, the
+// per-UE switch validates a signature (experts, shape, dtype, device) once, and a
+// fresh output skips deterministic mode's NaN fill (the kernel writes all of it).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int TPB = 256;
-constexpr int UNROLL_BATCHED = 4;  // float4 per thread and block-chunk, per-UE grids
-constexpr int UNROLL_SCALAR = 1;   // float4 per thread and block-chunk, scalar grid
+constexpr int BLOCKS_PER_SM = 2048 / TPB;  // a full SM's threads
+constexpr int MAX_EXPERTS = 8;             // the per-UE switch's by-value table
 
-// Copy one payload; every block of the grid row takes its chunks of UNROLL * TPB
-// float4 vectors, and the scalar tail goes TPB floats a chunk.
-template <int UNROLL>
+// -- the scalar switch, in place -------------------------------------------------
+
+// Copy one payload; every block of the grid row takes its chunks of TPB float4
+// vectors, and the scalar tail goes TPB floats a chunk.
 __device__ __forceinline__ void copy_payload(const float* __restrict__ src,
-                                             float* __restrict__ dst, long long per_ue) {
-  constexpr int VEC_PER_BLOCK = UNROLL * TPB;
-  const long long n_vec = per_ue / 4;
+                                             float* __restrict__ dst, long long n) {
+  const long long n_vec = n / 4;
   const bool aligned = ((reinterpret_cast<uintptr_t>(src) |
                          reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
   if (aligned) {
     const float4* s4 = reinterpret_cast<const float4*>(src);
     float4* d4 = reinterpret_cast<float4*>(dst);
-    for (long long i = (long long)blockIdx.y * VEC_PER_BLOCK + threadIdx.x;
-         i < n_vec; i += (long long)gridDim.y * VEC_PER_BLOCK) {
-#pragma unroll
-      for (int j = 0; j < UNROLL; ++j) {
-        const long long v = i + j * TPB;
-        if (v < n_vec) d4[v] = s4[v];
-      }
-    }
+    for (long long i = (long long)blockIdx.y * TPB + threadIdx.x; i < n_vec;
+         i += (long long)gridDim.y * TPB)
+      d4[i] = s4[i];
   }
   // scalar path: the tail after the float4 body, or everything when unaligned
   const long long start = aligned ? n_vec * 4 : 0;
-  for (long long i = start + (long long)blockIdx.y * TPB + threadIdx.x; i < per_ue;
+  for (long long i = start + (long long)blockIdx.y * TPB + threadIdx.x; i < n;
        i += (long long)gridDim.y * TPB)
     dst[i] = src[i];
-}
-
-__global__ void __launch_bounds__(TPB)
-switch_select_kernel(const int32_t* __restrict__ modes, const float* __restrict__ alt,
-                     float* __restrict__ designated, long long per_ue, int want) {
-  const int u = blockIdx.x;
-  if (modes[u] != want) return;  // no-op path: this UE keeps its buffer
-  copy_payload<UNROLL_BATCHED>(alt + (size_t)u * per_ue, designated + (size_t)u * per_ue,
-                               per_ue);
 }
 
 __global__ void __launch_bounds__(TPB)
@@ -99,54 +93,142 @@ switch_select_scalar_kernel(const int32_t* __restrict__ mode_ptr, int mode_value
                             long long n, int want) {
   const int mode = mode_ptr != nullptr ? *mode_ptr : mode_value;
   if (mode != want) return;  // no-op path: the designated buffer stays as it is
-  copy_payload<UNROLL_SCALAR>(alt, designated, n);
+  copy_payload(alt, designated, n);
 }
 
+// -- the per-UE switch and the scatter, out of place -------------------------------
+
+struct ExpertTable {
+  const float* p[MAX_EXPERTS];
+};
+
+// UE u's row under the per-UE switch: expert modes[u]'s, the designated one for a
+// mode that names no expert.  The table is picked by compares, not an index, so it
+// stays in the parameter bank.
+struct SelectRows {
+  const int32_t* modes;
+  ExpertTable ex;
+  int n_experts;
+  __device__ __forceinline__ const float* operator()(long long u, long long per_ue) const {
+    const int m = __ldg(modes + u);
+    const float* p = ex.p[0];
+#pragma unroll
+    for (int k = 1; k < MAX_EXPERTS; ++k)
+      if (k < n_experts && m == k) p = ex.p[k];
+    return p + u * per_ue;
+  }
+};
+
+// UE u's row under the scatter: compact row src[u] (clamped), or its fail-safe row.
+struct GatherRows {
+  const int32_t* src;
+  const float* compact;
+  const float* designated;
+  int capacity;
+  __device__ __forceinline__ const float* operator()(long long u, long long per_ue) const {
+    const int r = __ldg(src + u);
+    return r < 0 ? designated + u * per_ue : compact + (long long)min(r, capacity - 1) * per_ue;
+  }
+};
+
+// out (n_ues, per_ue floats) = each UE's row, V-wide elements (float4 or float),
+// I-typed element indices.
+template <class Rows, class V, typename I>
 __global__ void __launch_bounds__(TPB)
-switch_gather_kernel(const int32_t* __restrict__ src, const float* __restrict__ compact,
-                     float* __restrict__ designated, long long per_ue, int capacity) {
-  const int u = blockIdx.x;
-  const int row = src[u];
-  if (row < 0) return;  // no-op path: this UE keeps its fail-safe buffer
-  copy_payload<UNROLL_BATCHED>(compact + (size_t)min(row, capacity - 1) * per_ue,
-                               designated + (size_t)u * per_ue, per_ue);
+copy_rows_kernel(Rows rows, V* __restrict__ out, I per_ue_v, I total_v, long long per_ue) {
+  for (I i = (I)blockIdx.x * TPB + threadIdx.x; i < total_v; i += (I)gridDim.x * TPB) {
+    const I u = i / per_ue_v;
+    out[i] = reinterpret_cast<const V*>(rows((long long)u, per_ue))[i - u * per_ue_v];
+  }
 }
 
-dim3 copy_grid(int n_ues, long long per_ue, int unroll) {
-  const long long vec_per_block = (long long)unroll * TPB;
-  long long chunks = (per_ue / 4 + vec_per_block - 1) / vec_per_block;
-  if (chunks < 1) chunks = 1;
-  if (chunks > 65535) chunks = 65535;
-  return dim3(n_ues, (unsigned)chunks);
+// SMs of the current device, read once per device
+int sm_count(int* n) {
+  static std::atomic<int> cached[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  int sms = cached[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cached[dev].store(sms, std::memory_order_relaxed);
+  }
+  *n = sms;
+  return 0;
+}
+
+template <class Rows, class V, typename I>
+void launch_rows(const Rows& rows, void* out, long long n_ues, long long per_ue, long long width,
+                 int sms, cudaStream_t stream) {
+  const long long per_v = per_ue / width, total = per_v * n_ues;
+  long long blocks = (total + TPB - 1) / TPB;
+  if (blocks > (long long)sms * BLOCKS_PER_SM) blocks = (long long)sms * BLOCKS_PER_SM;
+  copy_rows_kernel<Rows, V, I><<<(unsigned)blocks, TPB, 0, stream>>>(
+      rows, static_cast<V*>(out), (I)per_v, (I)total, per_ue);
+}
+
+// float4 when every pointer is 16-byte aligned and a UE's payload is whole vectors
+template <class Rows>
+int copy_rows(const Rows& rows, const void* const* ptrs, int n_ptrs, void* out, int n_ues,
+              long long per_ue, cudaStream_t stream) {
+  if (n_ues <= 0 || per_ue <= 0) return 0;
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc != 0) return rc;
+  uintptr_t bits = reinterpret_cast<uintptr_t>(out);
+  for (int k = 0; k < n_ptrs; ++k) bits |= reinterpret_cast<uintptr_t>(ptrs[k]);
+  const bool vec = (bits & 15) == 0 && per_ue % 4 == 0;
+  const long long total = (long long)n_ues * per_ue;  // floats
+  if (vec) {
+    if (total / 4 < (1LL << 31))
+      launch_rows<Rows, float4, uint32_t>(rows, out, n_ues, per_ue, 4, sms, stream);
+    else
+      launch_rows<Rows, float4, uint64_t>(rows, out, n_ues, per_ue, 4, sms, stream);
+  } else {
+    if (total < (1LL << 31))
+      launch_rows<Rows, float, uint32_t>(rows, out, n_ues, per_ue, 1, sms, stream);
+    else
+      launch_rows<Rows, float, uint64_t>(rows, out, n_ues, per_ue, 1, sms, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int switch_select_launch(const void* modes, const void* alt,
-                                    void* designated, int n_ues, long long per_ue,
-                                    int want, void* stream) {
-  switch_select_kernel<<<copy_grid(n_ues, per_ue, UNROLL_BATCHED), TPB, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(modes), static_cast<const float*>(alt),
-      static_cast<float*>(designated), per_ue, want);
-  return static_cast<int>(cudaGetLastError());
+// The per-UE switch: out[u] = experts[modes[u]][u], for 2 <= n_experts <= MAX_EXPERTS
+// expert tensors (n_ues, per_ue floats) listed designated first in the host array
+// ``experts``.
+extern "C" int switch_select_launch(const void* modes, const void* const* experts,
+                                    int n_experts, void* out, int n_ues, long long per_ue,
+                                    void* stream) {
+  if (n_experts < 1 || n_experts > MAX_EXPERTS) return static_cast<int>(cudaErrorInvalidValue);
+  SelectRows rows{static_cast<const int32_t*>(modes), {}, n_experts};
+  for (int k = 0; k < MAX_EXPERTS; ++k)
+    rows.ex.p[k] = static_cast<const float*>(experts[k < n_experts ? k : 0]);
+  return copy_rows(rows, experts, n_experts, out, n_ues, per_ue,
+                   static_cast<cudaStream_t>(stream));
 }
 
+// The scatter: out[u] = src[u] >= 0 ? compact[min(src[u], capacity - 1)] : designated[u].
 extern "C" int switch_gather_launch(const void* src, const void* compact,
-                                    void* designated, int n_ues, long long per_ue,
-                                    int capacity, void* stream) {
-  switch_gather_kernel<<<copy_grid(n_ues, per_ue, UNROLL_BATCHED), TPB, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(src), static_cast<const float*>(compact),
-      static_cast<float*>(designated), per_ue, capacity);
-  return static_cast<int>(cudaGetLastError());
+                                    const void* designated, void* out, int n_ues,
+                                    long long per_ue, int capacity, void* stream) {
+  if (capacity < 1) return static_cast<int>(cudaErrorInvalidValue);
+  GatherRows rows{static_cast<const int32_t*>(src), static_cast<const float*>(compact),
+                  static_cast<const float*>(designated), capacity};
+  const void* ptrs[2] = {compact, designated};
+  return copy_rows(rows, ptrs, 2, out, n_ues, per_ue, static_cast<cudaStream_t>(stream));
 }
 
 // mode_ptr: an int32 on the card, or null to take mode_value.
 extern "C" int switch_select_scalar_launch(const void* mode_ptr, int mode_value,
                                            const void* alt, void* designated, long long n,
                                            int want, void* stream) {
-  switch_select_scalar_kernel<<<copy_grid(1, n, UNROLL_SCALAR), TPB, 0,
+  long long chunks = (n / 4 + TPB - 1) / TPB;
+  chunks = chunks < 1 ? 1 : (chunks > 65535 ? 65535 : chunks);
+  switch_select_scalar_kernel<<<dim3(1, (unsigned)chunks), TPB, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(mode_ptr), mode_value, static_cast<const float*>(alt),
       static_cast<float*>(designated), n, want);

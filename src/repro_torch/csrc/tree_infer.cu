@@ -1,4 +1,5 @@
-// Decision-tree policy inference: one thread per UE row walks the tree.
+// Decision-tree policy inference (one thread per UE row walks the tree), and the
+// closed loop's whole decision phase for a tree policy fused around that walk.
 //
 // Replaces: src/repro/kernels/tree_infer/tree_infer.py::tree_infer_2d (Pallas TPU
 // kernel _tree_kernel), reached through ops.py::tree_infer from
@@ -16,7 +17,28 @@
 // projection into NaN and goes all-left; the walk compares the feature itself.
 //
 // What bounds it on the H100: launch latency.  Reading a (U, F) float32 matrix and
-// writing U leaf values is a few kilobytes for the paper's 10 KPMs.
+// writing U leaf values is a few kilobytes for the paper's 10 KPMs.  In the batched
+// closed loop the walk was one launch among about 85 small eager operations a
+// decision slot (the KPM ring push, the window mean's 8 steps of 8 operations, the
+// hysteresis register, the slot boundary), and the slot loop is bound by the host's
+// launches.  So policy_step_launch does that whole phase in one launch, for every UE:
+//
+//   1. push the slot's KPM vector into the UE's ring (idx, count int64: the same
+//      modulo and the same 2^30 clamp as the ring's plain version);
+//   2. the window mean over the newest min(window, count) entries, newest first,
+//      as ring_window_mean's float32 operations in the same order: acc = acc +
+//      buf * valid, n_valid = n_valid + valid, then acc / max(n_valid, 1), written
+//      with __fmul_rn / __fadd_rn / __fdiv_rn so that nvcc's default --fmad=true
+//      cannot contract them (the device loop must equal its host replay bit for bit);
+//   3. the walk on that mean;
+//   4. the hysteresis streak and the register commit; on a hold slot (decide == 0)
+//      register and streak freeze and the raw decision is the held register;
+//   5. the slot boundary: the register becomes the active mode, n_switches counts it.
+//
+// It writes a new state (the ring copied with the new entry) and leaves its inputs
+// as they were, so an earlier state stays valid.  A block takes UPB UEs: its
+// threads take (UE, feature) pairs for steps 1-2, the means meet in shared memory,
+// and one thread per UE does steps 3-5.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -24,6 +46,17 @@
 namespace {
 
 constexpr int TPB = 128;
+constexpr int UPB = 8;  // UEs a block of the policy step: 80 (UE, KPM) pairs at F = 10
+
+__device__ __forceinline__ int walk(const float* xr, const int32_t* __restrict__ feature,
+                                    const float* __restrict__ threshold, int depth) {
+  int node = 0;
+  for (int level = 0; level < depth; ++level) {
+    const bool right = xr[feature[node]] > threshold[node];
+    node = 2 * node + 1 + (right ? 1 : 0);
+  }
+  return node - ((1 << depth) - 1);
+}
 
 __global__ void __launch_bounds__(TPB)
 tree_infer_kernel(const float* __restrict__ x, const int32_t* __restrict__ feature,
@@ -32,13 +65,79 @@ tree_infer_kernel(const float* __restrict__ x, const int32_t* __restrict__ featu
                   int rows, int n_features, int depth) {
   const int r = blockIdx.x * TPB + threadIdx.x;
   if (r >= rows) return;
-  const float* xr = x + (size_t)r * n_features;
-  int node = 0;
-  for (int level = 0; level < depth; ++level) {
-    const bool right = xr[feature[node]] > threshold[node];
-    node = 2 * node + 1 + (right ? 1 : 0);
+  out[r] = leaf_values[walk(x + (size_t)r * n_features, feature, threshold, depth)];
+}
+
+// The state, as the port's DeviceSwitchState holds it: the ring (U, cap, F) float32
+// with idx and count (U,) int64; active, pending, streak and n_switches (U,) int32.
+struct State {
+  float* buf;
+  long long* idx;
+  long long* count;
+  int32_t* active;
+  int32_t* pending;
+  int32_t* streak;
+  int32_t* n_switches;
+};
+
+struct Tree {
+  const int32_t* feature;
+  const float* threshold;
+  const float* leaves;
+  int depth;
+};
+
+__global__ void __launch_bounds__(TPB)
+policy_step_kernel(State in, const float* __restrict__ kpm, Tree tree, State out,
+                   int32_t* __restrict__ raw_out, int n_ues, int cap, int n_feat, int window,
+                   int hysteresis, int decide) {
+  extern __shared__ float mean[];  // (UPB, n_feat)
+  const int u0 = blockIdx.x * UPB;
+  for (int i = threadIdx.x; i < UPB * n_feat; i += TPB) {
+    const int ul = i / n_feat, f = i % n_feat, u = u0 + ul;
+    if (u >= n_ues) break;  // i grows with u: every later pair is past the batch too
+    // ring positions in int32: a state's idx lies in [0, cap), so the one 64-bit
+    // floor-modulo here gives the same positions as the plain version's every slot
+    const int at = static_cast<int>((in.idx[u] % cap + cap) % cap);
+    const int idx = at + 1 == cap ? 0 : at + 1;
+    const long long count = min(in.count[u] + 1, 1LL << 30);
+    const float v = kpm[(size_t)u * n_feat + f];
+    const float* src = in.buf + (size_t)u * cap * n_feat + f;
+    float* dst = out.buf + (size_t)u * cap * n_feat + f;
+    for (int w = 0; w < cap; ++w) dst[(size_t)w * n_feat] = w == at ? v : src[(size_t)w * n_feat];
+    float acc = 0.f, n_valid = 0.f;
+    for (int off = 1; off <= window; ++off) {  // newest first, fixed order
+      const float valid = off <= count ? 1.f : 0.f;
+      const int pos = idx - off < 0 ? idx - off + cap : idx - off;
+      const float x = pos == at ? v : src[(size_t)pos * n_feat];
+      acc = __fadd_rn(acc, __fmul_rn(x, valid));
+      n_valid = __fadd_rn(n_valid, valid);
+    }
+    mean[ul * n_feat + f] = __fdiv_rn(acc, fmaxf(n_valid, 1.f));
+    if (f == 0) {
+      out.idx[u] = idx;
+      out.count[u] = count;
+    }
   }
-  out[r] = leaf_values[node - ((1 << depth) - 1)];
+  __syncthreads();
+  const int u = u0 + threadIdx.x;
+  if (threadIdx.x >= UPB || u >= n_ues) return;
+  const int32_t pending = in.pending[u];
+  int32_t raw = pending, next = pending, streak = in.streak[u];
+  if (decide) {
+    raw = static_cast<int32_t>(
+        tree.leaves[walk(mean + threadIdx.x * n_feat, tree.feature, tree.threshold, tree.depth)]);
+    streak = raw == pending ? 0 : streak + 1;
+    if (streak >= hysteresis) {
+      next = raw;
+      streak = 0;
+    }
+  }
+  raw_out[u] = raw;
+  out.pending[u] = next;
+  out.streak[u] = streak;
+  out.active[u] = next;
+  out.n_switches[u] = in.n_switches[u] + (next != in.active[u] ? 1 : 0);
 }
 
 }  // namespace
@@ -53,5 +152,29 @@ extern "C" int tree_infer_launch(const void* x, const void* feature,
       static_cast<const float*>(x), static_cast<const int32_t*>(feature),
       static_cast<const float*>(threshold), static_cast<const float*>(leaf_values),
       static_cast<float*>(out), rows, n_features, depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One decision slot of a tree policy for every UE.  ``state_in`` and ``state_out``
+// are host arrays of the seven state pointers in State's order; the fault slice's
+// telemetry / decision masks would join the inputs as nullable pointers.  ``window``
+// is already min(window_slots, cap).
+extern "C" int policy_step_launch(const void* const* state_in, const void* kpm,
+                                  const void* feature, const void* threshold,
+                                  const void* leaves, const void* const* state_out,
+                                  void* raw, int n_ues, int cap, int n_feat, int window,
+                                  int depth, int hysteresis, int decide, void* stream) {
+  if (n_ues < 1 || cap < 1 || n_feat < 1 || window < 1 || window > cap)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto state = [](const void* const* p) {
+    return State{(float*)p[0], (long long*)p[1], (long long*)p[2], (int32_t*)p[3],
+                 (int32_t*)p[4], (int32_t*)p[5], (int32_t*)p[6]};
+  };
+  const Tree tree{static_cast<const int32_t*>(feature), static_cast<const float*>(threshold),
+                  static_cast<const float*>(leaves), depth};
+  policy_step_kernel<<<(n_ues + UPB - 1) / UPB, TPB, (size_t)UPB * n_feat * sizeof(float),
+                       static_cast<cudaStream_t>(stream)>>>(
+      state(state_in), static_cast<const float*>(kpm), tree, state(state_out),
+      static_cast<int32_t*>(raw), n_ues, cap, n_feat, window, hysteresis, decide);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,6 +45,7 @@ launch_counts: dict[str, int] = {
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
+_fill_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -136,6 +137,31 @@ def check(code: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+_deterministic = torch._C._get_deterministic_algorithms
+_get_fill = torch._C._get_deterministic_fill_uninitialized_memory
+_set_fill = torch._C._set_deterministic_fill_uninitialized_memory
+
+
+def unfilled(make, *args, **kwargs) -> torch.Tensor:
+    """``make(*args, **kwargs)``: a new tensor that a kernel (or a copy)
+    then writes in full, e.g. ``unfilled(torch.empty_like, t)``.
+
+    Under ``torch.use_deterministic_algorithms(True)`` PyTorch fills every
+    new tensor with NaN, a launch and several microseconds of host time a
+    call; a kernel that writes every element makes that fill dead work, so
+    it is turned off for this one allocation (under a lock, so two wrappers
+    never race on the flag).
+    """
+    if not (_deterministic() and _get_fill()):
+        return make(*args, **kwargs)
+    with _fill_lock:
+        _set_fill(False)
+        try:
+            return make(*args, **kwargs)
+        finally:
+            _set_fill(True)
 
 
 #: ``torch._C._cuda_getCurrentRawStream(device_index) -> int`` (None on a

@@ -5,13 +5,15 @@ plain PyTorch version.
 ``repro.kernels.gated_expert.ops.gated_expert_apply``: the AI expert runs on
 the UEs named by the compact rows ``idx`` whose ``src`` entry is
 non-negative, and its estimates land in those UEs' slices of the
-designated (fail-safe) buffer.  On a CUDA tensor one launch of
-``csrc/gated_expert.cu`` does gather, estimator and scatter, reading the
-complex64 LS input and writing the complex64 designated buffer **in place**
-(no sub-batch, no transposes, no real/imaginary split); it returns
-``designated``.  On a CPU tensor, or with ``backend="ref"``, the plain
-version ``gated_expert_apply_ref`` composes the gather, the folded-GEMM
-estimator and the plain scatter, and returns a new tensor.
+designated (fail-safe) buffer.  On a CUDA tensor the wrapper copies
+``designated`` into a new tensor and one launch of ``csrc/gated_expert.cu``
+does gather, estimator and scatter into that copy, reading the complex64 LS
+input and writing complex64 (no sub-batch, no transposes, no real/imaginary
+split).  On a CPU tensor, or with ``backend="ref"``, the plain version
+``gated_expert_apply_ref`` composes the gather, the folded-GEMM estimator and
+the plain scatter.  Either way the result is a new tensor and ``designated``
+keeps the fail-safe estimate.  The kernel takes up to ``MAX_CHANNELS``
+channels.
 """
 
 from __future__ import annotations
@@ -27,8 +29,16 @@ from repro_torch.kernels.switch_select.ops import switch_scatter
 from repro_torch.phy.ai_estimator import AiEstimator, ai_estimate_folded, kernel_operands
 
 _BACKENDS = ("auto", "pallas", "cuda", "ref")
-#: the widest estimator the kernel takes: its GEMMs pad the channels to 16 or 32
-MAX_CHANNELS = 32
+#: the widest estimator the kernel takes: its GEMMs pad the channels to 16, 32,
+#: 48 or 64 (twice the paper's 32)
+MAX_CHANNELS = 64
+
+
+def check_width(channels: int) -> None:
+    """Raise unless the fused kernel takes an estimator ``channels`` wide."""
+    if channels > MAX_CHANNELS:
+        raise ValueError(f"the fused GATED kernel takes at most {MAX_CHANNELS} channels, "
+                         f"not {channels}")
 
 
 def _folded(ai: AiEstimator | dict[str, Any]) -> dict[str, Any]:
@@ -65,13 +75,11 @@ def cluster_size(n_pilot_sc: int) -> int:
     return fn(n_pilot_sc)
 
 
-def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> None:
+def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> torch.Tensor:
     folded = _folded(ai)
     n_ues, n_ant, n_sym, n_p = h_ls.shape
     channels = folded["stem_w"].shape[0] // folded["width"]
-    if channels > MAX_CHANNELS:
-        raise ValueError(f"the fused kernel takes at most {MAX_CHANNELS} channels, "
-                         f"not {channels}")
+    check_width(channels)
     n_res = len(folded["res"])
     bf16 = int(compute_dtype == torch.bfloat16)
     w, b = _operands(ai, compute_dtype)
@@ -88,12 +96,14 @@ def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> None:
     capacity = idx.shape[0]
     workspace = torch.empty(capacity * n_ant * ws_floats(n_sym, n_p, channels),
                             dtype=torch.float32, device=h_ls.device)
+    out = build.unfilled(torch.clone, designated)  # the kernel writes selected UEs over it
     fn = build.function("gated_expert", "gated_expert_launch",
                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    build.check(fn(idx.data_ptr(), src.data_ptr(), h_ls.data_ptr(), designated.data_ptr(),
+    build.check(fn(idx.data_ptr(), src.data_ptr(), h_ls.data_ptr(), out.data_ptr(),
                    w.data_ptr(), b.data_ptr(), workspace.data_ptr(), capacity, n_ant, n_sym,
                    n_p, channels, n_res, bf16, build.stream(designated)), "gated_expert")
     build.launch_counts["gated_expert"] += 1
+    return out
 
 
 def gated_expert_apply(idx: torch.Tensor, src: torch.Tensor, h_ls: torch.Tensor,
@@ -110,8 +120,8 @@ def gated_expert_apply(idx: torch.Tensor, src: torch.Tensor, h_ls: torch.Tensor,
     ``compute_dtype`` is ``None`` (float32) or ``torch.bfloat16`` (bf16
     operands, float32 accumulation).  ``backend`` takes the reference's
     values: ``"ref"`` is the plain version on any device; ``"auto"``,
-    ``"pallas"`` and ``"cuda"`` launch the kernel on CUDA tensors (in place)
-    and take the plain version on CPU tensors.
+    ``"pallas"`` and ``"cuda"`` launch the kernel on CUDA tensors and take
+    the plain version on CPU tensors.  Returns a new tensor.
     """
     if backend not in _BACKENDS:
         raise ValueError(f"unknown gated_expert_apply backend {backend!r}; one of {_BACKENDS}")
@@ -135,5 +145,4 @@ def gated_expert_apply(idx: torch.Tensor, src: torch.Tensor, h_ls: torch.Tensor,
         raise TypeError(f"idx and src must be int32, got {idx.dtype}, {src.dtype}")
     if not all(t.is_contiguous() for t in (idx, src, h_ls, designated)):
         raise ValueError("gated_expert kernel needs contiguous operands")
-    _launch(idx, src, h_ls, designated, ai, compute_dtype)
-    return designated
+    return _launch(idx, src, h_ls, designated, ai, compute_dtype)

@@ -6,31 +6,29 @@ PyTorch versions.
 tensor per expert, designated expert first.  With a scalar ``mode`` (a
 Python int or a 0-d tensor) the designated buffer ends up holding expert
 ``mode``'s whole output (the single-UE host loop); with an ``(U,)`` vector
-every tensor carries a leading UE axis and UE ``u`` ends up holding expert
+every tensor carries a leading UE axis and UE ``u`` receives expert
 ``modes[u]``'s slice (the batched engine).
 
-On a CUDA tensor the kernel (``csrc/switch_select.cu``) switches **in place
-into the designated tensor** and returns it: mode 0 (or a mode-0 UE) costs a
-launch whose blocks return at once, the others copy their alternative.  The
-scalar kernel takes an int mode by value (nothing is uploaded) or a 0-d
-int32 mode on the card by pointer; an int mode outside ``[0, n_experts)``
-raises, and a mode on the card that names no alternative keeps the
-designated buffer.  The reference aliases the
-designated buffer to the output too, but JAX keeps the pre-switch value
-alive, so there ``outputs[0]`` still reads the unswitched designated
-output afterwards; in the port ``outputs[0]`` *is* the switched buffer.
-On a CPU tensor the plain versions ``switch_select_ref`` (scalar) and
-``switch_select_batched_ref`` gather into a new tensor and leave the inputs
-untouched.
+The per-UE switch is out of place on every device: on a CUDA tensor one
+launch of ``csrc/switch_select.cu`` writes a new tensor and leaves every
+expert output as it was, as ``repro`` does; a mode that names no expert
+keeps the designated slice.  The scalar switch works **in place in the
+designated tensor** and returns it: mode 0 costs a launch whose blocks
+return at once, the others copy their alternative.  It takes an int mode
+by value (nothing is uploaded) or a 0-d int32 mode on the card by pointer;
+an int mode outside ``[0, n_experts)`` raises, and a mode on the card that
+names no alternative keeps the designated buffer (the host bank hands it a
+copy, so its ``all_outputs[0]`` stays unswitched).  On a CPU tensor the
+plain versions ``switch_select_ref`` (scalar) and
+``switch_select_batched_ref`` gather into a new tensor.
 
 ``switch_scatter(src, compact, designated)`` replaces
 ``repro.kernels.switch_select.ops.switch_scatter``, the GATED bank's
 un-compaction: UE ``u`` takes row ``src[u]`` of the capacity-``K`` compact
-sub-batch when ``src[u] >= 0`` and keeps its designated (fail-safe) buffer
-otherwise.  On a CUDA tensor the kernel's second entry point scatters **in
-place into** ``designated`` and returns it; on a CPU tensor, or with
-``backend="ref"``, the plain version ``switch_gather_batched_ref`` returns a
-new tensor.
+sub-batch when ``src[u] >= 0`` and keeps its designated (fail-safe) slice
+otherwise.  On a CUDA tensor the kernel's second entry point writes a new
+tensor; on a CPU tensor, or with ``backend="ref"``, the plain version
+``switch_gather_batched_ref`` does.  Neither touches its inputs.
 """
 
 from __future__ import annotations
@@ -109,13 +107,19 @@ def _check_contiguous(alternatives: Sequence[torch.Tensor]) -> None:
         _check_resolved(a)
 
 
-_PTRS = [ctypes.c_void_p] * 3
-#: (modes, alternative, designated, n_ues, floats per UE, wanted mode, stream)
-_BATCHED_ARGS = _PTRS + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+#: the most experts one launch of the per-UE switch takes (the kernel's table)
+MAX_EXPERTS = 8
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: (modes, expert pointer array, experts, out, n_ues, floats per UE, stream)
+_SELECT_ARGS = (_P, ctypes.POINTER(_P), _I, _P, _I, _L, _P)
+#: (src, compact, designated, out, n_ues, floats per UE, capacity, stream)
+_GATHER_ARGS = (_P, _P, _P, _P, _I, _L, _I, _P)
 #: (mode pointer or None, mode value, alternative, designated, floats, wanted mode,
 #: stream)
-_SCALAR_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_SCALAR_ARGS = (_P, _I, _P, _P, _L, _I, _P)
+#: per-UE switch signatures already validated: (experts, shape, dtype, device
+#: index) -> (floats per UE, the ctypes pointer-array type)
+_SIGNATURES: dict[tuple, tuple[int, type]] = {}
 
 
 def _scalar_mode(mode, designated: torch.Tensor) -> int | torch.Tensor:
@@ -139,20 +143,22 @@ def switch_select(mode: int | torch.Tensor,
 
     ``mode`` is a scalar (Python int, or a 0-d tensor) selecting one whole
     output, or an ``(U,)`` int32 vector selecting per UE along the leading
-    axis.  Returns the designated tensor, switched in place, on the card,
-    and a new tensor on the CPU.
+    axis.  A scalar mode returns the designated tensor, switched in place,
+    on the card, and a new tensor on the CPU; a mode vector returns a new
+    tensor on every device.
 
-    The host loop calls this once a slot with an int mode, so the card's
-    scalar path is kept lean: each tensor is checked once, cheapest check
-    first, and the launch passes ``data_ptr()`` ints and the raw stream.
+    The host loop calls this once a slot with an int mode and the batched
+    engine once a slot with a mode vector, so both card paths are kept
+    lean: each tensor is checked once, cheapest check first, and the launch
+    passes ``data_ptr()`` ints and the raw stream.
     """
+    if isinstance(mode, torch.Tensor) and mode.ndim == 1:
+        return _switch_batched(mode, outputs)
     designated, *alternatives = outputs
     if not alternatives:
         raise ValueError("the switch needs at least two expert outputs")
     _check_like(designated, alternatives)
     if type(mode) is not int:
-        if isinstance(mode, torch.Tensor) and mode.ndim == 1:
-            return _switch_batched(mode, designated, alternatives)
         mode = _scalar_mode(mode, designated)
     on_card = isinstance(mode, torch.Tensor)
     if not on_card and not 0 <= mode < len(outputs):
@@ -175,29 +181,46 @@ def switch_select(mode: int | torch.Tensor,
     return designated
 
 
-def _switch_batched(modes: torch.Tensor, designated: torch.Tensor,
-                    alternatives: list[torch.Tensor]) -> torch.Tensor:
-    """Per-UE switch: UE ``u`` receives expert ``modes[u]``'s slice."""
-    if modes.shape[0] != designated.shape[0]:
-        raise ValueError(f"modes {tuple(modes.shape)} vs UE axis {designated.shape[0]}")
-    if modes.device != designated.device:
+def _switch_batched(modes: torch.Tensor, outputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-UE switch, out of place: UE ``u`` receives expert ``modes[u]``'s slice."""
+    des = outputs[0]
+    if len(outputs) < 2:
+        raise ValueError("the switch needs at least two expert outputs")
+    if modes.shape[0] != des.shape[0]:
+        raise ValueError(f"modes {tuple(modes.shape)} vs UE axis {des.shape[0]}")
+    dev = des.get_device()
+    if modes.get_device() != dev:
         raise ValueError("modes and expert outputs must share one device")
-    if not designated.is_cuda:
-        return switch_select_batched_ref(modes, [designated, *alternatives])
-    if modes.dtype is not torch.int32:
-        raise TypeError(f"modes must be int32, got {modes.dtype}")
-    n = _floats(designated)
-    if not (designated.is_contiguous() and modes.is_contiguous()):
-        raise ValueError("switch kernel needs contiguous designated buffer and modes")
-    _check_contiguous(alternatives)
-    fn = build.function("switch_select", "switch_select_launch", _BATCHED_ARGS)
-    n_ues = designated.shape[0]
-    per_ue = n // max(n_ues, 1)
-    des, m, stream = designated.data_ptr(), modes.data_ptr(), build.stream(designated)
-    for k, a in enumerate(alternatives, 1):
-        build.check(fn(m, a.data_ptr(), des, n_ues, per_ue, k, stream), "switch_select")
-        build.launch_counts["switch_select_batched"] += 1
-    return designated
+    if dev < 0:
+        _check_like(des, outputs[1:])
+        return switch_select_batched_ref(modes, outputs)
+    shape, dtype = des.shape, des.dtype
+    sig = (len(outputs), shape, dtype, dev)
+    known = _SIGNATURES.get(sig)
+    if known is None:  # what the signature alone decides, checked once
+        if len(outputs) > MAX_EXPERTS:
+            raise ValueError(f"the per-UE switch takes at most {MAX_EXPERTS} experts, "
+                             f"not {len(outputs)}")
+        n = _floats(des)
+        known = _SIGNATURES[sig] = (n // max(shape[0], 1), _P * len(outputs))
+    per_ue, table = known
+    if modes.dtype is not torch.int32 or not modes.is_contiguous():
+        raise TypeError(f"modes must be contiguous int32, got {modes.dtype}")
+    for a in outputs:  # what each call's tensors must match
+        if a.dtype is not dtype or a.shape != shape:
+            raise ValueError("expert outputs must share shape and dtype")
+        if a.get_device() != dev:
+            raise ValueError("expert outputs must share one device")
+        if not a.is_contiguous():
+            raise ValueError("switch kernel needs contiguous expert outputs")
+        if a.is_conj() or a.is_neg():
+            _check_resolved(a)
+    out = build.unfilled(torch.empty_like, des)
+    fn = build.function("switch_select", "switch_select_launch", _SELECT_ARGS)
+    build.check(fn(modes.data_ptr(), table(*[a.data_ptr() for a in outputs]), len(outputs),
+                   out.data_ptr(), shape[0], per_ue, build.stream(des)), "switch_select")
+    build.launch_counts["switch_select_batched"] += 1
+    return out
 
 
 _BACKENDS = ("auto", "pallas", "cuda", "ref")
@@ -212,7 +235,8 @@ def switch_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.T
     share their trailing shape, dtype and device, with ``K >= 1``.
     ``backend`` takes the reference's values: ``"ref"`` is the plain version
     on any device; ``"auto"``, ``"pallas"`` and ``"cuda"`` launch the kernel
-    on a CUDA tensor (in place) and take the plain version on a CPU tensor.
+    on a CUDA tensor and take the plain version on a CPU tensor.  Either way
+    the result is a new tensor and the inputs are left as they were.
     """
     if backend not in _BACKENDS:
         raise ValueError(f"unknown switch_scatter backend {backend!r}; one of {_BACKENDS}")
@@ -234,9 +258,10 @@ def switch_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.T
         raise ValueError("scatter kernel needs contiguous src, compact and designated")
     _check_resolved(compact)
     n_ues = designated.shape[0]
-    fn = build.function("switch_select", "switch_gather_launch", _BATCHED_ARGS)
-    build.check(fn(src.data_ptr(), compact.data_ptr(), designated.data_ptr(), n_ues,
-                   n // max(n_ues, 1), compact.shape[0], build.stream(designated)),
+    out = build.unfilled(torch.empty_like, designated)
+    fn = build.function("switch_select", "switch_gather_launch", _GATHER_ARGS)
+    build.check(fn(src.data_ptr(), compact.data_ptr(), designated.data_ptr(), out.data_ptr(),
+                   n_ues, n // max(n_ues, 1), compact.shape[0], build.stream(designated)),
                 "switch_gather")
     build.launch_counts["switch_gather_batched"] += 1
-    return designated
+    return out

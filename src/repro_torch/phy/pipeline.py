@@ -46,6 +46,7 @@ import torch
 from repro_torch import random as jr
 from repro_torch.core.closed_loop import (
     DevicePolicy,
+    DeviceTreePolicy,
     SwitchConfig,
     init_device_switch,
     switch_boundary,
@@ -55,6 +56,7 @@ from repro_torch.core.expert_bank import ExecutionMode, Expert, ExpertBank
 from repro_torch.core.methodology import perturb_estimate
 from repro_torch.core.telemetry import trajectory_kpm_matrix
 from repro_torch.device import resolve_device
+from repro_torch.kernels.tree_infer import policy_step
 from repro_torch.phy import dmrs as dmrs_mod
 from repro_torch.phy import qam
 from repro_torch.phy.ai_estimator import (
@@ -448,12 +450,10 @@ class BatchedPuschPipeline:
         gated_fused_apply = None
         if fused_gated:
             from repro_torch.kernels.gated_expert import gated_expert_apply
-            from repro_torch.kernels.gated_expert.ops import MAX_CHANNELS
+            from repro_torch.kernels.gated_expert.ops import check_width
 
-            channels = self.ai.stem_w.shape[0] // self.ai.width
-            if use_pallas_switch and dev.type == "cuda" and channels > MAX_CHANNELS:
-                raise ValueError(f"the fused GATED kernel takes at most {MAX_CHANNELS} "
-                                 f"channels, not {channels}")
+            if use_pallas_switch and dev.type == "cuda":
+                check_width(self.ai.stem_w.shape[0] // self.ai.width)
 
             def gated_fused_apply(idx, src, base, h_ls):
                 return gated_expert_apply(
@@ -692,11 +692,16 @@ class BatchedPuschPipeline:
         link, out = self._slot_core(profile, link, committed, keys, p)
         vecs = trajectory_kpm_matrix(out["kpms"], sw_cfg.feature_names)
         decide = sw_cfg.period_slots == 1 or slot_idx % sw_cfg.period_slots == 0
-        new_sw, raw = switch_update(sw, vecs, policy, sw_cfg, decide=decide)
+        if isinstance(policy, DeviceTreePolicy):  # the whole phase in one launch
+            new_sw, raw = policy_step(sw, vecs, policy, sw_cfg, decide=decide)
+        else:
+            new_sw, raw = switch_update(sw, vecs, policy, sw_cfg, decide=decide)
+            new_sw = switch_boundary(new_sw)
+        # the boundary leaves the register as the update wrote it
         out = dict(out, active_mode=committed, raw_decision=raw,
                    pending_mode=new_sw.pending_mode,
                    quarantined=torch.zeros_like(committed))
-        return link, switch_boundary(new_sw), out
+        return link, new_sw, out
 
     def run_closed_loop(self, schedule: Callable[[int], ChannelConfig],
                         policy: DevicePolicy, sw_cfg: SwitchConfig, *, n_slots: int,

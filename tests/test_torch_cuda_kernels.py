@@ -69,21 +69,166 @@ def test_cuda_mmse_interp_rows_do_not_depend_on_the_batch(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 4, 1, 1272, 3), (5, 3), (7, 1, 1, 13, 3)])
-def test_cuda_switch_vs_plain(cuda, shape):
+@pytest.mark.parametrize("n_experts", [2, 3])
+@pytest.mark.parametrize("shape", [(1, 4, 1, 1272, 3), (32, 4, 1, 1272, 3),
+                                   (168, 4, 1, 1272, 3), (5, 3), (7, 1, 1, 13, 3)])
+def test_cuda_switch_vs_plain(cuda, shape, n_experts):
+    """One launch for every expert, out of place: bitwise the plain version,
+    and no expert output is written (the designated one stays unswitched, as
+    in the reference).  (5, 3) and (7, 1, 1, 13, 3) complex payloads are not
+    whole float4 vectors a UE: the scalar path."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    des = torch.complex(torch.randn(shape, generator=g, device=cuda),
-                        torch.randn(shape, generator=g, device=cuda))
-    alt = torch.randn_like(des)
-    for modes in (torch.arange(shape[0], device=cuda) % 2,
-                  torch.zeros(shape[0], device=cuda), torch.ones(shape[0], device=cuda)):
+    outs = [torch.complex(torch.randn(shape, generator=g, device=cuda),
+                          torch.randn(shape, generator=g, device=cuda))
+            for _ in range(n_experts)]
+    kept = [o.clone() for o in outs]
+    n_ues = shape[0]
+    for modes in (torch.arange(n_ues, device=cuda) % n_experts,
+                  torch.zeros(n_ues, device=cuda), torch.full((n_ues,), n_experts - 1,
+                                                              device=cuda)):
         modes = modes.to(torch.int32)
-        want = switch_select_batched_ref(modes, [des, alt])
-        d = des.clone()
-        got = switch_select(modes, [d, alt])
+        want = switch_select_batched_ref(modes, outs)
+        before = build.launch_counts["switch_select_batched"]
+        got = switch_select(modes, outs)
         torch.cuda.synchronize()
-        assert got.data_ptr() == d.data_ptr()
+        assert build.launch_counts["switch_select_batched"] == before + 1
+        assert all(got.data_ptr() != o.data_ptr() for o in outs)
         assert torch.equal(got, want)
+        assert all(torch.equal(o, k) for o, k in zip(outs, kept))
+    # a mode that names no expert keeps the designated slice
+    bad = torch.full((n_ues,), n_experts, dtype=torch.int32, device=cuda)
+    bad[::2] = -1
+    assert torch.equal(switch_select(bad, outs), outs[0])
+
+
+@pytest.mark.cuda
+def test_cuda_switch_checks_every_call(cuda):
+    """The per-UE switch validates a signature once, but each call's tensors
+    still have to match it: a mismatch raises before any launch."""
+    outs = [torch.zeros(4, 6, dtype=torch.complex64, device=cuda) for _ in range(2)]
+    modes = torch.zeros(4, dtype=torch.int32, device=cuda)
+    switch_select(modes, outs)
+    before = build.launch_counts["switch_select_batched"]
+    with pytest.raises(ValueError):  # a non-contiguous alternative
+        switch_select(modes, [outs[0], torch.zeros(6, 4, dtype=torch.complex64,
+                                                   device=cuda).t()])
+    with pytest.raises(ValueError):  # another shape
+        switch_select(modes, [outs[0], outs[1][:, :3].contiguous()])
+    with pytest.raises(TypeError):  # a lazily conjugated alternative
+        switch_select(modes, [outs[0], outs[1].conj()])
+    with pytest.raises(TypeError):  # int64 modes
+        switch_select(modes.long(), outs)
+    with pytest.raises(ValueError):  # more experts than the kernel's table
+        switch_select(modes, outs * 5)
+    assert build.launch_counts["switch_select_batched"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_bank_outputs_stay_unswitched(cuda, fused):
+    """On the card a batched CONCURRENT call's ``all_outputs[0]`` is the AI
+    estimate computed alone, and a GATED bank's ``baseline`` (no audit) is the
+    MMSE estimate computed alone; neither shares storage with ``selected``."""
+    from repro_torch import random as jr
+    from repro_torch.core.expert_bank import ExecutionMode
+    from repro_torch.phy import ai_estimator as tai
+    from repro_torch.phy.pipeline import BatchedPuschPipeline
+
+    torch.use_deterministic_algorithms(True)
+    cfg = SlotConfig(n_prb=24)
+    net = tai.AiEstimatorConfig(channels=8, n_res_blocks=1)
+    params = tai.init_params(jr.PRNGKey(0), cfg, net)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    h_ls = _cplx(g, (6, cfg.n_ant, cfg.n_dmrs_sym, cfg.n_pilot_sc), cuda)
+    mode = torch.tensor([0, 1, 0, 0, 1, 0], dtype=torch.int32, device=cuda)
+    conc = BatchedPuschPipeline(cfg, params, net=net, device=cuda)
+    out = conc.bank(mode, h_ls)
+    assert torch.equal(out.all_outputs[0], conc.ai(h_ls))
+    assert out.all_outputs[0].data_ptr() != out.selected.data_ptr()
+    assert out.baseline.data_ptr() != out.selected.data_ptr()
+    gated = BatchedPuschPipeline(cfg, params, net=net, execution_mode=ExecutionMode.GATED,
+                                 gated_capacity=3, fused_gated=fused, device=cuda)
+    out = gated.bank(mode, h_ls)
+    assert torch.equal(out.baseline, gated._mmse_from_ls_batched(h_ls))
+    assert out.baseline.data_ptr() != out.selected.data_ptr()
+    ai_ues = torch.nonzero(mode == 0).flatten()[:3]
+    assert not torch.equal(out.selected[ai_ues], out.baseline[ai_ues])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hyst,period,depth", [(1, 1, 2), (3, 2, 3), (2, 3, 5)])
+def test_cuda_policy_step_vs_plain(cuda, hyst, period, depth):
+    """The fused decision phase against ``switch_update`` then
+    ``switch_boundary`` on the card, slot by slot over 200 slots (hold slots
+    included): ring, window, register, streak, modes and switch counts
+    bitwise, one launch a slot, and the input state left as it was."""
+    from repro_torch.core import closed_loop as tcl
+    from repro_torch.core.telemetry import SELECTED_KPMS, ring_window_mean
+    from repro_torch.kernels.tree_infer import policy_step, policy_step_ref
+
+    rng = np.random.default_rng(depth)
+    n_ues, n_feat, window = 32, len(SELECTED_KPMS), 8
+    feature, threshold, leaves = _random_tree(rng, depth, n_feat)
+    leaves = leaves % 2
+    pol = tcl.export_tree_tables(feature, threshold * 0.3, leaves, cuda)
+    cfg = tcl.SwitchConfig(feature_names=SELECTED_KPMS, window_slots=window,
+                           hysteresis_slots=hyst, period_slots=period)
+    shift = np.where((np.arange(200) // 7) % 2 == 0, -1.0, 1.0)[:, None, None]
+    feats = torch.as_tensor((shift + rng.normal(size=(200, n_ues, n_feat))).astype(np.float32),
+                            device=cuda)
+    feats[5, 3, 2] = float("inf")  # a non-finite KPM travels through the window alike
+    state = ref = tcl.init_device_switch(n_ues, n_feat, cfg, cuda)
+    flips = 0
+    for s in range(200):
+        decide = s % period == 0
+        old = [t.clone() for t in (*state.rings, *state[1:])]
+        before = build.launch_counts["tree_infer"]
+        state_next, raw = policy_step(state, feats[s], pol, cfg, decide=decide)
+        assert build.launch_counts["tree_infer"] == before + 1
+        ref, ref_raw = policy_step_ref(ref, feats[s], pol, cfg, decide=decide)
+        torch.cuda.synchronize()
+        assert all(torch.equal(t, o) for t, o in zip((*state.rings, *state[1:]), old))
+        state = state_next
+        assert torch.equal(raw, ref_raw), s
+        for a, b in zip((*state.rings, *state[1:]), (*ref.rings, *ref[1:])):
+            assert torch.equal(a, b), s
+        assert torch.equal(ring_window_mean(state.rings, window),
+                           ring_window_mean(ref.rings, window))
+        flips += int((state.active_mode != old[3]).sum())
+    assert flips > 0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_gated_pipeline_at_64_channels(cuda):
+    """A fused GATED pipeline twice the paper's width builds on the card and
+    runs two slots through the kernel; wider ones raise when the session is
+    built, before any profiling."""
+    from repro_torch import random as jr
+    from repro_torch.core.expert_bank import ExecutionMode
+    from repro_torch.core.session import ArchesSession, CampaignSpec, ExpertBankSpec, PolicySpec
+    from repro_torch.phy import ai_estimator as tai
+    from repro_torch.phy.pipeline import BatchedPuschPipeline
+    from repro_torch.phy.scenario import get_scenario
+
+    torch.use_deterministic_algorithms(True)
+    cfg = SlotConfig(n_prb=106)
+    net = tai.AiEstimatorConfig(channels=64, n_res_blocks=4)
+    pipe = BatchedPuschPipeline(cfg, tai.init_params(jr.PRNGKey(0), cfg, net), net=net,
+                                execution_mode=ExecutionMode.GATED, gated_capacity=4,
+                                fused_gated=True, device=cuda)
+    build.reset_launch_counts()
+    modes = np.zeros((2, 8), np.int32)
+    modes[:, ::2] = 1
+    _, traj = pipe.run(get_scenario("good").schedule(), modes, n_slots=2, n_ues=8)
+    assert build.launch_counts["gated_expert"] == 2, build.launch_counts
+    for name in ("tb_ok", "executed_flops"):
+        assert torch.isfinite(traj[name]).all()
+    for v in traj["kpms"]["aerial"].values():
+        assert torch.isfinite(v).all()
+    spec = CampaignSpec(path="closed_loop", n_ues=2, n_slots=2, policies=(PolicySpec(),),
+                        bank=ExpertBankSpec(execution_mode="gated", fused=True, channels=72))
+    with pytest.raises(ValueError, match="at most 64 channels"):
+        ArchesSession(spec, device=cuda)
 
 
 @pytest.mark.cuda
@@ -158,13 +303,14 @@ def test_cuda_switch_gather_vs_plain(cuda, n_ues, capacity, shape):
         mode = (picked < 0).to(torch.int32)
         _, src = _compaction(mode, capacity)
         want = switch_gather_batched_ref(src, compact, des0)
-        des = des0.clone()
+        des, comp = des0.clone(), compact.clone()
         before = build.launch_counts["switch_gather_batched"]
         got = switch_scatter(src, compact, des)
         torch.cuda.synchronize()
         assert build.launch_counts["switch_gather_batched"] == before + 1
-        assert got.data_ptr() == des.data_ptr()
+        assert got.data_ptr() != des.data_ptr()  # out of place: the inputs stay
         assert torch.equal(got, want)
+        assert torch.equal(des, des0) and torch.equal(compact, comp)
 
 
 def _gated_setup(cuda, n_prb, channels, n_res, n_ues, compute_dtype, seed=0):
@@ -185,13 +331,15 @@ def _gated_setup(cuda, n_prb, channels, n_res, n_ues, compute_dtype, seed=0):
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("capacity", [1, 16, 32])
 @pytest.mark.parametrize("n_prb", [4, 24, 106, 273])
-@pytest.mark.parametrize("channels,n_res", [(32, 4), (8, 1)])
+@pytest.mark.parametrize("channels,n_res", [(32, 4), (8, 1), (40, 1), (48, 2), (64, 4)])
 def test_cuda_gated_expert_vs_plain(cuda, bf16, n_prb, channels, n_res, capacity):
     """From NR's narrowest carrier to its widest at 30 kHz (one to eight blocks a
-    cluster), at the paper's width and a narrow one (channels padded to 16), K =
-    1 (UEs overflow), 16 and 32 (padding rows); two calls give the same bits.
-    In float32 the kernel errs against a float64 plain version at most
-    ``GATED_EXACT_RATIO`` times as much as the float32 plain version does."""
+    cluster), at the paper's width, a narrow one (channels padded to 16) and the
+    wide ones (40 and 48 padded to 48, and 64), K = 1 (UEs overflow), 16 and 32
+    (padding rows); two calls give the same bits, and the designated input is
+    left as it was (the result is a new tensor).  In float32 the kernel errs
+    against a float64 plain version at most ``GATED_EXACT_RATIO`` times as much
+    as the float32 plain version does."""
     import copy
 
     from repro_torch.kernels.gated_expert import gated_expert_apply, gated_expert_apply_ref
@@ -209,7 +357,7 @@ def test_cuda_gated_expert_vs_plain(cuda, bf16, n_prb, channels, n_res, capacity
     got = gated_expert_apply(idx, src, h_ls, des, ai, compute_dtype=cd)
     torch.cuda.synchronize()
     assert build.launch_counts["gated_expert"] == before + 1
-    assert got.data_ptr() == des.data_ptr()
+    assert got.data_ptr() != des.data_ptr() and torch.equal(des, des0)
     kept = src < 0  # padding rows' UEs and unselected UEs: bitwise untouched
     assert torch.equal(got[kept], des0[kept])
     torch.testing.assert_close(got, want, **(GATED_BF16_TOL if bf16 else GATED_F32_TOL))
@@ -225,31 +373,33 @@ def test_cuda_gated_expert_vs_plain(cuda, bf16, n_prb, channels, n_res, capacity
 
 @pytest.mark.cuda
 def test_cuda_gated_expert_refuses_more_than_32_channels(cuda):
-    """The kernel's GEMMs pad the channels to 16 or 32: a wider estimator is
-    refused before any launch, never run through the plain version, and a
-    fused GATED pipeline on the card refuses it when it is built."""
+    """The kernel's GEMMs pad the channels to 16, 32, 48 or 64: a wider
+    estimator is refused before any launch, never run through the plain
+    version, and a fused GATED pipeline on the card refuses it when it is
+    built."""
     from repro_torch import random as jr
     from repro_torch.core.expert_bank import ExecutionMode
     from repro_torch.kernels.gated_expert import gated_expert_apply
     from repro_torch.phy import ai_estimator as tai
     from repro_torch.phy.pipeline import BatchedPuschPipeline
 
-    ai, h_ls, des0 = _gated_setup(cuda, 24, 40, 1, 4, None)
+    ai, h_ls, des0 = _gated_setup(cuda, 24, 72, 1, 4, None)
     idx, src = _compaction(torch.zeros(4, dtype=torch.int32, device=cuda), 4)
     before = build.launch_counts["gated_expert"]
-    with pytest.raises(ValueError, match="at most 32 channels"):
+    with pytest.raises(ValueError, match="at most 64 channels"):
         gated_expert_apply(idx, src, h_ls, des0.clone(), ai)
     assert build.launch_counts["gated_expert"] == before
-    net = tai.AiEstimatorConfig(channels=40, n_res_blocks=1)
+    net = tai.AiEstimatorConfig(channels=72, n_res_blocks=1)
     params = tai.init_params(jr.PRNGKey(0), SlotConfig(n_prb=24), net)
-    with pytest.raises(ValueError, match="at most 32 channels"):
+    with pytest.raises(ValueError, match="at most 64 channels"):
         BatchedPuschPipeline(SlotConfig(n_prb=24), params, net=net,
                              execution_mode=ExecutionMode.GATED, fused_gated=True, device=cuda)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("channels", [32, 64])
 @pytest.mark.parametrize("n_prb", [24, 106, 273])
-def test_cuda_gated_expert_batch_composition_bitwise(cuda, n_prb):
+def test_cuda_gated_expert_batch_composition_bitwise(cuda, n_prb, channels):
     """One UE's estimate is the same bits at K = 1, at K = 16 and at another
     row of ``idx``: every row runs the same code in the same order.  At these
     widths the UE's subcarriers span two, eight and eight blocks of a cluster
@@ -257,7 +407,7 @@ def test_cuda_gated_expert_batch_composition_bitwise(cuda, n_prb):
     from repro_torch.kernels.gated_expert import gated_expert_apply
     from repro_torch.kernels.gated_expert.ops import cluster_size
 
-    ai, h_ls, des0 = _gated_setup(cuda, n_prb, 32, 4, 32, None, seed=3)
+    ai, h_ls, des0 = _gated_setup(cuda, n_prb, channels, 4, 32, None, seed=3)
     assert cluster_size(h_ls.shape[-1]) > 1
     ue = 9
     alone = torch.ones(32, dtype=torch.int32, device=cuda)

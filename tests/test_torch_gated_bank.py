@@ -4,8 +4,8 @@ Toy banks (elementwise experts on float tensors) compare every leaf: the
 experts' arithmetic is the same IEEE operation in both packages, so
 ``selected`` is bitwise too.  The engine's own bank (the AI estimator and
 MMSE) compares the integer leaves bitwise and ``selected`` within the AI
-expert's tolerance.  The audit tests show the in-place scatter does not
-alias the baseline the audit compares against.
+expert's tolerance.  The audit tests show the baseline the audit compares
+against is the unswitched fail-safe output, apart from ``selected``.
 """
 
 import jax
@@ -123,25 +123,27 @@ def test_audit_trips_on_divergent_expert(rng):
 @pytest.mark.parametrize("fused", [False, True])
 def test_audit_trips_on_nan_expert(fused):
     """A NaN forward trips whatever the threshold; with a fused hook that
-    writes into the baseline in place, as the card's kernel does, the audit
-    still sees the unswitched baseline."""
+    returns a new tensor, as the card's wrapper does (it writes a copy of the
+    baseline), the audit sees the unswitched baseline, which the bank
+    returns untouched and apart from ``selected``."""
     fns = [("ai", lambda p, x: x * float("nan"), 1.0), ("mmse", lambda p, x: -x, 1.0)]
     x = np.ones((3, 4), np.float32)
     mode = np.zeros(3, np.int32)
 
-    def in_place(idx, src, base, x):
+    def out_of_place(idx, src, base, x):
         keep = (src < 0)[:, None]
-        base.copy_(torch.where(keep, base, x * float("nan")))
-        return base
+        return torch.where(keep, base, x * float("nan"))
 
     kw = dict(execution_mode="gated", audit_threshold=1e6)
     ro = _toy(rbank, fns, **kw)(jnp.asarray(mode), jnp.asarray(x))
-    tb = _toy(tbank, fns, gated_fused_apply=in_place if fused else None, **kw)
+    tb = _toy(tbank, fns, gated_fused_apply=out_of_place if fused else None, **kw)
     to = tb(torch.as_tensor(mode), torch.as_tensor(x))
     _same_leaves(ro, to)
     np.testing.assert_array_equal(_np(to.audit_tripped), [True] * 3)
     np.testing.assert_array_equal(_np(to.selected), -x)
     assert np.isfinite(_np(to.selected)).all()
+    np.testing.assert_array_equal(_np(to.baseline), -x)
+    assert to.baseline.data_ptr() != to.selected.data_ptr()
 
 
 def test_audit_quiet_on_faithful_expert(rng):
