@@ -23,14 +23,15 @@ Phases, each of which raises on failure (exit code != 0):
    bitwise the same twice and one UE's estimate bitwise the same at any
    capacity, its float32 error against a float64 plain version at most
    ``GATED_EXACT_RATIO`` times the float32 plain version's, all of it at the
-   paper's 32 channels and at 64), with kernel, plain-version and
-   library times and the card's lower bound for the same work; the
-   switches, the scatter, ``mmse_interp`` and the fused gated expert (against
-   the unfused GATED path, also at K = 32 with every UE selected and at 64
-   channels) and ``policy_step`` (against the composition it replaced) are
-   timed against their yardstick in turns (kernel, library, library,
-   kernel) and print the ratio, and the scalar switch prints the host time
-   of a call alone against ``copy_``'s;
+   paper's 32 channels, at 64 and, in the kernel's wide form, at 96 and
+   128), with kernel, plain-version and library times and the card's lower
+   bound for the same work; the switches, the scatter, ``mmse_interp`` and
+   the fused gated expert (against the unfused GATED path, also at K = 32
+   with every UE selected and at 64, 96 and 128 channels) and
+   ``policy_step`` (against the composition it replaced) are timed against
+   their yardstick in turns (kernel, library, library, kernel) and print the
+   ratio, the scatter also against the per-UE switch's call over the same
+   bytes, and the switches print the host time of a call alone;
 4. main path: ``ArchesSession(...).run()`` of the closed-loop campaign at
    the paper's 106-PRB slot with 32 UEs and the estimator's default width,
    on a CONCURRENT bank; every kernel of that path must launch during the
@@ -39,7 +40,8 @@ Phases, each of which raises on failure (exit code != 0):
 5. GATED main path: the same campaign on a fused GATED bank of capacity 16,
    with the same checks and the executed-FLOPs leaf held against the
    served AI count; then an unfused GATED run with ``auto_capacity`` at a
-   smaller depth, which launches the scatter kernel;
+   smaller depth, which launches the scatter kernel, and a fused GATED run
+   at 96 channels (the kernel's wide form) for a few slots;
 6. GATED vs CONCURRENT: the same policy on a full-capacity GATED bank
    against the CONCURRENT run, as agreement rates;
 7. host loop: ``ArchesSession(path="host")`` at n_prb 106 with the AI
@@ -60,7 +62,8 @@ Phases, each of which raises on failure (exit code != 0):
     every later launch on the host, so it runs after the timed paths);
 11. profile: one more run of each closed loop and of the host loop under
     ``torch.profiler``: the device's busy share, the launches per slot,
-    the AI expert's device time per slot, and kernel time by name.
+    the AI expert's device time per slot (on the fused GATED bank also
+    launch by launch, by the UEs each slot served), and kernel time by name.
 
 Each path's launch counts are zeroed just before its ``run()`` (or the
 sweep) and read just after it.
@@ -123,9 +126,12 @@ REF_KPM_RTOL = 1e-3
 
 N_UES, N_PRB, N_SLOTS = 32, 106, 40
 CHANNELS, N_RES = 32, 4
-#: the widest estimator the fused GATED kernel takes, twice the paper's width
-WIDE_CHANNELS = 64
+#: estimators wider than the paper's: the fused GATED kernel's widest CP form
+#: (64), and its wide form (chunks of 32 channels) at 96 and 128
+WIDE_CHANNELS = (64, 96, 128)
 GATED_CAPACITY, UNFUSED_SLOTS = 16, 12
+#: the fused GATED session at 96 channels: its width and its depth in slots
+WIDE_SESSION_CHANNELS, WIDE_SESSION_SLOTS = 96, 6
 #: the perturbation sweep: every default rho x this many trials rides the UE axis
 SWEEP_TRIALS, SWEEP_SLOTS = 8, 8
 
@@ -162,6 +168,17 @@ def turns(kernel, library, iters: int = 50) -> tuple[float, float, str]:
     return ((k1 + k2) / 2, (l1 + l2) / 2,
             f"{k1 * 1e3:.2f} / {k2 * 1e3:.2f} us vs {l1 * 1e3:.2f} / {l2 * 1e3:.2f} us, "
             f"ratio {(k1 + k2) / (l1 + l2):.3f}")
+
+
+def turns_of(**fns) -> tuple[dict[str, float], str]:
+    """Several calls' times taken in turns (a, b, ..., ..., b, a): each mean,
+    and both readings of each."""
+    names = list(fns)
+    first = {k: time_ms(fns[k]) for k in names}
+    second = {k: time_ms(fns[k]) for k in reversed(names)}
+    means = {k: (first[k] + second[k]) / 2 for k in names}
+    return means, "; ".join(f"{k} {first[k] * 1e3:.2f} / {second[k] * 1e3:.2f} us"
+                            for k in names)
 
 
 #: device-alone measurements the kernel phases queue for ``phase_device_alone``:
@@ -595,7 +612,11 @@ def phase_gated_kernels() -> list[dict]:
     from repro_torch import random as jr
     from repro_torch.kernels.gated_expert import gated_expert_apply, gated_expert_apply_ref
     from repro_torch.kernels.gated_expert.ops import cluster_size
-    from repro_torch.kernels.switch_select import switch_gather_batched_ref, switch_scatter
+    from repro_torch.kernels.switch_select import (
+        switch_gather_batched_ref,
+        switch_scatter,
+        switch_select,
+    )
     from repro_torch.phy import ai_estimator as tai
     from repro_torch.phy.nr import SlotConfig
 
@@ -631,12 +652,13 @@ def phase_gated_kernels() -> list[dict]:
     des0, compact = cplx((N_UES,) + shape), cplx((cap,) + shape)
     want = switch_gather_batched_ref(src, compact, des0)
     des, comp = des0.clone(), compact.clone()
-    got = switch_scatter(src, compact, des)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("switch_gather kernel differs from its plain version")
-    if not (torch.equal(des, des0) and torch.equal(compact, comp)):
-        raise AssertionError("switch_gather wrote into an input")
+    for _ in range(2):  # the second call finds its signature validated
+        got = switch_scatter(src, compact, des)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("switch_gather kernel differs from its plain version")
+        if not (torch.equal(des, des0) and torch.equal(compact, comp)):
+            raise AssertionError("switch_gather wrote into an input")
     full = cplx((N_UES,) + shape)
     for m, c, k in ((torch.ones_like(mode), compact, cap),  # none selected
                     (torch.zeros_like(mode), full, N_UES),  # all selected
@@ -647,13 +669,29 @@ def phase_gated_kernels() -> list[dict]:
             raise AssertionError(f"switch_gather differs at capacity {k}")
     plain = time_ms(lambda: switch_gather_batched_ref(src, compact, des0))
     sel = torch.nonzero(src >= 0).flatten()
-    # both out of place, as the scatter now is
-    ms, lib, reading = turns(lambda: switch_scatter(src, compact, des),
-                             lambda: des.index_copy(0, sel, compact[:n_sel]))
+    # all three out of place: the scatter, index_copy (its library call), and the
+    # per-UE switch over the same bytes (one launch, a fresh (U, ...) output)
+    alt = cplx((N_UES,) + shape)
+    modes = (src < 0).to(torch.int32)
+    means, reading = turns_of(
+        scatter=lambda: switch_scatter(src, compact, des),
+        index_copy=lambda: des.index_copy(0, sel, compact[:n_sel]),
+        switch=lambda: switch_select(modes, [des, alt]))
+    ms, lib = means["scatter"], means["index_copy"]
     device_alone("switch_gather_batched", lambda d=des: switch_scatter(src, compact, d),
                  "copy_rows_kernel")
     device_alone("index_copy", lambda d=des: d.index_copy(0, sel, compact[:n_sel]), None)
-    log(f"  switch_gather_batched: out of place; call {reading} (index_copy)")
+    torch.cuda.synchronize()
+    host = {name: host_us(f) for name, f in (
+        ("scatter", lambda: switch_scatter(src, compact, des)),
+        ("switch", lambda: switch_select(modes, [des, alt])),
+        ("index_copy", lambda: des.index_copy(0, sel, compact[:n_sel])))}
+    torch.cuda.synchronize()
+    log(f"  switch_gather_batched: out of place, bitwise on a second call of the same "
+        f"signature; call in turns: {reading}; scatter / switch "
+        f"{means['scatter'] / means['switch']:.3f}, scatter / index_copy "
+        f"{means['scatter'] / means['index_copy']:.3f}; host time per call alone (200 calls "
+        f"back to back): " + "; ".join(f"{k} {v:.2f} us" for k, v in host.items()))
     # every UE of the fresh output is read (compact row or fail-safe) and written
     bms, by = bound_ms(2.0 * des0.numel() * 8 + 4 * N_UES, 0.0)
     rows.append(dict(
@@ -722,30 +760,33 @@ def phase_gated_kernels() -> list[dict]:
         outs.append(gated_expert_apply(i_, s_, h_ls, des0.clone(), ai)[ue])
     if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])):
         raise AssertionError("gated_expert: one UE's estimate depends on the batch")
-    # twice the paper's width, the widest the kernel takes: 64 channels, held to the
-    # same rules (plain version, float64, one UE bitwise at any capacity)
-    net64 = tai.AiEstimatorConfig(channels=WIDE_CHANNELS, n_res_blocks=N_RES)
-    p64 = tai.init_params(jr.PRNGKey(12), cfg, net64)
-    wide = {cd: tai.AiEstimator(p64, cfg.n_dmrs_sym, cd).to(dev)
-            for cd in (None, torch.bfloat16)}
-    for cd, tol in ((None, GATED_F32_TOL), (torch.bfloat16, GATED_BF16_TOL)):
-        got = gated_expert_apply(idx, src, h_ls, des0, wide[cd], compute_dtype=cd)
-        want = gated_expert_apply_ref(idx, src, h_ls, des0, wide[cd], compute_dtype=cd)
-        torch.testing.assert_close(got, want, **tol)
-        if not torch.equal(got[kept], des0[kept]):
-            raise AssertionError("gated_expert at 64 channels touched an unselected UE")
-        log(f"  gated_expert at {WIDE_CHANNELS} channels, {'bf16' if cd else 'f32'}: max "
-            f"|err| {float((got - want).abs().max()):.3g}")
-        if cd is None:
-            against_float64(f"gated_expert at {WIDE_CHANNELS} channels", idx, src, h_ls, des0,
-                            wide[cd], got, want)
-    outs = []
-    for m, k in ((alone, 1), (mode, cap), (torch.zeros_like(mode), N_UES)):
-        i_, s_ = _compaction(m, k)
-        outs.append(gated_expert_apply(i_, s_, h_ls, des0, wide[None])[ue])
-    if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])):
-        raise AssertionError("gated_expert at 64 channels: one UE's estimate depends on "
-                             "the batch")
+    # wider than the paper's: 64 channels (the widest CP form), 96 and 128 (the wide
+    # form, chunks of 32), held to the same rules (plain version, float64, one UE
+    # bitwise at any capacity)
+    wide = {}
+    for ch in WIDE_CHANNELS:
+        net_w = tai.AiEstimatorConfig(channels=ch, n_res_blocks=N_RES)
+        p_w = tai.init_params(jr.PRNGKey(12), cfg, net_w)
+        wide[ch] = tai.AiEstimator(p_w, cfg.n_dmrs_sym).to(dev)
+        for cd, tol in ((None, GATED_F32_TOL), (torch.bfloat16, GATED_BF16_TOL)):
+            m_ = wide[ch] if cd is None else tai.AiEstimator(p_w, cfg.n_dmrs_sym, cd).to(dev)
+            got = gated_expert_apply(idx, src, h_ls, des0, m_, compute_dtype=cd)
+            want = gated_expert_apply_ref(idx, src, h_ls, des0, m_, compute_dtype=cd)
+            torch.testing.assert_close(got, want, **tol)
+            if not torch.equal(got[kept], des0[kept]):
+                raise AssertionError(f"gated_expert at {ch} channels touched an unselected UE")
+            log(f"  gated_expert at {ch} channels, {'bf16' if cd else 'f32'}: max "
+                f"|err| {float((got - want).abs().max()):.3g}")
+            if cd is None:
+                against_float64(f"gated_expert at {ch} channels", idx, src, h_ls, des0, m_,
+                                got, want)
+        outs = []
+        for m, k in ((alone, 1), (mode, cap), (torch.zeros_like(mode), N_UES)):
+            i_, s_ = _compaction(m, k)
+            outs.append(gated_expert_apply(i_, s_, h_ls, des0, wide[ch])[ue])
+        if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])):
+            raise AssertionError(f"gated_expert at {ch} channels: one UE's estimate depends "
+                                 f"on the batch")
 
     def unfused():  # the unfused GATED path: gather, cuBLAS forward, scatter kernel
         compact_out = ai(h_ls.index_select(0, idx.to(torch.int64)))
@@ -764,18 +805,21 @@ def phase_gated_kernels() -> list[dict]:
         lambda: gated_expert_apply(i32, s32, h_ls, des, ai),
         lambda: switch_scatter(s32, ai(h_ls.index_select(0, i32.to(torch.int64))), des),
         iters=10)
-    ms64, lib64, reading64 = turns(
-        lambda: gated_expert_apply(idx, src, h_ls, des, wide[None]),
-        lambda: switch_scatter(src, wide[None](h_ls.index_select(0, idx.to(torch.int64))),
-                               des),
-        iters=10)
+    wide_times = {}  # channels -> (call, unfused, reading)
+    for ch, m_ in wide.items():
+        wide_times[ch] = turns(
+            lambda m_=m_: gated_expert_apply(idx, src, h_ls, des, m_),
+            lambda m_=m_: switch_scatter(src, m_(h_ls.index_select(0, idx.to(torch.int64))),
+                                         des),
+            iters=10)
     for label, fn in (("gated_expert f32", lambda: gated_expert_apply(idx, src, h_ls, des, ai)),
                       ("gated_expert bf16", lambda: gated_expert_apply(
                           idx, src, h_ls, des, ai16, compute_dtype=torch.bfloat16)),
                       ("gated_expert f32, K 32 all selected",
                        lambda: gated_expert_apply(i32, s32, h_ls, des, ai)),
-                      (f"gated_expert f32, {WIDE_CHANNELS} channels",
-                       lambda: gated_expert_apply(idx, src, h_ls, des, wide[None]))):
+                      *((f"gated_expert f32, {ch} channels",
+                         lambda m_=m_: gated_expert_apply(idx, src, h_ls, des, m_))
+                        for ch, m_ in wide.items())):
         device_alone(label, fn, "gated_expert", 20)
     device_alone("unfused GATED path", unfused, None, 20)
     flops = direct_conv_flops(cfg, CHANNELS, N_RES, n_sel)
@@ -792,11 +836,14 @@ def phase_gated_kernels() -> list[dict]:
     log(f"  gated_expert: clusters of {n_cl} blocks, "
         f"{-(-cfg.n_pilot_sc // n_cl)} subcarriers a block, {n_sel * cfg.n_ant * n_cl} blocks at "
         f"K {cap}")
-    b64_ms, _ = bound_ms(io_bytes, 3.0 * direct_conv_flops(cfg, WIDE_CHANNELS, N_RES, n_sel),
-                         PEAK_TF32_FLOPS)
     log(f"  gated_expert f32 vs the unfused path: {reading}; bf16: {reading16}; "
-        f"K {N_UES} all selected vs unfused: {reading32}; {WIDE_CHANNELS} channels vs "
-        f"unfused: {reading64} (3xTF32 bound {b64_ms * 1e3:.2f} us)")
+        f"K {N_UES} all selected vs unfused: {reading32}")
+    for ch, (ms_w, lib_w, reading_w) in wide_times.items():
+        b_w, _ = bound_ms(io_bytes, 3.0 * direct_conv_flops(cfg, ch, N_RES, n_sel),
+                          PEAK_TF32_FLOPS)
+        log(f"  gated_expert at {ch} channels ({'CP' if ch <= 64 else 'wide'} form) vs the "
+            f"unfused path: {reading_w}; call {ms_w * 1e3:.2f} us, {ms_w / b_w:.2f}x its 3xTF32 "
+            f"bound {b_w * 1e3:.2f} us, {ms_w / ms:.2f}x the {CHANNELS}-channel call")
     log(f"  gated_expert max |err| f32 {errs[None]:.3g}, bf16 {errs[torch.bfloat16]:.3g}; "
         f"bound {bms * 1e3:.2f} us (3xTF32, {by}), fp32 "
         f"bound {f32_ms * 1e3:.2f} us, bf16 bound {bf16_ms * 1e3:.2f} us, 3xTF32 bound at K "
@@ -809,8 +856,10 @@ def phase_gated_kernels() -> list[dict]:
         shape=f"K {cap}, {n_sel} rows valid, {CHANNELS} ch x {N_RES} blocks, "
               f"{flops / 1e9:.2f} GFLOP as direct convs; bf16 {ms16 * 1e3:.2f} us; "
               f"K {N_UES} all selected {ms32 * 1e3:.2f} us "
-              f"(unfused {lib32 * 1e3:.2f} us); {WIDE_CHANNELS} ch {ms64 * 1e3:.2f} us "
-              f"(unfused {lib64 * 1e3:.2f} us); one UE bitwise at K 1, {cap}, {N_UES}",
+              f"(unfused {lib32 * 1e3:.2f} us); "
+              + "; ".join(f"{ch} ch {t[0] * 1e3:.2f} us (unfused {t[1] * 1e3:.2f} us)"
+                          for ch, t in wide_times.items())
+              + f"; one UE bitwise at K 1, {cap}, {N_UES}",
     ))
     for r in rows:
         log(f"kernel {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
@@ -820,14 +869,14 @@ def phase_gated_kernels() -> list[dict]:
     return rows
 
 
-def _main_spec(**bank):
+def _main_spec(channels: int = CHANNELS, **bank):
     from repro_torch.core.session import CampaignSpec, ExpertBankSpec, PolicySpec
 
     return CampaignSpec(
         path="closed_loop", scenario="good_poor_good",
         scenario_args=(("poor_start", 13), ("poor_end", 27)), n_prb=N_PRB,
         n_ues=N_UES, n_slots=N_SLOTS, seed=7,
-        bank=ExpertBankSpec(channels=CHANNELS, n_res_blocks=N_RES, **bank),
+        bank=ExpertBankSpec(channels=channels, n_res_blocks=N_RES, **bank),
         policies=(PolicySpec(kind="tree"),),
     )
 
@@ -872,7 +921,7 @@ def run_path(label: str, spec, kernels: tuple[str, ...], *, host_policies=None,
         raise AssertionError(f"{label} never launched {missing}: {launches}")
     _check_history(sess, hist, spec.n_slots)
     msg = (f"{label}: closed loop {spec.n_slots} slots x {N_UES} UEs, n_prb {N_PRB}, "
-           f"AI {CHANNELS} ch x {N_RES} blocks; first run {first_s:.2f} s")
+           f"AI {spec.bank.channels} ch x {N_RES} blocks; first run {first_s:.2f} s")
     if rerun:
         t0 = time.perf_counter()
         sess.run()
@@ -1096,16 +1145,19 @@ def phase_device_alone() -> None:
             f"({iters} calls under torch.profiler)")
 
 
-def phase_profile(sess, label: str, ai_kernels: tuple[str, ...]) -> None:
+def phase_profile(sess, label: str, ai_kernels: tuple[str, ...],
+                  per_launch: bool = False) -> None:
     """One more ``run()`` of a session under ``torch.profiler``: device busy
     share, the launches per slot, the AI expert's device time per slot
-    (kernels whose name holds one of ``ai_kernels``) and kernel time by name."""
+    (kernels whose name holds one of ``ai_kernels``) and kernel time by name.
+    With ``per_launch`` (a GATED bank: one AI launch a slot) the AI kernel's
+    device time launch by launch, grouped by the UEs its slot served."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.run()
+        hist = sess.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -1122,6 +1174,17 @@ def phase_profile(sess, label: str, ai_kernels: tuple[str, ...]) -> None:
     for e in events[:12]:
         log(f"  {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d} calls  "
             f"{e.key[:90]}")
+    if per_launch:
+        launches = sorted((e for e in prof.events() if e.device_type.name == "CUDA"
+                           and any(k in e.name.lower() for k in ai_kernels)),
+                          key=lambda e: e.time_range.start)
+        served = ((hist.modes == 0) & (hist.outputs["gated_overflow"] == 0)).sum(axis=1)
+        by_rows = collections.defaultdict(list)
+        for n, e in zip(served, launches):
+            by_rows[int(n)].append(e.time_range.elapsed_us())
+        log(f"profile {label}: {len(launches)} AI launches in {n_slots} slots, "
+            f"{float(served.mean()):.2f} UEs served a slot; device us a launch by UEs served: "
+            + ", ".join(f"{n}: {np.mean(t):.1f} ({len(t)})" for n, t in sorted(by_rows.items())))
 
 
 def main() -> int:
@@ -1152,6 +1215,17 @@ def main() -> int:
         host_policies=conc.host_policies, auto_capacity=True, rerun=False)
     log(f"GATED unfused: auto_capacity provisioned {unf_hist.provisioned_capacity} "
         f"(declared {GATED_CAPACITY}), overflow slot-UEs {unf_hist.overflow_slot_ues}")
+    # the fused GATED bank past 64 channels (the kernel's wide form), a few slots
+    wide_spec = dataclasses.replace(
+        _main_spec(WIDE_SESSION_CHANNELS, execution_mode="gated", fused=True,
+                   gated_capacity=GATED_CAPACITY),
+        n_slots=WIDE_SESSION_SLOTS, scenario_args=(("poor_start", 2), ("poor_end", 5)))
+    _, _, wide_launches = run_path(
+        f"GATED fused at {WIDE_SESSION_CHANNELS} channels", wide_spec, ("gated_expert",),
+        host_policies=conc.host_policies, rerun=False)
+    if wide_launches["gated_expert"] != WIDE_SESSION_SLOTS:
+        raise AssertionError(f"{wide_launches['gated_expert']} fused GATED launches in "
+                             f"{WIDE_SESSION_SLOTS} slots at {WIDE_SESSION_CHANNELS} channels")
     host, host_launches = phase_host()
     phase_sweep(host)
     for r in rows:
@@ -1164,7 +1238,7 @@ def main() -> int:
     phase_reference()
     phase_device_alone()
     phase_profile(conc, "CONCURRENT", ("gemm",))
-    phase_profile(gated, "GATED fused", ("gated_expert",))
+    phase_profile(gated, "GATED fused", ("gated_expert",), per_launch=True)
     phase_profile(host, "host loop", ("conv", "fprop", "cudnn"))
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

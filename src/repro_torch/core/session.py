@@ -335,11 +335,6 @@ class ArchesSession:
             dataclasses.replace(spec.bank, execution_mode="gated")
             if path is ExecutionPath.GATED and bank_mode is ExecutionMode.CONCURRENT
             else spec.bank)
-        bank = self.bank_spec
-        if bank.fused and bank.use_pallas_switch and self.device.type == "cuda":
-            from repro_torch.kernels.gated_expert.ops import check_width
-
-            check_width(bank.channels)  # before any profiling builds an engine
 
     # -- compiled components ---------------------------------------------------
 

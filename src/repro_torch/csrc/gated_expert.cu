@@ -77,6 +77,21 @@
 //   shared memory, so that weight region holds one tap (32 KB), stored after a
 //   barrier that follows the last tap's wgmmas; it stays static (uniform
 //   descriptors), and the slice at n_prb 273 still fits beside it (207 KB a block).
+// * The wide form, past 64 channels (gated_expert_wide_kernel): nothing a layer holds
+//   grows with the width.  Another CP would (a tap's accumulator and each tile's sums
+//   in registers, the weight tiles in static shared memory, the staged slice), so the
+//   channels are tiled: the planes hold C padded to a multiple of KC = 32,
+//   chunk-major (CW / KC, S, len, KC), and each conv runs an outer loop over N-chunks
+//   of KC output channels, then 64-row tile groups, then an inner loop over K-chunks
+//   of KC input channels, each chunk's slice (S, P + 2, KC + 4) staged in turn from
+//   the workspace, then the 9 taps: a block's registers and static shared memory are
+//   the CP 32 form's (16 KB of weight tiles, double-buffered), and its slice is the
+//   CP 32 slice.  Every layer restages (no slice is kept between layers).  The stem
+//   loops over the output chunks, the head stages u with every channel a few
+//   positions at a time; their weights (CW floats a row) lie in dynamic shared
+//   memory, the one part that grows with the width (76 B a channel): past 1,408
+//   float32 channels at n_prb 273 (1,440 at n_prb 106) a block no longer fits, and
+//   the wrapper raises.
 // * float32 as 3xTF32: each operand x is split into hi = x rounded to TF32 and lo =
 //   x - hi, exact, truncated to TF32 (integer operations: cvt.rna.tf32 runs on a
 //   quarter-rate pipe); every product is lo*hi + hi*lo + hi*hi, off by under 2^-20 of
@@ -92,10 +107,12 @@
 //   FMAs on the CUDA cores, the stem reading the complex64 LS row, the head adding
 //   the comb-2 baseline and writing the complex64 estimate, four lanes an output
 //   whose partial sums meet in a fixed butterfly.
+//   In the wide form each k-tile is one tap of one K-chunk: a fresh accumulator per
+//   (K-chunk, tap), K-chunk by K-chunk and tap by tap into the same register sum.
 // * Determinism: every output is summed inside one block, in one order fixed by the
-//   shapes (tap by tap, channel by channel within a tap), with no split of K across
-//   blocks and no atomics; the block geometry depends on Np and S only, so one UE's
-//   estimate is bitwise the same at any capacity and in any row of idx.
+//   shapes (N-chunk, K-chunk, tap, then channel within the k-tile), with no split of K
+//   across blocks and no atomics; the block geometry depends on Np and S only, so one
+//   UE's estimate is bitwise the same at any capacity and in any row of idx.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -154,6 +171,40 @@ __host__ __device__ constexpr size_t weight_bytes() {
 template <int CP>
 size_t smem_bytes(int S, int P) {
   return ((size_t)S * (P + 2) + 1) * row_stride<CP>() * 4 + (size_t)S * (P + 1) * 8;
+}
+
+// The wide form's chunk: KC input or output channels (a K- or N-chunk)
+constexpr int KC = 32;
+constexpr int WIDEST_CP = 64;  // widths up to this run the CP forms
+
+// the planes' channel count: the CP forms' padding, or whole chunks past WIDEST_CP
+int plane_width(int C) { return C <= WIDEST_CP ? channel_pad(C) : (C + KC - 1) / KC * KC; }
+
+// Positions of u the wide head stages at a time, every channel of a position in a
+// row of CW + 4 floats: as many as the K-chunk slice's room holds, at most P, at
+// least 4 (the room then grows).
+__host__ __device__ inline int head_positions(int P, int CW) {
+  const int q = (P + 2) * row_stride<KC>() / (CW + 4) - 2;
+  const int lo = P < 4 ? P : 4;
+  return q > P ? P : (q < lo ? lo : q);
+}
+
+// The wide form's slice room in floats: a K-chunk slice or the head's staged u.
+__host__ __device__ inline size_t wide_slice_floats(int S, int P, int CW) {
+  const size_t k = (size_t)S * (P + 2) * row_stride<KC>();
+  const size_t u = (size_t)S * (head_positions(P, CW) + 2) * (CW + 4);
+  return k > u ? k : u;
+}
+
+// The head's LS pilots (S, P + 1) float2, in floats rounded up to a float4.
+__host__ __device__ inline size_t lsm_floats(int S, int P) {
+  return ((size_t)S * (P + 1) * 2 + 3) / 4 * 4;
+}
+
+// The wide form's dynamic shared memory: the slice room, a row of zeros, the head's
+// LS pilots, and the stem's (19, CW) or the head's (9 CW + 1) float2 weights.
+size_t wide_smem_bytes(int S, int P, int CW) {
+  return (wide_slice_floats(S, P, CW) + row_stride<KC>() + lsm_floats(S, P) + 19 * CW) * 4;
 }
 
 // The weight region, static shared memory: its address is a constant, so the wgmma
@@ -826,9 +877,387 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 3 : 2) gated_expert_kernel
   head<CP, BF16>(c, ls, wl, bl, y, des);
 }
 
+// -- the wide form, past WIDEST_CP channels -------------------------------------------
+
+// One tap's KC x KC block of the pack, B[k][n] = the weight of input channel k0 + k
+// for pack column col0 + n, zero from k = kv or n = nv on; ``wl`` points at input
+// channel k0.  Held as load_tap<KC> holds a tap (tap_element<KC>), for store_tap<KC>.
+__device__ __forceinline__ void load_block(float (&wr)[KC * KC / THREADS], const float* wl,
+                                           int coutp, int col0, int kv, int nv, int tap) {
+  const int n = threadIdx.x % KC;
+  const float* w0 = wl + (threadIdx.x / KC * TAPS + tap) * coutp + col0 + n;
+#pragma unroll
+  for (int i = 0; i < KC * KC / THREADS; ++i) {
+    const int k = threadIdx.x / KC + i * (THREADS / KC);
+    wr[i] = (n < nv && k < kv) ? __ldg(w0 + i * (THREADS / KC) * TAPS * coutp) : 0.f;
+  }
+}
+
+// One tensor-core conv of the wide form: out (pack columns col0 .. col0 + C) =
+// conv(in) + bias through the epilogue, over chunk-major planes: ``in`` (CW / KC, S,
+// np, KC); ``out`` the same, or u (CW / KC, S, 2 np, KC) for SUBPIXEL.  N-chunk by
+// N-chunk, tile group by tile group as tc_layer<KC>, each group's sums taken over the
+// K-chunks in turn (each one's slice staged from ``in``), tap by tap within one.
+template <bool BF16>
+__device__ void tc_layer_wide(const Ctx& c, int CW, const float* in, const float* wl,
+                              const float* bl, int coutp, int col0, Epilogue epi,
+                              int phase, float* out) {
+  constexpr int ND = KC / 2;
+  constexpr int RS = row_stride<KC>();
+  constexpr int MAXT = maxt<KC>();
+  constexpr int WTILE = BF16 ? KC * KC / 2 : 2 * KC * KC;
+  static_assert(nbuf<KC, BF16>() == 2, "the wide form double-buffers its taps");
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, tig = threadIdx.x % 4;
+  const int rows = c.S * c.P, n_tiles = (rows + 63) / 64;
+  const size_t chunk_in = (size_t)c.S * c.np * KC;
+  const size_t chunk_out = epi == SUBPIXEL ? 2 * chunk_in : chunk_in;
+  const uint32_t w_s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(weight_region<KC, BF16>()));
+
+#pragma unroll 1
+  for (int n0 = 0; n0 < CW; n0 += KC) {
+#pragma unroll 1
+    for (int g0 = 0; g0 < n_tiles; g0 += MAXT) {
+      int rbase[MAXT][2], rsym[MAXT][2];
+      unsigned jmask[MAXT];
+#pragma unroll
+      for (int t = 0; t < MAXT; ++t) {
+        const int tile = g0 + t;
+        jmask[t] = 0;
+        if (tile < n_tiles) {
+          const int s_first = tile * 64 / c.P, s_last = min(tile * 64 + 63, rows - 1) / c.P;
+          for (int j = 0; j < 3; ++j)
+            if (s_last + j - 1 >= 0 && s_first + j - 1 < c.S) jmask[t] |= 1u << j;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = tile * 64 + warp * 16 + g + 8 * h;
+          const bool ok = tile < n_tiles && m < rows;
+          const int s = ok ? m / c.P : -8, p = ok ? m % c.P : 0;
+          rsym[t][h] = s;
+          rbase[t][h] = ok ? (s * (c.P + 2) + p) * RS : 0;
+        }
+      }
+      float sum[MAXT][ND];
+#pragma unroll
+      for (int t = 0; t < MAXT; ++t)
+#pragma unroll
+        for (int i = 0; i < ND; ++i) sum[t][i] = 0.f;
+      float acc[ND];  // a k-tile's accumulator; its first wgmma ignores what it holds
+#pragma unroll
+      for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+      float wr[KC * KC / THREADS];
+
+#pragma unroll 1
+      for (int k0 = 0; k0 < CW; k0 += KC) {
+        __syncthreads();  // the last K-chunk's wgmmas have read the slice and the weights
+        stage<KC>(c, in + k0 / KC * chunk_in, c.np, c.p0 - 1);
+        const float* wk = wl + (size_t)k0 * TAPS * coutp;
+        load_block(wr, wk, coutp, col0 + n0, c.C - k0, c.C - n0, 0);
+#pragma unroll 1
+        for (int tap = 0; tap < TAPS; ++tap) {
+          const int d = tap / 3, j = tap % 3;
+          store_tap<KC, BF16>(wr, c.wsm + (tap & 1) * WTILE);
+          fence_async_smem();
+          __syncthreads();  // this tap's B is in place; tap - 1's readers are done
+          if (tap + 1 < TAPS) load_block(wr, wk, coutp, col0 + n0, c.C - k0, c.C - n0, tap + 1);
+          const int shift = ((j - 1) * (c.P + 2) + d) * RS;
+          const uint32_t wb_s = w_s + (tap & 1) * WTILE * 4;
+          const uint64_t dhi = smem_desc<(BF16 ? 16 : 32) * KC>(wb_s);
+          const uint64_t dlo = smem_desc<32 * KC>(wb_s + KC * KC * 4);
+#pragma unroll
+          for (int t = 0; t < MAXT; ++t) {
+            if (!((jmask[t] >> j) & 1u)) continue;  // uniform across the warpgroup
+            const float* x0 = (unsigned)(rsym[t][0] + j - 1) < (unsigned)c.S
+                                  ? c.xs + rbase[t][0] + shift : c.zero;
+            const float* x1 = (unsigned)(rsym[t][1] + j - 1) < (unsigned)c.S
+                                  ? c.xs + rbase[t][1] + shift : c.zero;
+            if (BF16) {
+              uint32_t a[KC / 16][4];
+#pragma unroll
+              for (int ks = 0; ks < KC / 16; ++ks) {
+                const int k = 16 * ks + 2 * tig;
+                const float2 v0 = *reinterpret_cast<const float2*>(x0 + k);
+                const float2 v1 = *reinterpret_cast<const float2*>(x1 + k);
+                const float2 v2 = *reinterpret_cast<const float2*>(x0 + k + 8);
+                const float2 v3 = *reinterpret_cast<const float2*>(x1 + k + 8);
+                a[ks][0] = bf16x2(v0.x, v0.y);
+                a[ks][1] = bf16x2(v1.x, v1.y);
+                a[ks][2] = bf16x2(v2.x, v2.y);
+                a[ks][3] = bf16x2(v3.x, v3.y);
+              }
+              wgmma_fence();
+#pragma unroll
+              for (int ks = 0; ks < KC / 16; ++ks) Mma<KC>::bf16(acc, a[ks], dhi + 16 * ks, ks > 0);
+            } else {
+              uint32_t ah[KC / 8][4], al[KC / 8][4];
+#pragma unroll
+              for (int ks = 0; ks < KC / 8; ++ks) {
+                const int k = 8 * ks + tig;
+                split(x0[k], ah[ks][0], al[ks][0]);
+                split(x1[k], ah[ks][1], al[ks][1]);
+                split(x0[k + 4], ah[ks][2], al[ks][2]);
+                split(x1[k + 4], ah[ks][3], al[ks][3]);
+              }
+              // a fresh accumulator for the k-tile: lo*hi and hi*lo of every k8 step,
+              // then hi*hi, in k order
+              wgmma_fence();
+#pragma unroll
+              for (int ks = 0; ks < KC / 8; ++ks) {
+                Mma<KC>::tf32(acc, al[ks], dhi + 16 * ks, ks > 0);
+                Mma<KC>::tf32(acc, ah[ks], dlo + 16 * ks, 1);
+              }
+#pragma unroll
+              for (int ks = 0; ks < KC / 8; ++ks) Mma<KC>::tf32(acc, ah[ks], dhi + 16 * ks, 1);
+            }
+            wgmma_commit();
+            wgmma_wait();
+#pragma unroll
+            for (int i = 0; i < ND; ++i) sum[t][i] += acc[i];
+          }
+        }
+      }
+
+      // the epilogue of tc_layer, for output channels n0 .. n0 + KC, into the plane
+#pragma unroll
+      for (int t = 0; t < MAXT; ++t) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = (g0 + t) * 64 + warp * 16 + g + 8 * h;
+          if (g0 + t >= n_tiles || m >= rows) continue;
+          const int s = m / c.P, p = m % c.P;
+          if (p >= c.V) continue;  // past the band: the last block's tail
+          const int q = c.p0 + p;
+          float2 v[KC / 8];
+#pragma unroll
+          for (int j8 = 0; j8 < KC / 8; ++j8) {
+            const int n = n0 + 8 * j8 + 2 * tig;
+            v[j8] = make_float2(sum[t][4 * j8 + 2 * h] + (n < c.C ? __ldg(bl + col0 + n) : 0.f),
+                                sum[t][4 * j8 + 2 * h + 1] +
+                                    (n + 1 < c.C ? __ldg(bl + col0 + n + 1) : 0.f));
+          }
+          float* dst = out + n0 / KC * chunk_out + 2 * tig +
+                       (epi == SUBPIXEL ? ((size_t)s * 2 * c.np + 2 * q + phase) * KC
+                                        : ((size_t)s * c.np + q) * KC);
+          if (epi == RESIDUAL) {  // h + conv(y); h was written by this block at an earlier layer
+            float2 r[KC / 8];
+#pragma unroll
+            for (int j8 = 0; j8 < KC / 8; ++j8) r[j8] = __ldcg(reinterpret_cast<float2*>(dst + 8 * j8));
+#pragma unroll
+            for (int j8 = 0; j8 < KC / 8; ++j8)
+              v[j8] = make_float2(r[j8].x + v[j8].x, r[j8].y + v[j8].y);
+          } else if (epi == RELU) {  // keeps NaN, as torch.relu
+#pragma unroll
+            for (int j8 = 0; j8 < KC / 8; ++j8)
+              v[j8] = make_float2(v[j8].x < 0.f ? 0.f : v[j8].x, v[j8].y < 0.f ? 0.f : v[j8].y);
+          }
+#pragma unroll
+          for (int j8 = 0; j8 < KC / 8; ++j8) *reinterpret_cast<float2*>(dst + 8 * j8) = v[j8];
+        }
+      }
+    }
+  }
+}
+
+// The wide form's stem: as stem(), the output channels a chunk of KC at a time into
+// the chunk-major h (CW / KC, S, np, KC); ``ws`` (19, CW) in dynamic shared memory.
+template <bool BF16>
+__device__ void stem_wide(const Ctx& c, int CW, float* ws, const float2* __restrict__ ls,
+                          const float* wl, const float* bl, float* h) {
+  const int cp4 = (c.C + 3) / 4 * 4;
+  for (int i = threadIdx.x; i < 19 * CW; i += THREADS) {
+    const int o = i % CW, r = i / CW;
+    ws[i] = o < c.C ? (r < 18 ? wl[r * cp4 + o] : bl[o]) : 0.f;
+  }
+  __syncthreads();
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  const size_t chunk = (size_t)c.S * c.np * KC;
+  for (int item = threadIdx.x; item < c.S * c.V; item += THREADS) {
+    const int s = item / c.V, q = c.p0 + item % c.V;
+    float2 z[3][3];  // the 3x3 neighbourhood, zero outside the band and the slot
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int qi = q + d - 1, si = s + j - 1;
+        z[d][j] = (qi >= 0 && qi < c.np && si >= 0 && si < c.S) ? ls[(size_t)si * c.np + qi]
+                                                                : make_float2(0.f, 0.f);
+      }
+#pragma unroll 1
+    for (int o0 = 0; o0 < CW; o0 += KC) {
+      float acc[KC];
+#pragma unroll
+      for (int o = 0; o < KC; ++o) acc[o] = 0.f;
+#pragma unroll 1
+      for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const float x = operand(ch == 0 ? z[d][j].x : z[d][j].y, BF16);
+            const float4* wv = w4 + (((ch * 3 + d) * 3 + j) * CW + o0) / 4;
+#pragma unroll
+            for (int o4 = 0; o4 < KC / 4; ++o4) {
+              const float4 wo = wv[o4];
+              acc[4 * o4] = fmaf(wo.x, x, acc[4 * o4]);
+              acc[4 * o4 + 1] = fmaf(wo.y, x, acc[4 * o4 + 1]);
+              acc[4 * o4 + 2] = fmaf(wo.z, x, acc[4 * o4 + 2]);
+              acc[4 * o4 + 3] = fmaf(wo.w, x, acc[4 * o4 + 3]);
+            }
+          }
+      float4* dst = reinterpret_cast<float4*>(h + o0 / KC * chunk + ((size_t)s * c.np + q) * KC);
+#pragma unroll
+      for (int o4 = 0; o4 < KC / 4; ++o4) {
+        const float4 b = w4[(18 * CW + o0) / 4 + o4];
+        dst[o4] = make_float4(acc[4 * o4] + b.x, acc[4 * o4 + 1] + b.y, acc[4 * o4 + 2] + b.z,
+                              acc[4 * o4 + 3] + b.w);
+      }
+    }
+  }
+}
+
+// The wide form's head: as head(), u read from the chunk-major (CW / KC, S, 2 np, KC)
+// and staged with every channel, Q positions (head_positions) at a time, in rows of
+// CW + 4 floats; ``wh`` (CW, 3, 3) then the bias, in dynamic shared memory.
+template <bool BF16>
+__device__ void head_wide(const Ctx& c, int CW, float2* wh, const float2* __restrict__ ls,
+                          const float* wl, const float* bl, const float* u,
+                          float2* __restrict__ des) {
+  const int RS = CW + 4, Q = head_positions(c.P, CW), CH = CW / 4;
+  for (int i = threadIdx.x; i < CW * 9 + 1; i += THREADS) {
+    const int k = i / 9;
+    wh[i] = i == CW * 9 ? make_float2(bl[0], bl[1])
+                        : (k < c.C ? make_float2(wl[i * 4], wl[i * 4 + 1]) : make_float2(0.f, 0.f));
+  }
+  for (int i = threadIdx.x; i < c.S * (c.P + 1); i += THREADS) {
+    const int s = i / (c.P + 1), k = min(c.p0 + i % (c.P + 1), c.np - 1);
+    c.lsm[i] = ls[(size_t)s * c.np + k];
+  }
+  const size_t chunk = (size_t)c.S * 2 * c.np * KC;
+  for (int part = 0; part * Q < 2 * c.V; ++part) {
+    const int q_first = 2 * c.p0 + part * Q;
+    __syncthreads();  // the last part's readers of xs are done (the first: wh, lsm written)
+    for (int i = threadIdx.x; i < c.S * (Q + 2) * CH; i += THREADS) {
+      const int ch = i % CH, r = i / CH, pp = r % (Q + 2), s = r / (Q + 2);
+      const int q = q_first - 1 + pp;
+      const bool ok = q >= 0 && q < 2 * c.np;
+      const float* src = u + ch / (KC / 4) * chunk + ((size_t)s * 2 * c.np + q) * KC +
+                         4 * (ch % (KC / 4));
+      cp_async16(c.xs + r * RS + 4 * ch, ok ? src : u, ok ? 16 : 0);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    const float2 b = wh[CW * 9];
+    // four lanes an output, as head(): lane ``quad`` sums channel groups quad, quad + 4, ...
+    const int lane = threadIdx.x % 32, quad = lane / 8;
+    for (int base = 0; base < c.S * Q; base += THREADS / 4) {  // uniform trip count
+      const int item = base + threadIdx.x / 32 * 8 + lane % 8;
+      const int s = item / Q, qq = item % Q, q = q_first + qq;
+      const bool live = item < c.S * Q && q < 2 * (c.p0 + c.V);
+      const int k = (q >> 1) - c.p0;  // the pilot, in the block's LS slice
+      float2 la = make_float2(0.f, 0.f), lb = la;
+      if (live && quad == 0) {
+        la = c.lsm[s * (c.P + 1) + k];
+        lb = c.lsm[s * (c.P + 1) + k + 1];
+      }
+      float re = 0.f, im = 0.f;
+      if (live) {
+        const int j0 = s == 0 ? 1 : 0, j1 = s == c.S - 1 ? 2 : 3;
+        for (int k4 = quad; k4 < CH; k4 += 4) {
+          for (int j = j0; j < j1; ++j) {
+            const float* xr = c.xs + ((s + j - 1) * (Q + 2) + qq) * RS + 4 * k4;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              const float4 x = *reinterpret_cast<const float4*>(xr + d * RS);
+              const float xv[4] = {operand(x.x, BF16), operand(x.y, BF16), operand(x.z, BF16),
+                                   operand(x.w, BF16)};
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                const float2 wv = wh[(4 * k4 + kk) * 9 + d * 3 + j];
+                re = fmaf(wv.x, xv[kk], re);
+                im = fmaf(wv.y, xv[kk], im);
+              }
+            }
+          }
+        }
+      }
+      re += __shfl_xor_sync(0xffffffffu, re, 8);
+      im += __shfl_xor_sync(0xffffffffu, im, 8);
+      re += __shfl_xor_sync(0xffffffffu, re, 16);
+      im += __shfl_xor_sync(0xffffffffu, im, 16);
+      if (!live || quad != 0) continue;
+      const float2 base2 = (q & 1) ? make_float2(0.5f * (la.x + lb.x), 0.5f * (la.y + lb.y)) : la;
+      des[(size_t)q * c.S + s] = make_float2(base2.x + (re + b.x), base2.y + (im + b.y));
+    }
+  }
+}
+
+// The wide form: the CP 32 form's block (registers, static weight tiles, three blocks
+// an SM) over chunk-major planes of CW = plane_width(C) channels.
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS, 3) gated_expert_wide_kernel(Args a) {
+  const int rank = blockIdx.x, row = blockIdx.y, ant = blockIdx.z;
+  const int ue = a.idx[row];
+  if (a.src[ue] < 0) return;  // capacity padding: the whole cluster returns, no barrier
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int CW = (a.C + KC - 1) / KC * KC;
+  Ctx c;
+  c.wsm = weight_region<KC, BF16>();
+  c.xs = reinterpret_cast<float*>(smem);
+  float* zero = c.xs + wide_slice_floats(a.S, a.P, CW);
+  for (int i = threadIdx.x; i < row_stride<KC>(); i += THREADS) zero[i] = 0.f;
+  c.zero = zero;  // (the stem's first barrier orders these writes before any reader)
+  c.lsm = reinterpret_cast<float2*>(zero + row_stride<KC>());
+  float* misc = zero + row_stride<KC>() + lsm_floats(a.S, a.P);  // stem, then head weights
+  c.S = a.S;
+  c.P = a.P;
+  c.np = a.np;
+  c.C = a.C;
+  c.p0 = rank * a.P;
+  c.V = min(a.P, a.np - c.p0);
+
+  const size_t plane = (size_t)a.S * a.np * CW;
+  float* h = a.workspace + ((size_t)row * a.n_ant + ant) * 3 * plane;
+  float* y = h + plane;  // chunk-major (CW / KC, S, np, KC); u (CW / KC, S, 2 np, KC)
+  const float2* ls = a.h_ls + ((size_t)ue * a.n_ant + ant) * a.S * a.np;
+  float2* des = a.designated + ((size_t)ue * a.n_ant + ant) * (size_t)(2 * a.np) * a.S;
+
+  const int C = a.C, cp4 = (C + 3) / 4 * 4, cup = (2 * C + 3) / 4 * 4;
+  const float* wl = a.w;
+  const float* bl = a.bias;
+  stem_wide<BF16>(c, CW, misc, ls, wl, bl, h);
+  wl += 2 * TAPS * cp4;
+  bl += cp4;
+  cluster_sync();
+  for (int r = 0; r < a.R; ++r) {
+    tc_layer_wide<BF16>(c, CW, h, wl, bl, cp4, 0, RELU, 0, y);
+    wl += C * TAPS * cp4;
+    bl += cp4;
+    cluster_sync();
+    tc_layer_wide<BF16>(c, CW, y, wl, bl, cp4, 0, RESIDUAL, 0, h);
+    wl += C * TAPS * cp4;
+    bl += cp4;
+    cluster_sync();
+  }
+  tc_layer_wide<BF16>(c, CW, h, wl, bl, cup, 0, SUBPIXEL, 0, y);
+  tc_layer_wide<BF16>(c, CW, h, wl, bl, cup, C, SUBPIXEL, 1, y);
+  wl += C * TAPS * cup;
+  bl += cup;
+  cluster_sync();
+  head_wide<BF16>(c, CW, reinterpret_cast<float2*>(misc), ls, wl, bl, y, des);
+}
+
+// The kernel of a width: the CP form, or the wide form (CP is then KC, the chunk).
+template <int CP, bool BF16, bool WIDE>
+void (*kernel_of())(Args) {
+  if constexpr (WIDE) return gated_expert_wide_kernel<BF16>;
+  else return gated_expert_kernel<CP, BF16>;
+}
+
 // the largest dynamic shared memory a block may take beside the static weight region,
 // per device; the kernel's limit is raised to it once per device and instantiation
-template <int CP, bool BF16>
+template <int CP, bool BF16, bool WIDE>
 int prepare(int dev, int* optin) {
   static std::atomic<int> limit[64];
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
@@ -837,7 +1266,7 @@ int prepare(int dev, int* optin) {
     cudaError_t err = cudaDeviceGetAttribute(&lim, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
     lim -= static_cast<int>(weight_bytes<CP, BF16>());
-    err = cudaFuncSetAttribute(gated_expert_kernel<CP, BF16>,
+    err = cudaFuncSetAttribute(kernel_of<CP, BF16, WIDE>(),
                                cudaFuncAttributeMaxDynamicSharedMemorySize, lim);
     if (err != cudaSuccess) return static_cast<int>(err);
     limit[dev].store(lim, std::memory_order_release);
@@ -846,15 +1275,16 @@ int prepare(int dev, int* optin) {
   return 0;
 }
 
-template <int CP, bool BF16>
+template <int CP, bool BF16, bool WIDE = false>
 int launch(const Args& a, int capacity, cudaStream_t stream) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = prepare<CP, BF16>(dev, &optin);
+  const int rc = prepare<CP, BF16, WIDE>(dev, &optin);
   if (rc != 0) return rc;
   const Geometry geo = geometry(a.np);
-  const size_t smem = smem_bytes<CP>(a.S, geo.P);
+  const size_t smem =
+      WIDE ? wide_smem_bytes(a.S, geo.P, plane_width(a.C)) : smem_bytes<CP>(a.S, geo.P);
   if (smem > (size_t)optin) return static_cast<int>(cudaErrorInvalidValue);
   Args args = a;
   args.P = geo.P;
@@ -870,7 +1300,7 @@ int launch(const Args& a, int capacity, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, gated_expert_kernel<CP, BF16>, args);
+  err = cudaLaunchKernelEx(&cfg, kernel_of<CP, BF16, WIDE>(), args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -889,6 +1319,9 @@ long long block_smem(int n_sym, int P, int bf16) {
 
 extern "C" long long gated_expert_smem_bytes(int n_sym, int np, int C, int bf16) {
   const int P = geometry(np).P;
+  if (C > WIDEST_CP)
+    return wide_smem_bytes(n_sym, P, plane_width(C)) +
+           (bf16 ? weight_bytes<KC, true>() : weight_bytes<KC, false>());
   switch (channel_pad(C)) {
     case 16: return block_smem<16>(n_sym, P, bf16);
     case 32: return block_smem<32>(n_sym, P, bf16);
@@ -899,20 +1332,22 @@ extern "C" long long gated_expert_smem_bytes(int n_sym, int np, int C, int bf16)
 
 // Workspace floats per (compact row, antenna): h, and y that u reuses.
 extern "C" long long gated_expert_workspace_floats(int n_sym, int np, int C) {
-  return 3LL * n_sym * np * channel_pad(C);
+  return 3LL * n_sym * np * plane_width(C);
 }
 
 extern "C" int gated_expert_launch(const void* idx, const void* src, const void* h_ls,
                                    void* designated, const void* w, const void* bias,
                                    void* workspace, int capacity, int n_ant, int n_sym,
                                    int np, int C, int R, int bf16, void* stream) {
-  if (C < 1 || C > 64 || n_sym < 1 || np < 1 || capacity < 1)
+  if (C < 1 || n_sym < 1 || np < 1 || capacity < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const int32_t*>(idx), static_cast<const int32_t*>(src),
          static_cast<const float2*>(h_ls), static_cast<float2*>(designated),
          static_cast<const float*>(w), static_cast<const float*>(bias),
          static_cast<float*>(workspace), n_ant, n_sym, np, C, R, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > WIDEST_CP)
+    return bf16 ? launch<KC, true, true>(a, capacity, st) : launch<KC, false, true>(a, capacity, st);
   switch (channel_pad(C)) {
     case 16: return bf16 ? launch<16, true>(a, capacity, st) : launch<16, false>(a, capacity, st);
     case 32: return bf16 ? launch<32, true>(a, capacity, st) : launch<32, false>(a, capacity, st);

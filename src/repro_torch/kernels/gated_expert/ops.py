@@ -12,8 +12,9 @@ input and writing complex64 (no sub-batch, no transposes, no real/imaginary
 split).  On a CPU tensor, or with ``backend="ref"``, the plain version
 ``gated_expert_apply_ref`` composes the gather, the folded-GEMM estimator and
 the plain scatter.  Either way the result is a new tensor and ``designated``
-keeps the fail-safe estimate.  The kernel takes up to ``MAX_CHANNELS``
-channels.
+keeps the fail-safe estimate.  The kernel takes any width whose block fits
+the card's shared memory (1,408 float32 channels at NR's widest carrier);
+past that the wrapper raises and names the limit.
 """
 
 from __future__ import annotations
@@ -29,16 +30,6 @@ from repro_torch.kernels.switch_select.ops import switch_scatter
 from repro_torch.phy.ai_estimator import AiEstimator, ai_estimate_folded, kernel_operands
 
 _BACKENDS = ("auto", "pallas", "cuda", "ref")
-#: the widest estimator the kernel takes: its GEMMs pad the channels to 16, 32,
-#: 48 or 64 (twice the paper's 32)
-MAX_CHANNELS = 64
-
-
-def check_width(channels: int) -> None:
-    """Raise unless the fused kernel takes an estimator ``channels`` wide."""
-    if channels > MAX_CHANNELS:
-        raise ValueError(f"the fused GATED kernel takes at most {MAX_CHANNELS} channels, "
-                         f"not {channels}")
 
 
 def _folded(ai: AiEstimator | dict[str, Any]) -> dict[str, Any]:
@@ -79,7 +70,6 @@ def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> torch.Tensor:
     folded = _folded(ai)
     n_ues, n_ant, n_sym, n_p = h_ls.shape
     channels = folded["stem_w"].shape[0] // folded["width"]
-    check_width(channels)
     n_res = len(folded["res"])
     bf16 = int(compute_dtype == torch.bfloat16)
     w, b = _operands(ai, compute_dtype)
@@ -89,8 +79,8 @@ def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> torch.Tensor:
                           [ctypes.c_int] * 4, ctypes.c_longlong)(n_sym, n_p, channels, bf16)
     limit = _smem_optin(h_ls.device.index)
     if smem > limit:
-        raise ValueError(f"{n_p} pilots x {n_sym} symbols need {smem} B of shared memory "
-                         f"per block; the card grants {limit}")
+        raise ValueError(f"{channels} channels at {n_p} pilots x {n_sym} symbols need {smem} B "
+                         f"of shared memory per block; the card grants {limit}")
     ws_floats = build.function("gated_expert", "gated_expert_workspace_floats",
                                [ctypes.c_int] * 3, ctypes.c_longlong)
     capacity = idx.shape[0]

@@ -224,6 +224,55 @@ def _switch_batched(modes: torch.Tensor, outputs: Sequence[torch.Tensor]) -> tor
 
 
 _BACKENDS = ("auto", "pallas", "cuda", "ref")
+#: scatter signatures already validated: (src shape, compact shape, designated
+#: shape, dtype, device) -> (floats per UE, the kernel's ctypes function)
+_SCATTER_SIGNATURES: dict[tuple, tuple[int, ctypes._CFuncPtr]] = {}
+
+
+def _check_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.Tensor) -> None:
+    """What every scatter needs, on any device: shapes, capacity, devices."""
+    if src.ndim != 1 or src.shape[0] != designated.shape[0]:
+        raise ValueError(f"src {tuple(src.shape)} vs UE axis {designated.shape[0]}")
+    if compact.shape[1:] != designated.shape[1:] or compact.dtype != designated.dtype:
+        raise ValueError(f"compact {tuple(compact.shape)} {compact.dtype} vs designated "
+                         f"{tuple(designated.shape)} {designated.dtype}")
+    if compact.shape[0] < 1:
+        raise ValueError("capacity must be >= 1 (skip the scatter when it is 0)")
+    if src.device != designated.device or compact.device != designated.device:
+        raise ValueError("src, compact and designated must share one device")
+
+
+def _scatter_plan(src: torch.Tensor, compact: torch.Tensor, designated: torch.Tensor,
+                  resolve=None) -> tuple[int, ctypes._CFuncPtr]:
+    """The kernel's floats per UE and its function, for tensors it may take.
+
+    What the signature alone decides (shapes, capacity, dtype, device) is
+    checked once, when the signature is first seen, and ``resolve()`` then
+    looks the kernel's function up; what each call's tensors can change
+    under one signature (``src``'s dtype, ``compact``'s dtype, every
+    tensor's device and contiguity, a lazy conjugate or negative bit) is
+    checked on every call, cheapest first.
+    """
+    dtype, dev = designated.dtype, designated.device
+    sig = (src.shape, compact.shape, designated.shape, dtype, dev)
+    known = _SCATTER_SIGNATURES.get(sig)
+    if known is None:
+        _check_scatter(src, compact, designated)
+        n_ues = designated.shape[0]
+        known = _SCATTER_SIGNATURES[sig] = (_floats(designated) // max(n_ues, 1),
+                                            resolve() if resolve else None)
+    if src.dtype is not torch.int32:
+        raise TypeError(f"src must be int32, got {src.dtype}")
+    if compact.dtype is not dtype:
+        raise ValueError(f"compact {compact.dtype} vs designated {dtype}")
+    if src.device != dev or compact.device != dev:
+        raise ValueError("src, compact and designated must share one device")
+    if not (designated.is_contiguous() and compact.is_contiguous() and src.is_contiguous()):
+        raise ValueError("scatter kernel needs contiguous src, compact and designated")
+    if compact.is_conj() or compact.is_neg() or designated.is_conj() or designated.is_neg():
+        _check_resolved(compact)
+        _check_resolved(designated)
+    return known
 
 
 def switch_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.Tensor,
@@ -237,31 +286,22 @@ def switch_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.T
     on any device; ``"auto"``, ``"pallas"`` and ``"cuda"`` launch the kernel
     on a CUDA tensor and take the plain version on a CPU tensor.  Either way
     the result is a new tensor and the inputs are left as they were.
+
+    The unfused GATED bank calls this once a slot, so the card path is lean,
+    as the per-UE switch's is: a signature is validated once
+    (``_scatter_plan``), and the launch passes ``data_ptr()`` ints and the
+    raw stream.
     """
     if backend not in _BACKENDS:
         raise ValueError(f"unknown switch_scatter backend {backend!r}; one of {_BACKENDS}")
-    if src.ndim != 1 or src.shape[0] != designated.shape[0]:
-        raise ValueError(f"src {tuple(src.shape)} vs UE axis {designated.shape[0]}")
-    if compact.shape[1:] != designated.shape[1:] or compact.dtype != designated.dtype:
-        raise ValueError(f"compact {tuple(compact.shape)} {compact.dtype} vs designated "
-                         f"{tuple(designated.shape)} {designated.dtype}")
-    if compact.shape[0] < 1:
-        raise ValueError("capacity must be >= 1 (skip the scatter when it is 0)")
-    if src.device != designated.device or compact.device != designated.device:
-        raise ValueError("src, compact and designated must share one device")
-    if backend == "ref" or designated.device.type != "cuda":
+    if backend == "ref" or not designated.is_cuda:
+        _check_scatter(src, compact, designated)
         return switch_gather_batched_ref(src, compact, designated)
-    if src.dtype is not torch.int32:
-        raise TypeError(f"src must be int32, got {src.dtype}")
-    n = _floats(designated)
-    if not (designated.is_contiguous() and compact.is_contiguous() and src.is_contiguous()):
-        raise ValueError("scatter kernel needs contiguous src, compact and designated")
-    _check_resolved(compact)
-    n_ues = designated.shape[0]
+    per_ue, fn = _scatter_plan(src, compact, designated, lambda: build.function(
+        "switch_select", "switch_gather_launch", _GATHER_ARGS))
     out = build.unfilled(torch.empty_like, designated)
-    fn = build.function("switch_select", "switch_gather_launch", _GATHER_ARGS)
     build.check(fn(src.data_ptr(), compact.data_ptr(), designated.data_ptr(), out.data_ptr(),
-                   n_ues, n // max(n_ues, 1), compact.shape[0], build.stream(designated)),
+                   designated.shape[0], per_ue, compact.shape[0], build.stream(designated)),
                 "switch_gather")
     build.launch_counts["switch_gather_batched"] += 1
     return out

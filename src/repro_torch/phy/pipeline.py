@@ -450,10 +450,6 @@ class BatchedPuschPipeline:
         gated_fused_apply = None
         if fused_gated:
             from repro_torch.kernels.gated_expert import gated_expert_apply
-            from repro_torch.kernels.gated_expert.ops import check_width
-
-            if use_pallas_switch and dev.type == "cuda":
-                check_width(self.ai.stem_w.shape[0] // self.ai.width)
 
             def gated_fused_apply(idx, src, base, h_ls):
                 return gated_expert_apply(

@@ -9,6 +9,9 @@ bitwise.  The kernels themselves run on the card
 (``test_torch_cuda_kernels.py``).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,6 +100,12 @@ def test_scatter_single_ue_unit_capacity(src, rng):
 
 
 def test_scatter_wrapper_checks():
+    """The wrapper's checks, and the card path's plan (``_scatter_plan``, run
+    here on CPU tensors): a signature it has validated once still lets no
+    wrong dtype, non-contiguous tensor, wrong device or lazy conjugate
+    through on a later call."""
+    from repro_torch.kernels.switch_select import ops
+
     src = torch.tensor([0, -1], dtype=torch.int32)
     des = torch.zeros(2, 3)
     with pytest.raises(ValueError):
@@ -108,15 +117,72 @@ def test_scatter_wrapper_checks():
     with pytest.raises(ValueError):
         switch_scatter(src[:1], torch.zeros(1, 3), des)
 
+    des = torch.zeros(2, 4, dtype=torch.complex64)
+    compact = torch.zeros(1, 4, dtype=torch.complex64)
+    resolved = []
+    for _ in range(2):  # the second call finds the signature validated
+        per_ue, _fn = ops._scatter_plan(src, compact, des, lambda: resolved.append(1))
+        assert per_ue == 8
+    assert resolved == [1]  # the kernel's function is looked up once per signature
+    cases = [
+        (TypeError, src.long(), compact, des),  # int64 src
+        (ValueError, src, compact.to(torch.complex128), des),  # compact's dtype
+        (ValueError, src, torch.zeros(1, 8, dtype=torch.complex64)[:, ::2], des),  # strided
+        (ValueError, torch.tensor([0, 0, -1, -1], dtype=torch.int32)[::2], compact, des),
+        (ValueError, src.to("meta"), compact, des),  # another device
+        (ValueError, src, compact.to("meta"), des),
+        (TypeError, src, compact.conj(), des),  # a lazy conjugate
+        (TypeError, src, compact, des.conj()),
+    ]
+    for exc, s_, c_, d_ in cases:
+        with pytest.raises(exc):
+            ops._scatter_plan(s_, c_, d_, lambda: resolved.append(1))
+    assert resolved == [1]
+    with pytest.raises(TypeError):  # a dtype the kernel does not take, at first sight
+        ops._scatter_plan(src, torch.zeros(1, 4, dtype=torch.float64),
+                          torch.zeros(2, 4, dtype=torch.float64), lambda: None)
+
 
 # -- gated_expert_apply ---------------------------------------------------------------
+
+
+#: ``repro``'s fold, compiled once per width: the same bits as run eagerly,
+#: in a third of the time
+_fold_ref = jax.jit(rai.fold_ai_params, static_argnums=1)
+
+
+def _fold(ref):
+    """``repro``'s AI-expert pytree, folded, and the port's copy of it."""
+    return ref, _fold_ref(ref, RCFG.n_dmrs_sym), ai_params_from_reference(ref)
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(channels: int, head_scale: float = 1e-4):
+    """An AI expert ``channels`` wide with one residual block, drawn with numpy
+    as ``init_params`` draws it (He-scaled weights, a near-zero head), but with
+    biases that are not zero, so that every bias reaches the output too.  A
+    ``head_scale`` of 2 makes the head as strong as the other layers, so that
+    the convolutions' rounding, and not the baseline, sets the output's."""
+    rng = np.random.default_rng(channels)
+
+    def he(o, i, scale=2.0):
+        return jnp.asarray(rng.normal(size=(o, i, 3, 3)) * np.sqrt(scale / (9 * i)), jnp.float32)
+
+    def bias(n):
+        return jnp.asarray(0.1 * rng.normal(size=n), jnp.float32)
+
+    c = channels
+    return _fold({
+        "stem_w": he(c, 2), "stem_b": bias(c), "up_w": he(2 * c, c), "up_b": bias(2 * c),
+        "head_w": he(2, c, scale=head_scale), "head_b": bias(2),
+        "res": [{"w1": he(c, c), "b1": bias(c), "w2": he(c, c, scale=0.2), "b2": bias(c)}],
+    })
 
 
 @pytest.fixture(scope="module")
 def weights():
     rnet = rai.AiEstimatorConfig(channels=8, n_res_blocks=1)
-    ref = rai.init_params(__import__("jax").random.PRNGKey(0), RCFG, rnet)
-    return ref, rai.fold_ai_params(ref, RCFG.n_dmrs_sym), ai_params_from_reference(ref)
+    return _fold(rai.init_params(jax.random.PRNGKey(0), RCFG, rnet))
 
 
 CASES = [  # (n_ues, capacity, mode)
@@ -130,9 +196,13 @@ CASES = [  # (n_ues, capacity, mode)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("n_ues,capacity,mode", CASES)
-def test_gated_expert_plain_vs_reference(weights, bf16, n_ues, capacity, mode, rng):
-    ref, rfolded, tparams = weights
+@pytest.mark.parametrize(
+    "channels,n_ues,capacity,mode",
+    [pytest.param(8, *case, id=f"{case[0]}-{case[1]}-mode{i}") for i, case in enumerate(CASES)]
+    # past 64 channels, the card kernel's wide form
+    + [pytest.param(72, *CASES[0], id="72ch-5-3")])
+def test_gated_expert_plain_vs_reference(weights, channels, bf16, n_ues, capacity, mode, rng):
+    ref, rfolded, tparams = weights if channels == 8 else _weights(channels)
     h_ls = _cplx(rng, (n_ues, CFG.n_ant, CFG.n_dmrs_sym, CFG.n_pilot_sc))
     des = _cplx(rng, (n_ues, CFG.n_ant, 1, CFG.n_sc, CFG.n_dmrs_sym))
     idx, src = _compaction(np.asarray(mode), capacity)
@@ -250,39 +320,63 @@ def _split(x: torch.Tensor):
     return hi.double(), _tf32_trunc(x - hi).double()
 
 
-def _conv_3xtf32(x, w, b, cp, form):
+#: the card kernel's widest one-chunk form (CP 16, 32, 48 or 64) and its wide
+#: form's chunk, in input and output channels alike (csrc/gated_expert.cu)
+WIDEST_CP, KC = 64, 32
+
+
+def _chunking(channels: int) -> tuple[int, int]:
+    """The card kernel's ``(padded channels, chunk)`` at a width: up to 64
+    channels one chunk of the width padded to 16; past it chunks of 32."""
+    if channels <= WIDEST_CP:
+        cp = -(-channels // 16) * 16
+        return cp, cp
+    return -(-channels // KC) * KC, KC
+
+
+def _conv_3xtf32(x, w, b, cp, form, chunk=None):
     """One tensor-core conv of the kernel: ``x (B, C, H, W)`` float32 (H the
     subcarriers, W the symbols), ``w (O, C, 3, 3)``, ``b (O,)``, input and
-    output channels zero-padded to ``cp``.  Tap by tap, ``(d, j)`` in order,
+    output channels zero-padded to ``cp`` and taken ``chunk`` at a time (the
+    kernel's N- and K-chunks; all ``cp`` at once by default).  N-chunk by
+    N-chunk, then K-chunk by K-chunk, then tap by tap, ``(d, j)`` in order,
     the k8 steps of a wgmma each add their eight exact products to the
     accumulator and truncate to float32.  ``"kernel"``: a fresh accumulator a
-    tap, lo*hi and hi*lo of every k8 step, then hi*hi, added to a float32 sum
-    rounded to nearest.  ``"one_accumulator"``: one accumulator over all nine
-    taps.  Returns ``(B, O, H, W)`` float32 with the bias added."""
+    (K-chunk, tap), lo*hi and hi*lo of every k8 step, then hi*hi, added to a
+    float32 sum rounded to nearest.  ``"one_accumulator"``: one accumulator
+    over all nine taps (one chunk only).  Returns ``(B, O, H, W)`` float32
+    with the bias added."""
+    chunk = chunk or cp
+    assert form == "kernel" or chunk == cp
     bsz, c, hh, ww = x.shape
     o = w.shape[0]
     xp = torch.nn.functional.pad(x, (1, 1, 1, 1, 0, cp - c))  # zero 'SAME' and channels
     wp = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, cp - c, 0, cp - o))
-    total = torch.zeros(bsz * hh * ww, cp, dtype=torch.float32)
-    acc = torch.zeros(bsz * hh * ww, cp, dtype=torch.float64)
-    for d in range(3):
-        for j in range(3):
-            a = xp[:, :, d:d + hh, j:j + ww].permute(0, 2, 3, 1).reshape(-1, cp)
-            a_hi, a_lo = _split(a)
-            b_hi, b_lo = _split(wp[:, :, d, j].T.contiguous())
-            steps = [slice(8 * s, 8 * s + 8) for s in range(cp // 8)]
-            if form == "kernel":
-                acc = torch.zeros_like(acc)
-                order = ([p for k in steps for p in ((a_lo[:, k], b_hi[k]), (a_hi[:, k], b_lo[k]))]
-                         + [(a_hi[:, k], b_hi[k]) for k in steps])
-            else:
-                order = [p for k in steps for p in
-                         ((a_lo[:, k], b_hi[k]), (a_hi[:, k], b_lo[k]), (a_hi[:, k], b_hi[k]))]
-            for u, v in order:
-                acc = _trunc_f32(torch.addmm(acc, u, v))
-            if form == "kernel":
-                total += acc.float()
-    out = total if form == "kernel" else acc.float()
+    out = torch.zeros(bsz * hh * ww, cp, dtype=torch.float32)
+    steps = [slice(8 * s, 8 * s + 8) for s in range(chunk // 8)]
+    for n0 in range(0, cp, chunk):  # N-chunk
+        total = torch.zeros(bsz * hh * ww, chunk, dtype=torch.float32)
+        acc = torch.zeros(bsz * hh * ww, chunk, dtype=torch.float64)
+        for k0 in range(0, cp, chunk):  # K-chunk
+            for d in range(3):
+                for j in range(3):
+                    a = xp[:, k0:k0 + chunk, d:d + hh, j:j + ww].permute(0, 2, 3, 1)
+                    a_hi, a_lo = _split(a.reshape(-1, chunk))
+                    b_hi, b_lo = _split(wp[n0:n0 + chunk, k0:k0 + chunk, d, j].T.contiguous())
+                    if form == "kernel":
+                        acc = torch.zeros_like(acc)
+                        order = ([p for k in steps
+                                  for p in ((a_lo[:, k], b_hi[k]), (a_hi[:, k], b_lo[k]))]
+                                 + [(a_hi[:, k], b_hi[k]) for k in steps])
+                    else:
+                        order = [p for k in steps for p in ((a_lo[:, k], b_hi[k]),
+                                                            (a_hi[:, k], b_lo[k]),
+                                                            (a_hi[:, k], b_hi[k]))]
+                    for u, v in order:
+                        acc = _trunc_f32(torch.addmm(acc, u, v))
+                    if form == "kernel":
+                        total += acc.float()
+        out[:, n0:n0 + chunk] = total if form == "kernel" else acc.float()
     out = out[:, :o].reshape(bsz, hh, ww, o).permute(0, 3, 1, 2)
     return out + b[None, :, None, None]
 
@@ -291,9 +385,10 @@ def _gated_emulated(folded, h_ls: torch.Tensor, form: str) -> torch.Tensor:
     """The fused kernel's estimate for every UE of ``h_ls``: the stem and the
     head in float32 (the kernel runs them as FMAs on the CUDA cores), the
     residual convs and both sub-pixel passes of the up-projection as
-    ``_conv_3xtf32``.  Returns ``(U, ant, 1, n_sc, S)`` complex64."""
+    ``_conv_3xtf32`` in the kernel's chunking at this width.  Returns
+    ``(U, ant, 1, n_sc, S)`` complex64."""
     channels = folded["stem_w"].shape[0] // folded["width"]
-    cp = 16 if channels <= 16 else 32
+    cp, chunk = _chunking(channels)
     n_res = len(folded["res"])
     w, b = tai.kernel_operands(folded)
     shapes = ([(2, channels)] + [(channels, channels)] * (2 * n_res)
@@ -313,11 +408,11 @@ def _gated_emulated(folded, h_ls: torch.Tensor, form: str) -> torch.Tensor:
 
     h = conv(x, layers[0])
     for r in range(n_res):
-        y = torch.relu(_conv_3xtf32(h, *layers[1 + 2 * r], cp, form))
-        h = h + _conv_3xtf32(y, *layers[2 + 2 * r], cp, form)
+        y = torch.relu(_conv_3xtf32(h, *layers[1 + 2 * r], cp, form, chunk))
+        h = h + _conv_3xtf32(y, *layers[2 + 2 * r], cp, form, chunk)
     wu, bu = layers[-2]
     u = torch.stack([_conv_3xtf32(h, wu[r * channels:(r + 1) * channels],
-                                  bu[r * channels:(r + 1) * channels], cp, form)
+                                  bu[r * channels:(r + 1) * channels], cp, form, chunk)
                      for r in range(2)], dim=3)  # (B, C, Np, phase, S)
     u = u.reshape(u.shape[0], channels, 2 * n_p, n_sym)
     corr = conv(u, layers[-1])
@@ -362,3 +457,23 @@ def test_gated_expert_3xtf32_order_within_tolerance(weights, rng):
     np.testing.assert_array_equal(_tf32_rna(v).numpy(),
                                   [1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0 + 2.0**-10])
     np.testing.assert_array_equal(_tf32_trunc(v).numpy(), [1.0, -1.0, 1.0])
+
+
+@pytest.mark.parametrize("channels", [48, 64, 72, 96])
+def test_gated_expert_chunked_order_within_tolerance(channels, rng):
+    """The card kernel's order at the wider widths, emulated at R 1, n_prb 24:
+    at 48 and 64 channels one k-tile a tap over all of them (the CP 48 and
+    CP 64 forms); at 72 (padded to 96) and 96 the wide form's N-chunks and
+    K-chunks of 32, with a fresh truncating accumulator per (K-chunk, tap),
+    lo terms first.  With a head as strong as the other layers it stays
+    within ``F32_TOL`` of ``repro``'s unfused reference."""
+    _, rfolded, tparams = _weights(channels, head_scale=2.0)
+    assert _chunking(channels) == ((channels, channels) if channels <= 64 else (96, KC))
+    h_ls = _cplx(rng, (2, CFG.n_ant, CFG.n_dmrs_sym, CFG.n_pilot_sc))
+    des = _cplx(rng, (2, CFG.n_ant, 1, CFG.n_sc, CFG.n_dmrs_sym))
+    idx, src = _compaction(np.zeros(2, np.int64), 2)
+    want = np.asarray(r_gated_expert_apply(jnp.asarray(idx), jnp.asarray(src), jnp.asarray(h_ls),
+                                           jnp.asarray(des), rfolded, backend="ref"))
+    folded = tai.AiEstimator(tparams, CFG.n_dmrs_sym).folded()
+    got = _gated_emulated(folded, torch.as_tensor(h_ls), "kernel").numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
