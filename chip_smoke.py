@@ -28,10 +28,12 @@ Phases, each of which raises on failure (exit code != 0):
    bound for the same work; the switches, the scatter, ``mmse_interp`` and
    the fused gated expert (against the unfused GATED path, also at K = 32
    with every UE selected and at 64, 96 and 128 channels) and
-   ``policy_step`` (against the composition it replaced) are timed against
-   their yardstick in turns (kernel, library, library, kernel) and print the
-   ratio, the scatter also against the per-UE switch's call over the same
-   bytes, and the switches print the host time of a call alone;
+   ``policy_step`` (against the composition it replaced, and with every
+   fault mask, the TTL, the breaker and detached lanes armed over 200
+   random slots) are timed against their yardstick in turns (kernel,
+   library, library, kernel) and print the ratio, the scatter also against
+   the per-UE switch's call over the same bytes, and the switches print the
+   host time of a call alone;
 4. main path: ``ArchesSession(...).run()`` of the closed-loop campaign at
    the paper's 106-PRB slot with 32 UEs and the estimator's default width,
    on a CONCURRENT bank; every kernel of that path must launch during the
@@ -42,25 +44,41 @@ Phases, each of which raises on failure (exit code != 0):
    served AI count; then an unfused GATED run with ``auto_capacity`` at a
    smaller depth, which launches the scatter kernel, and a fused GATED run
    at 96 channels (the kernel's wide form) for a few slots;
-6. GATED vs CONCURRENT: the same policy on a full-capacity GATED bank
+6. faults: the CONCURRENT and fused GATED closed loops, 32 slots, under
+   one ``FaultSpec`` (a NaN burst, a telemetry outage, a decision outage
+   past the TTL, random drops): the health screen trips in the burst and
+   only there, UEs enter quarantine, the outage decays to MMSE, one
+   ``tree_infer`` launch a slot, the device loop equals its host replay,
+   and ``FaultSpec()`` equals ``faults=None`` on every leaf;
+7. streaming: a closed-loop ``churn_cell`` campaign, 48 stable ids over
+   32 bank slots in segments of 8, 32 slots: pipelined == serial, killed
+   after 2 segments and resumed from its delta chain == uninterrupted,
+   zero churn == monolithic, the device loop == its host replay, all
+   bitwise; a fused GATED churn run; the executor's stats and ms per slot
+   beside the monolithic run's; the re-pack agreement of resident UEs
+   against a churn-free 48-UE run on both banks;
+8. width: the fused gated expert at ``PAST_SMEM_CHANNELS`` channels, past
+   the width whose weights fit a block's shared memory, at n_prb 273 and 24
+   against its plain version and the float64 rule;
+9. GATED vs CONCURRENT: the same policy on a full-capacity GATED bank
    against the CONCURRENT run, as agreement rates;
-7. host loop: ``ArchesSession(path="host")`` at n_prb 106 with the AI
+10. host loop: ``ArchesSession(path="host")`` at n_prb 106 with the AI
    expert at its default width and a tree policy, 40 slots: the scalar
    switch must launch exactly once per slot and ``mmse_interp`` must
    launch, every trajectory leaf must be finite, and the loop must
    synchronise with the device exactly once per slot (its one read-back,
    by PyTorch's sync debug mode); ms per slot and the median measured
    policy time are logged;
-8. perturbed sweep: ``sensitivity_sweep_batched`` on that session's engine
+11. perturbed sweep: ``sensitivity_sweep_batched`` on that session's engine
    at n_prb 106 (the 21 default rhos x 8 trials = 168 UEs, 8 slots a trial),
    then the stage-2 filter and ``design_policy_inputs``;
-9. reference: small CONCURRENT, GATED, host and perturbed campaigns on the
+12. reference: small CONCURRENT, GATED, host and perturbed campaigns on the
    card against the same campaigns run by the plain versions on the CPU;
-10. device alone: each kernel's and its yardstick's device time and
+13. device alone: each kernel's and its yardstick's device time and
     launches per call, under ``torch.profiler``, queued by phase 3 (a
     profiler session slows
     every later launch on the host, so it runs after the timed paths);
-11. profile: one more run of each closed loop and of the host loop under
+14. profile: one more run of each closed loop and of the host loop under
     ``torch.profiler``: the device's busy share, the launches per slot,
     the AI expert's device time per slot (on the fused GATED bank also
     launch by launch, by the UEs each slot served), and kernel time by name.
@@ -76,6 +94,7 @@ result when CUDA is unavailable or the package cannot be imported.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import json
 import os
@@ -134,6 +153,13 @@ GATED_CAPACITY, UNFUSED_SLOTS = 16, 12
 WIDE_SESSION_CHANNELS, WIDE_SESSION_SLOTS = 96, 6
 #: the perturbation sweep: every default rho x this many trials rides the UE axis
 SWEEP_TRIALS, SWEEP_SLOTS = 8, 8
+#: the fused GATED kernel past the width whose stem and head weights fit a
+#: block's shared memory (1,408 float32 channels at n_prb 273)
+PAST_SMEM_CHANNELS = 1472
+#: the fault campaigns' depth and TTL (their spans are in ``_fault_spec``)
+FAULT_SLOTS, FAULT_TTL = 32, 4
+#: the streaming campaign: bank capacity, stable ids, segment and depth
+STREAM_IDS, STREAM_SEG, STREAM_SLOTS = 48, 8, 32
 
 
 def sweep_ues() -> int:
@@ -170,12 +196,12 @@ def turns(kernel, library, iters: int = 50) -> tuple[float, float, str]:
             f"ratio {(k1 + k2) / (l1 + l2):.3f}")
 
 
-def turns_of(**fns) -> tuple[dict[str, float], str]:
+def turns_of(iters: int = 50, **fns) -> tuple[dict[str, float], str]:
     """Several calls' times taken in turns (a, b, ..., ..., b, a): each mean,
     and both readings of each."""
     names = list(fns)
-    first = {k: time_ms(fns[k]) for k in names}
-    second = {k: time_ms(fns[k]) for k in reversed(names)}
+    first = {k: time_ms(fns[k], iters) for k in names}
+    second = {k: time_ms(fns[k], iters) for k in reversed(names)}
     means = {k: (first[k] + second[k]) / 2 for k in names}
     return means, "; ".join(f"{k} {first[k] * 1e3:.2f} / {second[k] * 1e3:.2f} us"
                             for k in names)
@@ -197,17 +223,22 @@ def device_us(fn, match: str | None, iters: int = 200) -> tuple[float, float]:
     """Device time per call of the kernels ``fn`` launches whose name holds
     ``match`` (all of them with ``None``), from ``torch.profiler`` over
     ``iters`` calls back to back: the device work alone, without the host;
-    and those kernels' launches per call."""
+    and those kernels' launches per call.  A profiler session that records
+    no device activity at all is taken again, up to three sessions: CUPTI
+    has been seen on an H100 to drop a whole session's kernel records."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
-              and (match is None or match in e.key)]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if device:
+            break
+    events = [e for e in device if match is None or match in e.key]
     if not events:
         raise AssertionError(f"the profiler saw no device kernel named {match!r}")
     return (sum(e.self_device_time_total for e in events) / iters,
@@ -438,9 +469,14 @@ def phase_policy_step(gen) -> dict:
     launch) bitwise against its plain version, the composition the loop ran
     before it (``switch_update`` then ``switch_boundary``), over 200 slots of a
     drifting KPM stream with every hysteresis and period setting of the
-    campaigns; the two call times in turns, and both queued for the device-alone
-    phase, which also counts each one's launches per decision slot."""
+    campaigns, then over 200 slots with the fault ladder and the streaming
+    mask armed (random masks, trips and detached lanes, the TTL and the
+    breaker) against ``switch_update`` -> ``switch_boundary`` ->
+    ``breaker_update`` -> freeze; the call times in turns (fault-free and
+    armed), and all queued for the device-alone phase, which also counts each
+    one's launches per decision slot."""
     from repro_torch.core import closed_loop as tcl
+    from repro_torch.core.faults import FaultSpec
     from repro_torch.core.telemetry import SELECTED_KPMS
     from repro_torch.kernels import build
     from repro_torch.kernels.tree_infer import policy_step, policy_step_ref
@@ -472,32 +508,84 @@ def phase_policy_step(gen) -> dict:
         switches += int(state.n_switches.sum())
     if switches == 0:
         raise AssertionError("the policy step's stream never switched a UE")
+    # the fault ladder and the streaming mask armed: random decision and
+    # telemetry masks, trips and detached lanes, the TTL at 3 and the breaker
+    faults = FaultSpec(breaker_trips=2, breaker_window=4, breaker_cooldown=3)
+    armed_cfg = tcl.SwitchConfig(feature_names=SELECTED_KPMS, window_slots=window,
+                                 ttl_slots=3)
+
+    def masks(p):
+        return torch.rand(n_slots, N_UES, generator=gen, device=dev) < p
+
+    dv, tv, trip, act = masks(0.8), masks(0.8), masks(0.3), masks(0.9)
+    state = ref = tcl.init_device_switch(N_UES, n_feat, armed_cfg, dev, faults=faults)
+    quarantined = 0
+    for s in range(n_slots):
+        kw = dict(decision_valid=dv[s], telemetry_valid=tv[s], trip=trip[s], active=act[s],
+                  slot_idx=s, faults=faults, return_register=True)
+        before = build.launch_counts["tree_infer"]
+        state, raw, reg = policy_step(state, feats[s], pol, armed_cfg, **kw)
+        if build.launch_counts["tree_infer"] != before + 1:
+            raise AssertionError("the armed policy_step is not one launch a slot")
+        ref, ref_raw, ref_reg = policy_step_ref(ref, feats[s], pol, armed_cfg, **kw)
+        same = torch.equal(raw, ref_raw) and torch.equal(reg, ref_reg) and all(
+            torch.equal(a, b) for a, b in zip((*state.rings, *state[1:]),
+                                              (*ref.rings, *ref[1:])))
+        if not same:
+            raise AssertionError(f"the armed policy_step differs from its plain version at "
+                                 f"slot {s}")
+        quarantined += int((state.quarantine > 0).sum())
+    if quarantined == 0:
+        raise AssertionError("the armed policy step's breaker never quarantined a UE")
+    armed_kw = dict(decision_valid=dv[-1], telemetry_valid=tv[-1], trip=trip[-1],
+                    active=act[-1], slot_idx=n_slots, faults=faults)
+    armed_state = state
     cfg = tcl.SwitchConfig(feature_names=SELECTED_KPMS, window_slots=window)
+    state = tcl.init_device_switch(N_UES, n_feat, cfg, dev)
+    for s in range(n_slots):
+        state, _ = policy_step(state, feats[s], pol, cfg)
     kpm = feats[-1]
     ms, plain, reading = turns(lambda: policy_step(state, kpm, pol, cfg),
                                lambda: policy_step_ref(state, kpm, pol, cfg))
+    armed = turns_of(
+        fault_free=lambda: policy_step(state, kpm, pol, cfg),
+        armed=lambda: policy_step(armed_state, kpm, pol, armed_cfg, **armed_kw),
+        armed_plain=lambda: policy_step_ref(armed_state, kpm, pol, armed_cfg, **armed_kw))
     device_alone("policy_step", lambda: policy_step(state, kpm, pol, cfg), "policy_step")
+    device_alone("policy_step, every mask, the TTL and the breaker armed",
+                 lambda: policy_step(armed_state, kpm, pol, armed_cfg, **armed_kw),
+                 "policy_step")
     device_alone("decision phase before it (switch_update + switch_boundary)",
                  lambda: policy_step_ref(state, kpm, pol, cfg), None)
-    # read the state and the KPMs once, write the new state once; the window's
-    # adds are a few thousand operations
+    # read the state and the KPMs once, write the new state, the raw decisions
+    # and the register once: the ring (float32) and its idx and count (int64),
+    # six (U,) int32 leaves and the breaker's trip ring; the window's adds are
+    # a few thousand operations
     ring = 4.0 * N_UES * window * n_feat
-    n_bytes = 2 * ring + 4.0 * N_UES * n_feat + 2 * 16 * N_UES + 16 * N_UES + 20 * N_UES + 40
+    leaves = 16.0 * N_UES + 6 * 4.0 * N_UES + 4.0 * N_UES * state.trip_ring.shape[1]
+    n_bytes = 2 * (ring + leaves) + 4.0 * N_UES * n_feat + 8.0 * N_UES + 40
     bms, by = bound_ms(n_bytes, 2.0 * N_UES * window * n_feat)
+    armed_bytes = n_bytes + 4.0 * N_UES * (faults.breaker_window - 1) * 2 + 4.0 * N_UES
+    armed_bms, _ = bound_ms(armed_bytes, 2.0 * N_UES * window * n_feat)
     torch.cuda.synchronize()
     host = host_us(lambda: policy_step(state, kpm, pol, cfg))
+    host_armed = host_us(lambda: policy_step(armed_state, kpm, pol, armed_cfg, **armed_kw))
     torch.cuda.synchronize()
     log(f"  policy_step: bitwise its plain version over {n_slots} slots at hysteresis 1 / "
-        f"period 1 and hysteresis 3 / period 2 ({switches} switches), one launch a decision "
-        f"slot; call {reading} (the plain composition); host time per call alone "
-        f"{host:.2f} us")
+        f"period 1 and hysteresis 3 / period 2 ({switches} switches), and over {n_slots} "
+        f"slots with random decision and telemetry masks, trips and detached lanes, TTL 3 "
+        f"and the breaker ({quarantined} quarantined slot-UEs); one launch a decision slot; "
+        f"call {reading} (the plain composition); fault-free vs armed in turns: "
+        f"{armed[1]}; armed / fault-free {armed[0]['armed'] / armed[0]['fault_free']:.3f}; "
+        f"host time per call alone {host:.2f} us fault-free, {host_armed:.2f} us armed; "
+        f"bound {bms * 1e3:.4f} us fault-free, {armed_bms * 1e3:.4f} us armed")
     return dict(
         name="tree_infer", route="cuda", source="src/repro_torch/csrc/tree_infer.cu",
         replaces="src/repro/kernels/tree_infer/tree_infer.py:43",
         launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain,
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"the fused decision phase: ring ({N_UES}, {window}, {n_feat}) float32, "
-              f"depth 2",
+              f"depth 2; armed {armed[0]['armed'] * 1e3:.2f} us",
     )
 
 
@@ -1136,6 +1224,329 @@ def phase_sweep(sess) -> None:
         f"{sorted(kept)}; design_policy_inputs keeps {list(selected)}; launches {launches}")
 
 
+def phase_wide_width() -> None:
+    """The fused GATED kernel past the width whose stem and head weights fit a
+    block's shared memory: ``PAST_SMEM_CHANNELS`` channels (one residual block)
+    at n_prb 273 and 24, float32 against its plain version and the float64
+    rule, bf16 at n_prb 24; the call and the unfused path timed in turns."""
+    import copy
+
+    from repro_torch import random as jr
+    from repro_torch.kernels import build
+    from repro_torch.kernels.gated_expert import gated_expert_apply, gated_expert_apply_ref
+    from repro_torch.kernels.gated_expert.ops import _launch, _smem_optin
+    from repro_torch.phy import ai_estimator as tai
+    from repro_torch.phy.nr import SlotConfig
+
+    dev = torch.device("cuda")
+    ch = PAST_SMEM_CHANNELS
+    smem = build.function("gated_expert", "gated_expert_smem_bytes", [ctypes.c_int] * 5,
+                          ctypes.c_longlong)
+    for n_prb, dtypes in ((273, (None,)), (24, (None, torch.bfloat16))):
+        cfg = SlotConfig(n_prb=n_prb)
+        staged = smem(cfg.n_dmrs_sym, cfg.n_pilot_sc, ch, 0, 0)
+        direct = smem(cfg.n_dmrs_sym, cfg.n_pilot_sc, ch, 0, 1)
+        params = tai.init_params(jr.PRNGKey(ch, dev), cfg,
+                                 tai.AiEstimatorConfig(channels=ch, n_res_blocks=1))
+        gen = torch.Generator(device=dev).manual_seed(n_prb)
+        for layer in [params] + params["res"]:
+            for k in [k for k in layer if k.endswith("_b") or k in ("b1", "b2")]:
+                layer[k] = 0.1 * torch.randn(layer[k].shape, generator=gen, device=dev)
+
+        def cplx(shape):
+            return torch.complex(torch.randn(shape, generator=gen, device=dev),
+                                 torch.randn(shape, generator=gen, device=dev))
+
+        h_ls = cplx((3, cfg.n_ant, cfg.n_dmrs_sym, cfg.n_pilot_sc))
+        des0 = cplx((3, cfg.n_ant, 1, cfg.n_sc, cfg.n_dmrs_sym))
+        idx = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+        src = torch.tensor([0, -1, 1], dtype=torch.int32, device=dev)
+        for cd in dtypes:
+            ai = tai.AiEstimator(params, cfg.n_dmrs_sym, cd).to(dev)
+            got = gated_expert_apply(idx, src, h_ls, des0, ai, compute_dtype=cd)
+            want = gated_expert_apply_ref(idx, src, h_ls, des0, ai, compute_dtype=cd)
+            torch.cuda.synchronize()
+            if not torch.equal(got[1], des0[1]):
+                raise AssertionError("the wide kernel wrote an unselected UE")
+            e = float((got - want).abs().max())
+            tol = GATED_F32_TOL if cd is None else GATED_BF16_TOL
+            torch.testing.assert_close(got, want, **tol)
+            msg = (f"  gated_expert at {ch} channels, n_prb {n_prb}, "
+                   f"{'bf16' if cd is not None else 'float32'}: shared memory a block "
+                   f"{staged} B staged / {direct} B with the weights in global memory "
+                   f"(the card grants {_smem_optin(0)}); max |err| vs plain {e:.3g}")
+            if cd is None:
+                exact = gated_expert_apply_ref(idx, src, h_ls.to(torch.complex128),
+                                               des0.to(torch.complex128),
+                                               copy.deepcopy(ai).to(torch.float64))
+                e_k, e_p = (float((x - exact).abs().max()) for x in (got, want))
+                if not e_k <= GATED_EXACT_RATIO * e_p:
+                    raise AssertionError(f"wide kernel vs float64 {e_k:.3g} > "
+                                         f"{GATED_EXACT_RATIO} x plain {e_p:.3g}")
+                msg += f"; vs float64: kernel {e_k:.3g}, plain {e_p:.3g}"
+                if n_prb == 273:
+                    t, reading = turns_of(
+                        iters=3,
+                        kernel=lambda: gated_expert_apply(idx, src, h_ls, des0, ai),
+                        unfused=lambda: gated_expert_apply_ref(idx, src, h_ls, des0, ai))
+                    bms, _ = bound_ms(0.0, 3 * direct_conv_flops(cfg, ch, 1, 2),
+                                      PEAK_TF32_FLOPS)
+                    msg += (f"; call {t['kernel'] * 1e3:.1f} us, {t['kernel'] / bms:.2f}x its "
+                            f"3xTF32 bound {bms * 1e3:.1f} us, vs unfused "
+                            f"{t['unfused'] * 1e3:.1f} us ({reading})")
+            log(msg)
+            del ai, got, want
+        del params, h_ls, des0
+        torch.cuda.empty_cache()
+    # the cost of the global-weight variant where both fit: 128 channels at
+    # the main path's n_prb, 11 of 16 rows selected, the two variants in turns
+    cfg = SlotConfig(n_prb=N_PRB)
+    params = tai.init_params(jr.PRNGKey(128, dev), cfg,
+                             tai.AiEstimatorConfig(channels=128, n_res_blocks=N_RES))
+    ai = tai.AiEstimator(params, cfg.n_dmrs_sym).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(128)
+    h_ls = torch.complex(*(torch.randn(N_UES, cfg.n_ant, cfg.n_dmrs_sym, cfg.n_pilot_sc,
+                                       generator=gen, device=dev) for _ in range(2)))
+    des0 = torch.complex(*(torch.randn(N_UES, cfg.n_ant, 1, cfg.n_sc, cfg.n_dmrs_sym,
+                                       generator=gen, device=dev) for _ in range(2)))
+    idx, src = _compaction((torch.arange(N_UES, device=dev) % 3 == 0).to(torch.int32),
+                           GATED_CAPACITY)
+    variants = {g: (lambda g=g: _launch(idx, src, h_ls, des0, ai, None, global_weights=g))
+                for g in (False, True)}
+    if not torch.equal(variants[False](), variants[True]()):
+        raise AssertionError("the global-weight variant differs from the staged wide form")
+    t, reading = turns_of(iters=10, staged=variants[False], global_weights=variants[True])
+    log(f"  gated_expert at 128 channels, n_prb {N_PRB}, K {GATED_CAPACITY}: the "
+        f"global-weight variant bitwise the staged form; {reading}; global / staged "
+        f"{t['global_weights'] / t['staged']:.3f}")
+
+
+def _fault_spec():
+    from repro_torch.core.faults import FaultSpec
+
+    # a NaN burst while the poor phase has the UEs on the AI expert, a telemetry
+    # outage, a decision outage longer than the TTL, and random drops throughout
+    return FaultSpec(seed=7, corruption_spans=((6, 14),), corruption_kind="nan",
+                     telemetry_spans=((15, 18),), decision_outages=((20, 26),),
+                     decision_drop_prob=0.05, telemetry_drop_prob=0.05, breaker_trips=2,
+                     breaker_window=4, breaker_cooldown=6)
+
+
+def _same_history(a, b, label: str) -> None:
+    """Every leaf bitwise, or raise naming the first that differs."""
+    pairs = [("modes", a.modes, b.modes), ("decisions", a.decisions, b.decisions),
+             ("n_switches", a.n_switches, b.n_switches)]
+    if set(a.kpms) != set(b.kpms) or set(a.outputs) != set(b.outputs):
+        raise AssertionError(f"{label}: the histories carry different leaves")
+    pairs += [(k, a.kpms[k], b.kpms[k]) for k in a.kpms]
+    pairs += [(k, a.outputs[k], b.outputs[k]) for k in a.outputs]
+    for name, x, y in pairs:
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+            raise AssertionError(f"{label}: leaf {name} differs")
+
+
+def phase_faults(host_policies) -> dict:
+    """The main path's closed loops (CONCURRENT and fused GATED) under one
+    ``FaultSpec``: the screen trips in the corruption span and only there, UEs
+    enter quarantine, the decision phase is one ``tree_infer`` launch a slot,
+    the device loop equals its host replay; and ``FaultSpec()`` equals
+    ``faults=None`` bitwise on every leaf."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.session import ArchesSession
+
+    fs = _fault_spec()
+    launches = {}
+    for label, bank, kernels in (
+            ("CONCURRENT", {}, ("mmse_interp", "switch_select_batched", "tree_infer")),
+            ("GATED fused", dict(execution_mode="gated", fused=True,
+                                 gated_capacity=GATED_CAPACITY),
+             ("gated_expert", "mmse_interp", "tree_infer"))):
+        base = _main_spec(**bank)
+        spec = dataclasses.replace(base, n_slots=FAULT_SLOTS, faults=fs,
+                                   scenario_args=(("poor_start", 2), ("poor_end", 18)),
+                                   switch=dataclasses.replace(base.switch, ttl_slots=FAULT_TTL))
+        sess, hist, counts = run_path(f"faults {label}", spec, kernels,
+                                      host_policies=host_policies, rerun=False)
+        if counts["tree_infer"] != FAULT_SLOTS:
+            raise AssertionError(f"faults {label}: {counts['tree_infer']} policy-step "
+                                 f"launches in {FAULT_SLOTS} slots")
+        ht = hist.outputs["health_tripped"]
+        span = np.zeros(FAULT_SLOTS, bool)
+        span[6:14] = True
+        if not (ht[span].sum() > 0 and ht[~span].sum() == 0):
+            raise AssertionError(f"faults {label}: health trips {ht.sum(axis=1)} outside or "
+                                 f"missing in the corruption span")
+        if hist.quarantined_slot_ues == 0:
+            raise AssertionError(f"faults {label}: the breaker quarantined no UE")
+        # the outage (slots 20-25) outlives the TTL: every UE decays to MMSE
+        if not (hist.modes[24:27] == 1).all():
+            raise AssertionError(f"faults {label}: the TTL did not decay the outage to MMSE")
+        pre_sess = ArchesSession(dataclasses.replace(spec, faults=None), device="cuda",
+                                 host_policies=host_policies)
+        pre = pre_sess.run()
+        zero = ArchesSession(dataclasses.replace(spec, faults=FaultSpec()), device="cuda",
+                             host_policies=host_policies).run()
+        _same_history(zero, pre, f"faults {label}: FaultSpec() vs faults=None")
+        loop_ms = {}
+        for name, s_ in (("faulted", sess), ("fault-free", pre_sess), ("faulted again", sess)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_.run()
+            torch.cuda.synchronize()
+            loop_ms[name] = (time.perf_counter() - t0) / FAULT_SLOTS * 1e3
+        log(f"faults {label}: health-tripped slot-UEs {hist.health_tripped_slot_ues} (all in "
+            f"slots 6-13), quarantined slot-UEs {hist.quarantined_slot_ues}, AI share "
+            f"{hist.ai_share:.4f} (fault-free {pre.ai_share:.4f}), every UE on MMSE in slots "
+            f"24-26 (the outage past the TTL of {FAULT_TTL}); FaultSpec() == faults=None on "
+            f"every leaf; ms per slot " + ", ".join(f"{k} {v:.2f}" for k, v in loop_ms.items()))
+        launches[label] = counts
+    return launches
+
+
+def _churn_schedule():
+    """48 stable ids over a 32-slot bank: 28 attached at slot 0, then at each
+    segment boundary a few detach and others attach (re-attaches included)."""
+    from repro_torch.core.streaming import ChurnSchedule
+
+    rng = np.random.default_rng(18)
+    resident = set(range(28))
+    events = []
+    for t in range(STREAM_SEG, STREAM_SLOTS, STREAM_SEG):
+        for u in rng.choice(sorted(resident), 4, replace=False):
+            events.append((t, int(u), "detach"))
+            resident.discard(int(u))
+        free = sorted(set(range(STREAM_IDS)) - resident - {u for _, u, k in events[-4:]})
+        for u in rng.choice(free, min(6, N_UES - len(resident)), replace=False):
+            events.append((t, int(u), "attach"))
+            resident.add(int(u))
+    return ChurnSchedule(n_ue_ids=STREAM_IDS, segment_slots=STREAM_SEG,
+                         initial=tuple(range(28)), events=tuple(events))
+
+
+def _stream_spec(**bank):
+    from repro_torch.core.session import CampaignSpec, ExpertBankSpec, PolicySpec
+
+    return CampaignSpec(
+        path="closed_loop", scenario="churn_cell", n_prb=N_PRB, n_ues=N_UES,
+        n_slots=STREAM_SLOTS, seed=7, churn=_churn_schedule(),
+        bank=ExpertBankSpec(channels=CHANNELS, n_res_blocks=N_RES, **bank),
+        policies=(PolicySpec(kind="tree"),))
+
+
+def _repack_agreement(churn_hist, mono_hist) -> dict:
+    """Over the ids resident in every slot whose bank slot moved at least once:
+    the share of slot-UEs whose mode, MCS and TB outcome equal the monolithic
+    run's (every id in its own slot of a 48-wide batch), and the share whose
+    SNR and RSRP are the same bits."""
+    att = churn_hist.attached
+    always = att.all(axis=0)
+    moved = always & (churn_hist.bank_slot.max(axis=0) != churn_hist.bank_slot.min(axis=0))
+    cols = np.nonzero(moved)[0]
+    out = {"ids": int(len(cols))}
+    for name, a, b in (("mode", churn_hist.modes, mono_hist.modes),
+                       ("mcs", churn_hist.outputs["mcs"], mono_hist.outputs["mcs"]),
+                       ("tb_ok", churn_hist.outputs["tb_ok"], mono_hist.outputs["tb_ok"]),
+                       ("snr_bits", churn_hist.kpms["snr"], mono_hist.kpms["snr"]),
+                       ("rsrp_bits", churn_hist.kpms["rsrp"], mono_hist.kpms["rsrp"])):
+        out[name] = float(np.mean(a[:, cols] == b[:, cols])) if len(cols) else float("nan")
+    return out
+
+
+def phase_streaming(host_policies) -> None:
+    """A closed-loop ``churn_cell`` campaign at the main path's width (32 bank
+    slots, 48 stable ids, segments of 8, 32 slots): pipelined == serial, a run
+    killed after two segments and resumed from its delta chain == the
+    uninterrupted one, the device loop == its host replay, one ``tree_infer``
+    launch a slot; zero churn == the monolithic run; one fused GATED churn run;
+    the executor's stats and ms per slot beside the monolithic run's; and the
+    re-pack agreement of resident UEs against a churn-free 48-UE run, on the
+    CONCURRENT bank (cuBLAS) and on the fused GATED bank (one UE bitwise at
+    any row)."""
+    import tempfile
+
+    from repro_torch.core.session import ArchesSession, as_streaming_spec
+    from repro_torch.kernels import build
+
+    spec = _stream_spec()
+    sess = ArchesSession(spec, device="cuda", host_policies=host_policies)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    serial_stats, piped_stats = {}, {}
+    t0 = time.perf_counter()
+    serial = sess.run_streaming(pipeline=False, stats=serial_stats)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    if counts["tree_infer"] != STREAM_SLOTS:
+        raise AssertionError(f"streaming: {counts['tree_infer']} policy-step launches in "
+                             f"{STREAM_SLOTS} slots")
+    t0 = time.perf_counter()
+    piped = sess.run_streaming(stats=piped_stats)
+    torch.cuda.synchronize()
+    piped_s = time.perf_counter() - t0
+    _same_history(piped, serial, "streaming: pipelined vs serial")
+    for name in ("attached", "bank_slot"):
+        if not np.array_equal(getattr(piped, name), getattr(serial, name)):
+            raise AssertionError(f"streaming: {name} differs, pipelined vs serial")
+    with tempfile.TemporaryDirectory() as d:
+        ck_stats = {}
+        sess.run_streaming(checkpoint_dir=d, max_segments=2, stats=ck_stats)
+        resumed = sess.run_streaming(resume_from=d)
+    _same_history(resumed, serial, "streaming: resumed vs uninterrupted")
+    replay = sess.host_replay(serial)
+    if not np.array_equal(serial.modes, replay["active_mode"]):
+        raise AssertionError("streaming: device loop != host replay")
+    if not np.array_equal(serial.decisions, replay["raw_decision"]):
+        raise AssertionError("streaming: device decisions != host replay")
+    mono_spec = dataclasses.replace(spec, churn=None)
+    t0 = time.perf_counter()
+    mono = ArchesSession(mono_spec, device="cuda", host_policies=host_policies).run()
+    torch.cuda.synchronize()
+    mono_s = time.perf_counter() - t0
+    zero = ArchesSession(as_streaming_spec(mono_spec, max_segment_slots=STREAM_SEG),
+                         device="cuda", host_policies=host_policies).run()
+    zero.attached = zero.bank_slot = None
+    _same_history(zero, mono, "streaming: zero churn vs monolithic")
+    res = serial.resident_ues_per_slot()
+    log(f"streaming CONCURRENT: {STREAM_IDS} ids over {N_UES} bank slots, "
+        f"{STREAM_SLOTS} slots in segments of {STREAM_SEG}, resident {res.min()}-{res.max()} "
+        f"a slot; pipelined == serial, killed after 2 segments and resumed from the delta "
+        f"chain == uninterrupted, device loop == host replay, zero churn == monolithic, all "
+        f"bitwise; one tree_infer launch a slot")
+    per_slot = {k: v / STREAM_SLOTS * 1e3 for k, v in (
+        ("serial", serial_s), ("pipelined", piped_s), ("monolithic", mono_s))}
+    log("streaming ms per slot: " + ", ".join(f"{k} {v:.2f}" for k, v in per_slot.items()))
+    for label, st in (("serial", serial_stats), ("pipelined", piped_stats),
+                      ("checkpointed, 2 segments", ck_stats)):
+        log(f"streaming stats {label}: " + ", ".join(
+            f"{k} {st[k]:.4f}" for k in ("dispatch_s", "wait_s", "assembly_s", "checkpoint_s"))
+            + f", segments {st['segments']}, checkpoint bytes a segment "
+              f"{st['checkpoint_bytes']}")
+    wide = ArchesSession(dataclasses.replace(mono_spec, n_ues=STREAM_IDS), device="cuda",
+                         host_policies=host_policies).run()
+    agree = {"CONCURRENT": _repack_agreement(serial, wide)}
+    gspec = _stream_spec(execution_mode="gated", fused=True)
+    gsess = ArchesSession(gspec, device="cuda", host_policies=host_policies)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    ghist = gsess.run()
+    torch.cuda.synchronize()
+    gcounts = dict(build.launch_counts)
+    if gcounts["gated_expert"] == 0 or gcounts["tree_infer"] != STREAM_SLOTS:
+        raise AssertionError(f"streaming GATED fused launches {gcounts}")
+    if not np.array_equal(ghist.modes, gsess.host_replay(ghist)["active_mode"]):
+        raise AssertionError("streaming GATED fused: device loop != host replay")
+    gwide = ArchesSession(dataclasses.replace(gspec, churn=None, n_ues=STREAM_IDS),
+                          device="cuda", host_policies=host_policies).run()
+    agree["GATED fused"] = _repack_agreement(ghist, gwide)
+    log(f"streaming GATED fused: launches {gcounts}, device loop == host replay")
+    for label, a in agree.items():
+        log(f"re-pack agreement {label}: over {a['ids']} ids resident every slot whose bank "
+            f"slot moved, against a churn-free {STREAM_IDS}-UE run: mode {a['mode']:.4f}, "
+            f"mcs {a['mcs']:.4f}, tb_ok {a['tb_ok']:.4f}, snr bitwise {a['snr_bits']:.4f}, "
+            f"rsrp bitwise {a['rsrp_bits']:.4f}")
+
+
 def phase_device_alone() -> None:
     """The kernels' and their yardsticks' device time alone, queued by the
     kernel phases, under ``torch.profiler``."""
@@ -1226,6 +1637,9 @@ def main() -> int:
     if wide_launches["gated_expert"] != WIDE_SESSION_SLOTS:
         raise AssertionError(f"{wide_launches['gated_expert']} fused GATED launches in "
                              f"{WIDE_SESSION_SLOTS} slots at {WIDE_SESSION_CHANNELS} channels")
+    phase_faults(conc.host_policies)
+    phase_streaming(conc.host_policies)
+    phase_wide_width()
     host, host_launches = phase_host()
     phase_sweep(host)
     for r in rows:

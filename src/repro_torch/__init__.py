@@ -1,7 +1,7 @@
 """ARCHES on PyTorch + CUDA: the port of ``repro`` to one NVIDIA H100.
 
-Mirrors ``repro``'s layout (``phy/``, ``core/``, ``kernels/<name>/``) and
-imports neither ``jax`` nor ``repro``.  Every entry point takes an explicit
+Mirrors ``repro``'s layout (``phy/``, ``core/``, ``kernels/<name>/``,
+``checkpoint/``) and imports neither ``jax`` nor ``repro``.  Every entry point takes an explicit
 ``device`` and defaults to ``"cuda"``; ``device="cpu"`` runs the plain
 PyTorch versions of the hand-written kernels (what the CPU tests do).
 """

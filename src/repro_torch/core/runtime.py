@@ -152,12 +152,16 @@ class BatchedRunHistory:
 
     @property
     def ai_share(self) -> float:
-        """Fraction of slot-UEs served by the designated (AI) expert."""
+        """Fraction of slot-UEs served by the designated (AI) expert.  A
+        streaming history counts resident slot-UEs only."""
         served = self.modes == 0
         for fell_back in ("gated_overflow", "audit_tripped", "health_tripped",
                           "quarantined"):
             if fell_back in self.outputs:
                 served = served & (np.asarray(self.outputs[fell_back]) == 0)
+        if self.attached is not None:
+            att = np.asarray(self.attached, bool)
+            return float(served[att].mean()) if att.any() else 0.0
         return float(np.mean(served))
 
     def executed_flops_per_slot(self) -> np.ndarray:
@@ -178,6 +182,27 @@ class BatchedRunHistory:
         if "audit_tripped" not in self.outputs:
             return 0
         return int(np.asarray(self.outputs["audit_tripped"]).sum())
+
+    @property
+    def health_tripped_slot_ues(self) -> int:
+        """Total health-screen events: slot-UEs whose AI estimate was not
+        finite and was served the fail-safe baseline (0 without faults)."""
+        if "health_tripped" not in self.outputs:
+            return 0
+        return int(np.asarray(self.outputs["health_tripped"]).sum())
+
+    @property
+    def quarantined_slot_ues(self) -> int:
+        """Total slot-UEs that started under the breaker's quarantine."""
+        if "quarantined" not in self.outputs:
+            return 0
+        return int((np.asarray(self.outputs["quarantined"]) > 0).sum())
+
+    def resident_ues_per_slot(self) -> np.ndarray:
+        """Resident UEs per slot ((S,) int64; the whole batch without churn)."""
+        if self.attached is None:
+            return np.full(self.n_slots, self.n_ues, np.int64)
+        return np.asarray(self.attached, bool).sum(axis=1)
 
 
 def suggest_gated_capacity(history: BatchedRunHistory, *, quantile: float = 1.0,
@@ -309,14 +334,16 @@ class ArchesRuntime:
                    switch_config=sw_cfg)
 
     def run_batched(self, schedule, *, n_slots: int, n_ues: int, key=None,
-                    provisioned_capacity: int | None = None) -> BatchedRunHistory:
+                    provisioned_capacity: int | None = None,
+                    faults=None) -> BatchedRunHistory:
         """Closed-loop batched campaign: device-decided modes in one slot loop.
-        ``provisioned_capacity`` is recorded in the history as given."""
+        ``provisioned_capacity`` is recorded in the history as given;
+        ``faults`` (a ``FaultSpec``) arms the degradation ladder."""
         if not self.closed_loop:
             raise RuntimeError("run_batched requires closed_loop=True")
         _, final_switch, traj = self.engine.run_closed_loop(
             schedule, self.device_policy, self.switch_config, n_slots=n_slots,
-            n_ues=n_ues, key=key)
+            n_ues=n_ues, key=key, faults=faults)
         return BatchedRunHistory.from_closed_loop(
             traj, final_switch, provisioned_capacity=provisioned_capacity)
 

@@ -22,9 +22,12 @@ Every execution path runs:
   axis),
 
 on CONCURRENT, SELECTED_ONLY and GATED banks (fused or not, float32 or
-bf16 experts, with the NMSE audit), and ``run(auto_capacity=True)``.  A
-spec that sets ``topology``, ``churn`` or ``faults`` raises at
-construction, naming its ROADMAP item.
+bf16 experts, with the NMSE audit), and ``run(auto_capacity=True)``.
+``faults`` (a ``FaultSpec``) arms the degradation ladder on the batched,
+gated and closed-loop paths; ``churn`` (a ``ChurnSchedule``) makes the
+campaign a streaming one (``run_streaming``, ``repro_torch.core.streaming``).
+A spec that sets ``topology`` raises at construction, naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -41,11 +44,13 @@ import torch
 from repro_torch import random as jr
 from repro_torch.core.closed_loop import SwitchConfig, per_ue_policy
 from repro_torch.core.expert_bank import ExecutionMode, coerce_enum
+from repro_torch.core.faults import FaultSpec
 from repro_torch.core.runtime import (
     ArchesRuntime,
     BatchedRunHistory,
     suggest_gated_capacity,
 )
+from repro_torch.core.streaming import ChurnSchedule
 from repro_torch.core.telemetry import SELECTED_KPMS
 from repro_torch.device import resolve_device
 
@@ -163,8 +168,13 @@ class CampaignSpec:
     """A whole campaign as data: serialize it, hash it, run it.
 
     Same fields, defaults and normalization as the reference's spec.
-    ``topology``, ``churn`` and ``faults`` are kept so the JSON form and
-    hash agree, but setting any of them raises until its slice is ported.
+    ``churn`` (a ``ChurnSchedule`` or its dict form) turns the campaign into
+    a streaming one: ``n_ues`` becomes the bank capacity and the history's
+    UE axis the schedule's stable ids.  ``faults`` (a ``FaultSpec`` or its
+    dict form) injects decision loss, expert corruption and telemetry loss
+    on the batched, gated and closed-loop paths; ``FaultSpec()`` is bitwise
+    the same as ``None``.  ``topology`` is kept so the JSON form and hash
+    agree, but setting it raises until its slice is ported.
     """
 
     path: str = "batched"
@@ -182,17 +192,18 @@ class CampaignSpec:
     feature_names: tuple = SELECTED_KPMS
     rho: tuple | None = None
     topology: Any = None
-    churn: Any = None
-    faults: Any = None
+    churn: ChurnSchedule | None = None
+    faults: FaultSpec | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "path", ExecutionPath.coerce(self.path).value)
-        for name, item in (("topology", "Queue 1: multi-cell topology"),
-                           ("churn", "Queue 1: faults and streaming"),
-                           ("faults", "Queue 1: faults and streaming")):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"CampaignSpec.{name} is not ported yet (ROADMAP, {item})")
+        if self.topology is not None:
+            raise NotImplementedError("CampaignSpec.topology is not ported yet "
+                                      "(ROADMAP, Queue 1: multi-cell topology)")
+        if self.churn is not None and not isinstance(self.churn, ChurnSchedule):
+            object.__setattr__(self, "churn", ChurnSchedule(**dict(self.churn)))
+        if self.faults is not None and not isinstance(self.faults, FaultSpec):
+            object.__setattr__(self, "faults", FaultSpec(**dict(self.faults)))
         for name in ("scenario_args", "policies", "feature_names"):
             object.__setattr__(self, name, _tuplify(getattr(self, name)))
         object.__setattr__(self, "modes", _tuplify(self.modes))
@@ -229,6 +240,24 @@ class CampaignSpec:
         if path is ExecutionPath.HOST and bank_mode is ExecutionMode.GATED:
             raise ValueError("gated execution is the batched path: the host loop "
                              "serves one UE and has no sub-batch to compact")
+        device_paths = (ExecutionPath.BATCHED, ExecutionPath.GATED, ExecutionPath.CLOSED_LOOP)
+        if self.churn is not None:
+            if path not in device_paths:
+                raise ValueError(
+                    f"churn campaigns stream the batched loop; path={self.path!r} has no "
+                    "segmented form (the host loop serves one pinned UE, the perturbed "
+                    "sweep has no notion of churn)")
+            if self.policy_assignment is not None:
+                raise ValueError(
+                    "policy_assignment is bank-slot-indexed; a churn campaign re-packs "
+                    "bank slots, so per-UE policy heterogeneity under churn is not "
+                    "supported -- declare one shared policy")
+            self.churn.validate(self.n_slots, self.n_ues)
+        if self.faults is not None and path not in device_paths:
+            raise ValueError(
+                f"fault injection targets the device slot loop; path={self.path!r} has "
+                "no fault machinery (the host loop models dApp failure via DApp.fail(), "
+                "the perturbed sweep is MMSE-only)")
 
     @property
     def execution_path(self) -> ExecutionPath:
@@ -267,6 +296,30 @@ def spec_hash(spec: CampaignSpec) -> str:
     return hashlib.sha256(spec.to_json().encode()).hexdigest()[:16]
 
 
+def as_streaming_spec(spec: CampaignSpec, *, max_segment_slots: int = 8) -> CampaignSpec:
+    """Lift a monolithic campaign spec into its streaming form.
+
+    A spec that declares ``churn`` comes back unchanged.  A churn-free
+    batched, gated or closed-loop spec gains a full-residency
+    ``ChurnSchedule`` (every bank slot attached at slot 0, no events) whose
+    segment length is the largest divisor of ``n_slots`` up to
+    ``max_segment_slots``, so the segmented executor runs it in
+    checkpointable segments, bitwise the same as the monolithic ``run()``.
+    """
+    if spec.churn is not None:
+        return spec
+    if spec.execution_path not in (ExecutionPath.BATCHED, ExecutionPath.GATED,
+                                   ExecutionPath.CLOSED_LOOP):
+        raise ValueError(f"path={spec.path!r} has no streaming form (the host loop serves "
+                         "one pinned UE, the perturbed sweep has no segmented executor)")
+    if max_segment_slots < 1:
+        raise ValueError(f"max_segment_slots {max_segment_slots} must be >= 1")
+    seg = max(d for d in range(1, min(max_segment_slots, spec.n_slots) + 1)
+              if spec.n_slots % d == 0)
+    return dataclasses.replace(spec, churn=ChurnSchedule(
+        n_ue_ids=spec.n_ues, segment_slots=seg, initial=tuple(range(spec.n_ues))))
+
+
 class ArchesSession:
     """Compile a ``CampaignSpec`` into runnable components and run it.
 
@@ -277,8 +330,14 @@ class ArchesSession:
     overrides the trained/built policy objects; ``engine`` reuses a built
     engine.  ``run()`` returns a ``BatchedRunHistory``; after a host run,
     ``dapp`` is that run's ``DApp`` (its ``decisions`` carry the measured
-    policy times).
+    policy times).  A churn campaign's scenario is instantiated over the
+    stable-id universe, so channel conditions follow the UE, not its bank
+    slot.
     """
+
+    #: the multi-cell layout (None: one cell on one device; topology is a
+    #: later slice's)
+    cell_topology = None
 
     def __init__(self, spec: CampaignSpec, *, device: torch.device | str = "cuda",
                  ai_params: Any = None, host_policies: Sequence | None = None,
@@ -292,8 +351,9 @@ class ArchesSession:
         self._validate()
         self.cfg = SlotConfig(n_prb=spec.n_prb)
         scenario = get_scenario(spec.scenario)
+        n_scenario_ues = spec.churn.n_ue_ids if spec.churn is not None else spec.n_ues
         self.schedule = scenario.schedule(
-            n_ues=spec.n_ues if scenario.per_ue else None, **spec.scenario_kwargs)
+            n_ues=n_scenario_ues if scenario.per_ue else None, **spec.scenario_kwargs)
         self._ai_params = ai_params
         self._host_policies = tuple(host_policies) if host_policies is not None else None
         self._engine = engine
@@ -455,19 +515,29 @@ class ArchesSession:
 
     def host_replay(self, hist: BatchedRunHistory) -> dict:
         """Replay a closed-loop history through the host policy objects;
-        compare ``hist.modes`` with ``result["active_mode"]``."""
+        compare ``hist.modes`` with ``result["active_mode"]``.  Under faults
+        the device's recorded health and audit trips drive the oracle's
+        breaker; a streaming history's ``attached`` leaf drives its
+        detach and cold-start."""
         from repro_torch.core.closed_loop import host_replay_closed_loop
 
         spec = self.spec
         feats = np.stack([hist.kpms[n] for n in spec.feature_names],
                          axis=-1).astype(np.float32)
         sw_cfg = spec.switch.to_config(spec.feature_names)
+        trips = None
+        if spec.faults is not None:
+            trips = np.zeros(hist.modes.shape, bool)
+            for k in ("health_tripped", "audit_tripped"):
+                if k in hist.outputs:
+                    trips |= np.asarray(hist.outputs[k]) > 0
+        kw = dict(faults=spec.faults, trips=trips, attached=hist.attached)
         if len(self.host_policies) == 1 and spec.policy_assignment is None:
-            return host_replay_closed_loop(self.host_policies[0], feats, sw_cfg)
+            return host_replay_closed_loop(self.host_policies[0], feats, sw_cfg, **kw)
         assignment = (spec.policy_assignment if spec.policy_assignment is not None
                       else (0,) * spec.n_ues)
         return host_replay_closed_loop(list(self.host_policies), feats, sw_cfg,
-                                       policy_idx=assignment)
+                                       policy_idx=assignment, **kw)
 
     # -- execution -------------------------------------------------------------
 
@@ -483,6 +553,8 @@ class ArchesSession:
         """
         if auto_capacity:
             return self._run_auto_capacity()
+        if self.spec.churn is not None:
+            return self.run_streaming()
         runner = {
             ExecutionPath.HOST: self._run_host,
             ExecutionPath.BATCHED: self._run_open_loop,
@@ -505,18 +577,56 @@ class ArchesSession:
             demand_hist = ArchesSession(pre_spec, device=self.device,
                                         ai_params=self.ai_params,
                                         host_policies=self.host_policies).run()
-            runner = self._run_closed_loop
         else:
             from repro_torch.phy.pipeline import normalize_modes
 
-            # open loop: the demand is the declared plan, no pre-pass
-            modes = normalize_modes(np.asarray(spec.modes, np.int32), spec.n_slots,
-                                    spec.n_ues)
-            demand_hist = BatchedRunHistory(modes=modes.numpy(), kpms={}, outputs={})
-            runner = self._run_open_loop
+            # open loop: the demand is the declared plan, no pre-pass; under
+            # churn it lives on the stable-id axis and only resident
+            # slot-UEs claim capacity
+            n_axis = spec.churn.n_ue_ids if spec.churn is not None else spec.n_ues
+            modes = normalize_modes(np.asarray(spec.modes, np.int32), spec.n_slots, n_axis)
+            demand_hist = BatchedRunHistory(
+                modes=modes.numpy(), kpms={}, outputs={},
+                attached=None if spec.churn is None else spec.churn.residency(spec.n_slots))
         cap = max(suggest_gated_capacity(demand_hist), 1)  # one row at least
+        if spec.churn is not None:
+            cap = min(cap, spec.n_ues)  # the id axis may be wider than the bank
         self._engine = self._build_engine(cap)
-        return runner(provisioned_capacity=cap)
+        if spec.churn is not None:
+            return dataclasses.replace(self.run_streaming(), provisioned_capacity=cap)
+        if self.path is ExecutionPath.CLOSED_LOOP:
+            return self._run_closed_loop(provisioned_capacity=cap)
+        return self._run_open_loop(provisioned_capacity=cap)
+
+    def run_streaming(self, churn=None, *, checkpoint_dir=None, resume_from=None,
+                      max_segments=None, on_segment=None, pipeline=True,
+                      checkpoint_format="delta", stats=None) -> BatchedRunHistory:
+        """Epoch-chunked streaming campaign: attach and detach under churn.
+
+        Runs the slot loop in fixed-length segments over the ``n_ues``-slot
+        bank, with an admission pass at each segment boundary
+        (``repro_torch.core.streaming.run_streaming``, which documents every
+        option).  ``churn`` overrides the spec's schedule for this run and
+        reuses this session's AI weights, engine and policies.  Returns a
+        ``BatchedRunHistory`` on the stable-id axis.
+        """
+        from repro_torch.core import streaming
+
+        kw = dict(checkpoint_dir=checkpoint_dir, resume_from=resume_from,
+                  max_segments=max_segments, on_segment=on_segment, pipeline=pipeline,
+                  checkpoint_format=checkpoint_format, stats=stats)
+        if churn is not None:
+            if not isinstance(churn, ChurnSchedule):
+                churn = ChurnSchedule(**dict(churn))
+            if churn != self.spec.churn:
+                fresh = ArchesSession(dataclasses.replace(self.spec, churn=churn),
+                                      device=self.device, ai_params=self._ai_params,
+                                      host_policies=self._host_policies, engine=self._engine)
+                return streaming.run_streaming(fresh, **kw)
+        if self.spec.churn is None:
+            raise ValueError("run_streaming needs a ChurnSchedule: set spec.churn or "
+                             "pass churn=...")
+        return streaming.run_streaming(self, **kw)
 
     def _run_open_loop(self, provisioned_capacity: int | None = None) -> BatchedRunHistory:
         from repro_torch.phy.pipeline import normalize_modes
@@ -526,7 +636,8 @@ class ArchesSession:
                                 spec.n_ues, self.device)
         _, traj = self.engine.run(self.schedule, modes, n_slots=spec.n_slots,
                                   n_ues=spec.n_ues,
-                                  key=jr.PRNGKey(spec.seed, self.device))
+                                  key=jr.PRNGKey(spec.seed, self.device),
+                                  faults=spec.faults)
         return BatchedRunHistory.from_trajectory(modes, traj,
                                                  provisioned_capacity=provisioned_capacity)
 
@@ -536,7 +647,8 @@ class ArchesSession:
                                           device_policy=self.device_policy)
         return runtime.run_batched(self.schedule, n_slots=spec.n_slots, n_ues=spec.n_ues,
                                    key=jr.PRNGKey(spec.seed, self.device),
-                                   provisioned_capacity=provisioned_capacity)
+                                   provisioned_capacity=provisioned_capacity,
+                                   faults=spec.faults)
 
     def _run_host(self) -> BatchedRunHistory:
         from repro_torch.core.dapp import DApp, connect_dapp

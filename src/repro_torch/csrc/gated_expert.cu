@@ -89,9 +89,13 @@
 //   CP 32 slice.  Every layer restages (no slice is kept between layers).  The stem
 //   loops over the output chunks, the head stages u with every channel a few
 //   positions at a time; their weights (CW floats a row) lie in dynamic shared
-//   memory, the one part that grows with the width (76 B a channel): past 1,408
-//   float32 channels at n_prb 273 (1,440 at n_prb 106) a block no longer fits, and
-//   the wrapper raises.
+//   memory, the one part that grows with the width (76 B a channel, and the head's
+//   staged u about 48 B more).  Where that block would not fit the card (past 1,408
+//   float32 channels at n_prb 273, 1,440 at n_prb 106), the global-weight variant
+//   runs instead (GW): the stem and head read their weights from the packed operands
+//   in global memory, where they stay in L2, and the head reads u straight from the
+//   workspace, so its shared memory is a K-chunk slice whatever the width.  Every
+//   output is summed in the same order as in the staged form.
 // * float32 as 3xTF32: each operand x is split into hi = x rounded to TF32 and lo =
 //   x - hi, exact, truncated to TF32 (integer operations: cvt.rna.tf32 runs on a
 //   quarter-rate pipe); every product is lo*hi + hi*lo + hi*hi, off by under 2^-20 of
@@ -205,6 +209,18 @@ __host__ __device__ inline size_t lsm_floats(int S, int P) {
 // LS pilots, and the stem's (19, CW) or the head's (9 CW + 1) float2 weights.
 size_t wide_smem_bytes(int S, int P, int CW) {
   return (wide_slice_floats(S, P, CW) + row_stride<KC>() + lsm_floats(S, P) + 19 * CW) * 4;
+}
+
+// The wide form's global-weight variant (GW), for a block the above would not fit:
+// the stem and head read their weights from the packed operands in global memory
+// (they stay in L2) and the head reads u from the workspace unstaged, so only a
+// K-chunk slice, the row of zeros and the LS pilots stay: the same at every width.
+__host__ __device__ inline size_t gw_slice_floats(int S, int P) {
+  return (size_t)S * (P + 2) * row_stride<KC>();
+}
+
+size_t wide_gw_smem_bytes(int S, int P) {
+  return (gw_slice_floats(S, P) + row_stride<KC>() + lsm_floats(S, P)) * 4;
 }
 
 // The weight region, static shared memory: its address is a constant, so the wgmma
@@ -1061,13 +1077,15 @@ __device__ void tc_layer_wide(const Ctx& c, int CW, const float* in, const float
 
 // The wide form's stem: as stem(), the output channels a chunk of KC at a time into
 // the chunk-major h (CW / KC, S, np, KC); ``ws`` (19, CW) in dynamic shared memory.
-template <bool BF16>
+template <bool BF16, bool GW>
 __device__ void stem_wide(const Ctx& c, int CW, float* ws, const float2* __restrict__ ls,
                           const float* wl, const float* bl, float* h) {
   const int cp4 = (c.C + 3) / 4 * 4;
-  for (int i = threadIdx.x; i < 19 * CW; i += THREADS) {
-    const int o = i % CW, r = i / CW;
-    ws[i] = o < c.C ? (r < 18 ? wl[r * cp4 + o] : bl[o]) : 0.f;
+  if constexpr (!GW) {
+    for (int i = threadIdx.x; i < 19 * CW; i += THREADS) {
+      const int o = i % CW, r = i / CW;
+      ws[i] = o < c.C ? (r < 18 ? wl[r * cp4 + o] : bl[o]) : 0.f;
+    }
   }
   __syncthreads();
   const float4* w4 = reinterpret_cast<const float4*>(ws);
@@ -1098,7 +1116,13 @@ __device__ void stem_wide(const Ctx& c, int CW, float* ws, const float2* __restr
             const float4* wv = w4 + (((ch * 3 + d) * 3 + j) * CW + o0) / 4;
 #pragma unroll
             for (int o4 = 0; o4 < KC / 4; ++o4) {
-              const float4 wo = wv[o4];
+              float4 wo;
+              if constexpr (GW)  // the packed (C, 3, 3, cp4) stem, zero past cp4
+                wo = o0 + 4 * o4 < cp4 ? __ldg(reinterpret_cast<const float4*>(
+                                             wl + ((ch * 3 + d) * 3 + j) * cp4 + o0) + o4)
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+              else
+                wo = wv[o4];
               acc[4 * o4] = fmaf(wo.x, x, acc[4 * o4]);
               acc[4 * o4 + 1] = fmaf(wo.y, x, acc[4 * o4 + 1]);
               acc[4 * o4 + 2] = fmaf(wo.z, x, acc[4 * o4 + 2]);
@@ -1108,7 +1132,12 @@ __device__ void stem_wide(const Ctx& c, int CW, float* ws, const float2* __restr
       float4* dst = reinterpret_cast<float4*>(h + o0 / KC * chunk + ((size_t)s * c.np + q) * KC);
 #pragma unroll
       for (int o4 = 0; o4 < KC / 4; ++o4) {
-        const float4 b = w4[(18 * CW + o0) / 4 + o4];
+        float4 b;
+        if constexpr (GW)
+          b = o0 + 4 * o4 < cp4 ? __ldg(reinterpret_cast<const float4*>(bl + o0) + o4)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        else
+          b = w4[(18 * CW + o0) / 4 + o4];
         dst[o4] = make_float4(acc[4 * o4] + b.x, acc[4 * o4 + 1] + b.y, acc[4 * o4 + 2] + b.z,
                               acc[4 * o4 + 3] + b.w);
       }
@@ -1192,9 +1221,75 @@ __device__ void head_wide(const Ctx& c, int CW, float2* wh, const float2* __rest
   }
 }
 
-// The wide form: the CP 32 form's block (registers, static weight tiles, three blocks
-// an SM) over chunk-major planes of CW = plane_width(C) channels.
+// The global-weight variant's head: as head_wide, every output summed in the same
+// order, but u read straight from the workspace (L2, ld.global.cg: other blocks of the
+// cluster wrote it) and the weights from the packed (C, 3, 3, 4) head in global memory.
 template <bool BF16>
+__device__ void head_wide_global(const Ctx& c, int CW, const float2* __restrict__ ls,
+                                 const float* wl, const float* bl, const float* u,
+                                 float2* __restrict__ des) {
+  const int CH = CW / 4;
+  for (int i = threadIdx.x; i < c.S * (c.P + 1); i += THREADS) {
+    const int s = i / (c.P + 1), k = min(c.p0 + i % (c.P + 1), c.np - 1);
+    c.lsm[i] = ls[(size_t)s * c.np + k];
+  }
+  __syncthreads();
+  const size_t chunk = (size_t)c.S * 2 * c.np * KC;
+  const float2 b = make_float2(__ldg(bl), __ldg(bl + 1));
+  const int lane = threadIdx.x % 32, quad = lane / 8, n_out = c.S * 2 * c.V;
+  for (int base = 0; base < n_out; base += THREADS / 4) {  // uniform trip count
+    const int item = base + threadIdx.x / 32 * 8 + lane % 8;
+    const bool live = item < n_out;
+    const int s = live ? item / (2 * c.V) : 0, q = 2 * c.p0 + (live ? item % (2 * c.V) : 0);
+    const int k = (q >> 1) - c.p0;  // the pilot, in the block's LS slice
+    float2 la = make_float2(0.f, 0.f), lb = la;
+    if (live && quad == 0) {
+      la = c.lsm[s * (c.P + 1) + k];
+      lb = c.lsm[s * (c.P + 1) + k + 1];
+    }
+    float re = 0.f, im = 0.f;
+    if (live) {
+      const int j0 = s == 0 ? 1 : 0, j1 = s == c.S - 1 ? 2 : 3;
+      for (int k4 = quad; k4 < CH; k4 += 4) {
+        const float* uk = u + k4 / (KC / 4) * chunk + 4 * (k4 % (KC / 4));
+        for (int j = j0; j < j1; ++j) {
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const int qi = q + d - 1;
+            const float4 x =
+                qi >= 0 && qi < 2 * c.np
+                    ? __ldcg(reinterpret_cast<const float4*>(
+                          uk + ((size_t)(s + j - 1) * 2 * c.np + qi) * KC))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float xv[4] = {operand(x.x, BF16), operand(x.y, BF16), operand(x.z, BF16),
+                                 operand(x.w, BF16)};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const int kc = 4 * k4 + kk;
+              const float2 wv = kc < c.C ? __ldg(reinterpret_cast<const float2*>(
+                                               wl + ((size_t)kc * 9 + d * 3 + j) * 4))
+                                         : make_float2(0.f, 0.f);
+              re = fmaf(wv.x, xv[kk], re);
+              im = fmaf(wv.y, xv[kk], im);
+            }
+          }
+        }
+      }
+    }
+    re += __shfl_xor_sync(0xffffffffu, re, 8);
+    im += __shfl_xor_sync(0xffffffffu, im, 8);
+    re += __shfl_xor_sync(0xffffffffu, re, 16);
+    im += __shfl_xor_sync(0xffffffffu, im, 16);
+    if (!live || quad != 0) continue;
+    const float2 base2 = (q & 1) ? make_float2(0.5f * (la.x + lb.x), 0.5f * (la.y + lb.y)) : la;
+    des[(size_t)q * c.S + s] = make_float2(base2.x + (re + b.x), base2.y + (im + b.y));
+  }
+}
+
+// The wide form: the CP 32 form's block (registers, static weight tiles, three blocks
+// an SM) over chunk-major planes of CW = plane_width(C) channels; with GW the
+// global-weight variant (wide_gw_smem_bytes).
+template <bool BF16, bool GW>
 __global__ void __launch_bounds__(THREADS, 3) gated_expert_wide_kernel(Args a) {
   const int rank = blockIdx.x, row = blockIdx.y, ant = blockIdx.z;
   const int ue = a.idx[row];
@@ -1205,7 +1300,7 @@ __global__ void __launch_bounds__(THREADS, 3) gated_expert_wide_kernel(Args a) {
   Ctx c;
   c.wsm = weight_region<KC, BF16>();
   c.xs = reinterpret_cast<float*>(smem);
-  float* zero = c.xs + wide_slice_floats(a.S, a.P, CW);
+  float* zero = c.xs + (GW ? gw_slice_floats(a.S, a.P) : wide_slice_floats(a.S, a.P, CW));
   for (int i = threadIdx.x; i < row_stride<KC>(); i += THREADS) zero[i] = 0.f;
   c.zero = zero;  // (the stem's first barrier orders these writes before any reader)
   c.lsm = reinterpret_cast<float2*>(zero + row_stride<KC>());
@@ -1226,7 +1321,7 @@ __global__ void __launch_bounds__(THREADS, 3) gated_expert_wide_kernel(Args a) {
   const int C = a.C, cp4 = (C + 3) / 4 * 4, cup = (2 * C + 3) / 4 * 4;
   const float* wl = a.w;
   const float* bl = a.bias;
-  stem_wide<BF16>(c, CW, misc, ls, wl, bl, h);
+  stem_wide<BF16, GW>(c, CW, misc, ls, wl, bl, h);
   wl += 2 * TAPS * cp4;
   bl += cp4;
   cluster_sync();
@@ -1245,19 +1340,23 @@ __global__ void __launch_bounds__(THREADS, 3) gated_expert_wide_kernel(Args a) {
   wl += C * TAPS * cup;
   bl += cup;
   cluster_sync();
-  head_wide<BF16>(c, CW, reinterpret_cast<float2*>(misc), ls, wl, bl, y, des);
+  if constexpr (GW)
+    head_wide_global<BF16>(c, CW, ls, wl, bl, y, des);
+  else
+    head_wide<BF16>(c, CW, reinterpret_cast<float2*>(misc), ls, wl, bl, y, des);
 }
 
-// The kernel of a width: the CP form, or the wide form (CP is then KC, the chunk).
-template <int CP, bool BF16, bool WIDE>
+// The kernel of a width: the CP form, or the wide form (CP is then KC, the chunk),
+// with GW its global-weight variant.
+template <int CP, bool BF16, bool WIDE, bool GW = false>
 void (*kernel_of())(Args) {
-  if constexpr (WIDE) return gated_expert_wide_kernel<BF16>;
+  if constexpr (WIDE) return gated_expert_wide_kernel<BF16, GW>;
   else return gated_expert_kernel<CP, BF16>;
 }
 
 // the largest dynamic shared memory a block may take beside the static weight region,
 // per device; the kernel's limit is raised to it once per device and instantiation
-template <int CP, bool BF16, bool WIDE>
+template <int CP, bool BF16, bool WIDE, bool GW = false>
 int prepare(int dev, int* optin) {
   static std::atomic<int> limit[64];
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
@@ -1266,7 +1365,7 @@ int prepare(int dev, int* optin) {
     cudaError_t err = cudaDeviceGetAttribute(&lim, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
     lim -= static_cast<int>(weight_bytes<CP, BF16>());
-    err = cudaFuncSetAttribute(kernel_of<CP, BF16, WIDE>(),
+    err = cudaFuncSetAttribute(kernel_of<CP, BF16, WIDE, GW>(),
                                cudaFuncAttributeMaxDynamicSharedMemorySize, lim);
     if (err != cudaSuccess) return static_cast<int>(err);
     limit[dev].store(lim, std::memory_order_release);
@@ -1275,16 +1374,17 @@ int prepare(int dev, int* optin) {
   return 0;
 }
 
-template <int CP, bool BF16, bool WIDE = false>
+template <int CP, bool BF16, bool WIDE = false, bool GW = false>
 int launch(const Args& a, int capacity, cudaStream_t stream) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = prepare<CP, BF16, WIDE>(dev, &optin);
+  const int rc = prepare<CP, BF16, WIDE, GW>(dev, &optin);
   if (rc != 0) return rc;
   const Geometry geo = geometry(a.np);
-  const size_t smem =
-      WIDE ? wide_smem_bytes(a.S, geo.P, plane_width(a.C)) : smem_bytes<CP>(a.S, geo.P);
+  const size_t smem = GW     ? wide_gw_smem_bytes(a.S, geo.P)
+                      : WIDE ? wide_smem_bytes(a.S, geo.P, plane_width(a.C))
+                             : smem_bytes<CP>(a.S, geo.P);
   if (smem > (size_t)optin) return static_cast<int>(cudaErrorInvalidValue);
   Args args = a;
   args.P = geo.P;
@@ -1300,7 +1400,7 @@ int launch(const Args& a, int capacity, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel_of<CP, BF16, WIDE>(), args);
+  err = cudaLaunchKernelEx(&cfg, kernel_of<CP, BF16, WIDE, GW>(), args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1317,10 +1417,13 @@ long long block_smem(int n_sym, int P, int bf16) {
   return smem_bytes<CP>(n_sym, P) + (bf16 ? weight_bytes<CP, true>() : weight_bytes<CP, false>());
 }
 
-extern "C" long long gated_expert_smem_bytes(int n_sym, int np, int C, int bf16) {
+// ``global_weights`` asks for the wide form's global-weight variant (past WIDEST_CP).
+extern "C" long long gated_expert_smem_bytes(int n_sym, int np, int C, int bf16,
+                                             int global_weights) {
   const int P = geometry(np).P;
   if (C > WIDEST_CP)
-    return wide_smem_bytes(n_sym, P, plane_width(C)) +
+    return (global_weights ? wide_gw_smem_bytes(n_sym, P)
+                           : wide_smem_bytes(n_sym, P, plane_width(C))) +
            (bf16 ? weight_bytes<KC, true>() : weight_bytes<KC, false>());
   switch (channel_pad(C)) {
     case 16: return block_smem<16>(n_sym, P, bf16);
@@ -1338,14 +1441,18 @@ extern "C" long long gated_expert_workspace_floats(int n_sym, int np, int C) {
 extern "C" int gated_expert_launch(const void* idx, const void* src, const void* h_ls,
                                    void* designated, const void* w, const void* bias,
                                    void* workspace, int capacity, int n_ant, int n_sym,
-                                   int np, int C, int R, int bf16, void* stream) {
-  if (C < 1 || n_sym < 1 || np < 1 || capacity < 1)
+                                   int np, int C, int R, int bf16, int global_weights,
+                                   void* stream) {
+  if (C < 1 || n_sym < 1 || np < 1 || capacity < 1 || (global_weights && C <= WIDEST_CP))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const int32_t*>(idx), static_cast<const int32_t*>(src),
          static_cast<const float2*>(h_ls), static_cast<float2*>(designated),
          static_cast<const float*>(w), static_cast<const float*>(bias),
          static_cast<float*>(workspace), n_ant, n_sym, np, C, R, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > WIDEST_CP && global_weights)
+    return bf16 ? launch<KC, true, true, true>(a, capacity, st)
+                : launch<KC, false, true, true>(a, capacity, st);
   if (C > WIDEST_CP)
     return bf16 ? launch<KC, true, true>(a, capacity, st) : launch<KC, false, true>(a, capacity, st);
   switch (channel_pad(C)) {

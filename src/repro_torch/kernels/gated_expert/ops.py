@@ -12,9 +12,10 @@ input and writing complex64 (no sub-batch, no transposes, no real/imaginary
 split).  On a CPU tensor, or with ``backend="ref"``, the plain version
 ``gated_expert_apply_ref`` composes the gather, the folded-GEMM estimator and
 the plain scatter.  Either way the result is a new tensor and ``designated``
-keeps the fail-safe estimate.  The kernel takes any width whose block fits
-the card's shared memory (1,408 float32 channels at NR's widest carrier);
-past that the wrapper raises and names the limit.
+keeps the fail-safe estimate.  The kernel takes any width: past the
+channels whose stem and head weights fit a block's shared memory beside the
+staged slice (1,408 float32 channels at NR's widest carrier) the wide form's
+global-weight variant reads them from global memory.
 """
 
 from __future__ import annotations
@@ -66,7 +67,15 @@ def cluster_size(n_pilot_sc: int) -> int:
     return fn(n_pilot_sc)
 
 
-def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> torch.Tensor:
+#: widths up to this run the kernel's CP forms; past it the wide form
+WIDEST_CP = 64
+
+
+def _launch(idx, src, h_ls, designated, ai, compute_dtype,
+            global_weights: bool | None = None) -> torch.Tensor:
+    """One launch.  ``global_weights`` picks the wide form's variant: None
+    takes the staged one where its block fits the card, else the
+    global-weight one."""
     folded = _folded(ai)
     n_ues, n_ant, n_sym, n_p = h_ls.shape
     channels = folded["stem_w"].shape[0] // folded["width"]
@@ -75,10 +84,14 @@ def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> torch.Tensor:
     w, b = _operands(ai, compute_dtype)
     if w.device != h_ls.device:
         raise ValueError(f"estimator operands on {w.device}, LS input on {h_ls.device}")
-    smem = build.function("gated_expert", "gated_expert_smem_bytes",
-                          [ctypes.c_int] * 4, ctypes.c_longlong)(n_sym, n_p, channels, bf16)
+    smem_of = build.function("gated_expert", "gated_expert_smem_bytes",
+                             [ctypes.c_int] * 5, ctypes.c_longlong)
     limit = _smem_optin(h_ls.device.index)
-    if smem > limit:
+    if global_weights is None:
+        global_weights = (channels > WIDEST_CP
+                          and smem_of(n_sym, n_p, channels, bf16, 0) > limit)
+    smem = smem_of(n_sym, n_p, channels, bf16, int(global_weights))
+    if smem > limit:  # no width of NR's carriers comes near it
         raise ValueError(f"{channels} channels at {n_p} pilots x {n_sym} symbols need {smem} B "
                          f"of shared memory per block; the card grants {limit}")
     ws_floats = build.function("gated_expert", "gated_expert_workspace_floats",
@@ -88,10 +101,11 @@ def _launch(idx, src, h_ls, designated, ai, compute_dtype) -> torch.Tensor:
                             dtype=torch.float32, device=h_ls.device)
     out = build.unfilled(torch.clone, designated)  # the kernel writes selected UEs over it
     fn = build.function("gated_expert", "gated_expert_launch",
-                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     build.check(fn(idx.data_ptr(), src.data_ptr(), h_ls.data_ptr(), out.data_ptr(),
                    w.data_ptr(), b.data_ptr(), workspace.data_ptr(), capacity, n_ant, n_sym,
-                   n_p, channels, n_res, bf16, build.stream(designated)), "gated_expert")
+                   n_p, channels, n_res, bf16, int(global_weights), build.stream(designated)),
+                "gated_expert")
     build.launch_counts["gated_expert"] += 1
     return out
 

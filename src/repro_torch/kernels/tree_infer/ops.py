@@ -8,19 +8,24 @@ tables directly (children of node ``n`` are ``2n+1``/``2n+2``; go right if
 tensor it launches ``csrc/tree_infer.cu`` (or raises); on a CPU tensor it
 runs ``tree_infer_ref``, the literal walk the reference uses as its oracle.
 
-``policy_step(state, kpm_vecs, policy, cfg, decide=...)`` is one slot's
-decision phase of a ``DeviceTreePolicy`` for every UE -- ring push, window
-mean, tree walk, hysteresis register, slot boundary -- in one launch of the
-same source's second entry point.  It returns a new state and the raw
-decisions and leaves its inputs as they were.  Its plain version
-``policy_step_ref`` is the composition the loop runs otherwise,
-``switch_update`` then ``switch_boundary``; it runs on a CPU tensor or with
-``cfg.backend == "ref"``.  Either launch counts under ``tree_infer``.
+``policy_step(state, kpm_vecs, policy, cfg, decide=..., ...)`` is one
+slot's decision phase for every UE -- ring push, window mean, tree walk,
+hysteresis register, slot boundary, and under faults and churn the masks,
+the TTL decay, the circuit breaker and the detached lanes' freeze -- in one
+launch of the same source's second entry point for a ``DeviceTreePolicy``
+on a CUDA tensor.  It returns a new state and the raw decisions (and, if
+asked, the register as the decision left it), and leaves its inputs as
+they were.  Its
+plain version ``policy_step_ref`` is the composition ``switch_update`` ->
+``switch_boundary`` -> ``breaker_update`` -> freeze; it runs on a CPU
+tensor, with ``cfg.backend == "ref"``, and for threshold and per-UE
+policies on any device.  Either launch counts under ``tree_infer``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,11 +34,13 @@ from repro_torch.kernels import build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: (x, feature, threshold, leaves, out, rows, features, depth, stream)
 _TREE_ARGS = (_P,) * 5 + (_I,) * 3 + (_P,)
-#: (state in, kpm, feature, threshold, leaves, state out, raw, n_ues, ring capacity,
-#: features, window, depth, hysteresis, decide, stream)
-_STEP_ARGS = ((ctypes.POINTER(_P), _P, _P, _P, _P, ctypes.POINTER(_P), _P)
-              + (_I,) * 7 + (_P,))
-_STATE = _P * 7
+#: (state in, kpm, feature, threshold, leaves, masks, state out, raw, register, n_ues,
+#: ring capacity, features, window, depth, hysteresis, decide, slot, ttl, default mode,
+#: breaker trips, breaker window, breaker cooldown, stream)
+_STEP_ARGS = ((ctypes.POINTER(_P), _P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
+               _P, _P) + (_I,) * 13 + (_P,))
+_STATE = _P * 10
+_MASKS = _P * 4
 #: the policy step keeps a block's window means in shared memory: 8 UEs x F floats
 MAX_STEP_FEATURES = 1536
 
@@ -86,62 +93,128 @@ def tree_infer(x: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
     return out
 
 
-def policy_step_ref(state, kpm_vecs: torch.Tensor, policy, cfg, *, decide: bool = True):
-    """Plain version: ``switch_update`` then ``switch_boundary``.
+class _Ladder(NamedTuple):
+    """What a decision slot's fault ladder and streaming mask hand the step,
+    in the order of the kernel's ``Masks``."""
 
-    Returns ``(state after the boundary, raw decisions)``.
+    telemetry_valid: torch.Tensor | None
+    decision_valid: torch.Tensor | None
+    trip: torch.Tensor | None
+    active: torch.Tensor | None
+
+
+def policy_step_ref(state, kpm_vecs: torch.Tensor, policy, cfg, *, decide: bool = True,
+                    decision_valid=None, telemetry_valid=None, trip=None, active=None,
+                    slot_idx: int = 0, faults=None, return_register: bool = False):
+    """Plain version: ``switch_update`` -> ``switch_boundary`` (with the TTL
+    decay under ``faults``) -> ``breaker_update`` (where ``trip`` is given)
+    -> the detached lanes' freeze (where ``active`` is given).
+
+    Returns ``(new state, raw decisions)``, and with ``return_register``
+    also the register as the decision left it (before the boundary); a
+    detached lane reports 0 for both.
     """
-    from repro_torch.core.closed_loop import switch_boundary, switch_update
+    from repro_torch.core.closed_loop import (
+        breaker_update,
+        select_rows,
+        switch_boundary,
+        switch_update,
+    )
 
-    state, raw = switch_update(state, kpm_vecs, policy, cfg, decide=decide)
-    return switch_boundary(state), raw
+    new, raw = switch_update(state, kpm_vecs, policy, cfg, decide=decide,
+                             decision_valid=decision_valid, telemetry_valid=telemetry_valid)
+    reg = new.pending_mode
+    if faults is not None:
+        new = switch_boundary(new, ttl_slots=cfg.ttl_slots, fail_safe_mode=cfg.default_mode)
+    else:
+        new = switch_boundary(new)
+    if trip is not None:
+        new = breaker_update(new, trip, slot_idx, faults)
+    if active is not None:
+        new = select_rows(active, new, state)
+        raw = torch.where(active, raw, torch.zeros_like(raw))
+        reg = torch.where(active, reg, torch.zeros_like(reg))
+    return (new, raw, reg) if return_register else (new, raw)
 
 
-def policy_step(state, kpm_vecs: torch.Tensor, policy, cfg, *, decide: bool = True):
-    """Slot ``n``'s decision phase and the boundary into slot ``n + 1`` for a
-    ``DeviceTreePolicy``: ``(new state, raw decisions (U,) int32)``.
+def policy_step(state, kpm_vecs: torch.Tensor, policy, cfg, *, decide: bool = True,
+                decision_valid=None, telemetry_valid=None, trip=None, active=None,
+                slot_idx: int = 0, faults=None, return_register: bool = False):
+    """Slot ``n``'s decision phase and the boundary into slot ``n + 1``:
+    ``(new state, raw decisions (U,) int32)``, and with ``return_register``
+    the register (U,) int32 as the decision left it, before the boundary.
 
     ``state`` is a ``DeviceSwitchState``, ``kpm_vecs (U, F)`` the slot's
     KPMs in ``cfg.feature_names`` order, ``decide`` False on a periodic
-    policy's hold slots.  On a CUDA tensor (``cfg.backend`` "auto", "pallas"
-    or "cuda") one launch writes the whole new state; on a CPU tensor, or
-    with ``cfg.backend == "ref"``, the plain version runs.
+    policy's hold slots.  ``faults`` (a ``FaultSpec``) arms the TTL decay at
+    ``cfg.ttl_slots`` and gives the breaker its settings; the ``(U,)`` bool
+    masks ``decision_valid``, ``telemetry_valid``, ``trip`` (this slot's
+    health or audit trips) and ``active`` (the streaming mask) may each be
+    None; ``slot_idx`` is the global slot index (the breaker's ring
+    position).  For a ``DeviceTreePolicy`` on a CUDA tensor (``cfg.backend``
+    "auto", "pallas" or "cuda") one launch writes the whole new state; a CPU
+    tensor, ``cfg.backend == "ref"`` or another policy takes the plain
+    version.
     """
+    from repro_torch.core.closed_loop import DeviceTreePolicy
+
     if cfg.backend not in ("auto", "pallas", "cuda", "ref"):
         raise ValueError(f"unknown policy backend {cfg.backend!r}")
+    if trip is not None and faults is None:
+        raise ValueError("the breaker needs the FaultSpec's settings (faults=...)")
+    ladder = _Ladder(telemetry_valid, decision_valid, trip, active)
     rings = state.rings
     dev = kpm_vecs.get_device()
-    if dev < 0 or cfg.backend == "ref":
-        return policy_step_ref(state, kpm_vecs, policy, cfg, decide=decide)
+    if dev < 0 or cfg.backend == "ref" or not isinstance(policy, DeviceTreePolicy):
+        return policy_step_ref(state, kpm_vecs, policy, cfg, decide=decide,
+                               slot_idx=slot_idx, faults=faults,
+                               return_register=return_register, **ladder._asdict())
     n_ues, cap, n_feat = rings.buf.shape
     depth = policy.depth
     _check_tables(dev, policy.feature, policy.threshold, policy.leaf_modes, depth)
     if n_feat > MAX_STEP_FEATURES:
         raise ValueError(f"the policy step takes at most {MAX_STEP_FEATURES} KPMs, "
                          f"not {n_feat}")
+    window = state.trip_ring.shape[1]
     ins = (rings.buf, rings.idx, rings.count, state.active_mode, state.pending_mode,
-           state.streak, state.n_switches)
-    for t, dt, shape in zip(ins + (kpm_vecs,), (torch.float32,) + (torch.int64,) * 2
-                            + (torch.int32,) * 4 + (torch.float32,),
-                            ((n_ues, cap, n_feat),) + ((n_ues,),) * 6 + ((n_ues, n_feat),)):
+           state.streak, state.n_switches, state.decision_age, state.trip_ring,
+           state.quarantine)
+    dtypes = (torch.float32,) + (torch.int64,) * 2 + (torch.int32,) * 7
+    shapes = ((n_ues, cap, n_feat),) + ((n_ues,),) * 7 + ((n_ues, window), (n_ues,))
+    for t, dt, shape in zip(ins + (kpm_vecs,), dtypes + (torch.float32,),
+                            shapes + ((n_ues, n_feat),)):
         if t.dtype is not dt or t.shape != shape or t.get_device() != dev \
                 or not t.is_contiguous():
             raise ValueError(f"policy step needs contiguous {dt} {shape} state and KPMs "
                              f"on one device, got {t.dtype} {tuple(t.shape)}")
+    for name, t in ladder._asdict().items():
+        if t is not None and (t.dtype is not torch.bool or t.shape != (n_ues,)
+                              or t.get_device() != dev or not t.is_contiguous()):
+            raise ValueError(f"policy step needs {name} as a contiguous ({n_ues},) bool "
+                             f"mask on the state's device")
     buf = build.unfilled(torch.empty_like, rings.buf)
     i64 = build.unfilled(torch.empty, (2, n_ues), dtype=torch.int64, device=kpm_vecs.device)
-    i32 = build.unfilled(torch.empty, (5, n_ues), dtype=torch.int32, device=kpm_vecs.device)
+    i32 = build.unfilled(torch.empty, (8, n_ues), dtype=torch.int32, device=kpm_vecs.device)
+    trip_ring = build.unfilled(torch.empty_like, state.trip_ring)
     idx, count = i64
-    active, pending, streak, n_switches, raw = i32
-    outs = (buf, idx, count, active, pending, streak, n_switches)
+    active_mode, pending, streak, n_switches, age, quarantine, raw, reg = i32
+    outs = (buf, idx, count, active_mode, pending, streak, n_switches, age, trip_ring,
+            quarantine)
+    ttl = cfg.ttl_slots if faults is not None else 0
+    breaker = ((faults.breaker_trips, faults.breaker_cooldown) if faults is not None
+               else (1, 0))
     fn = build.function("tree_infer", "policy_step_launch", _STEP_ARGS)
     build.check(fn(_STATE(*[t.data_ptr() for t in ins]), kpm_vecs.data_ptr(),
                    policy.feature.data_ptr(), policy.threshold.data_ptr(),
-                   policy.leaf_modes.data_ptr(), _STATE(*[t.data_ptr() for t in outs]),
-                   raw.data_ptr(), n_ues, cap, n_feat, min(cfg.window_slots, cap), depth,
-                   cfg.hysteresis_slots, int(decide), build.stream(kpm_vecs)), "policy_step")
+                   policy.leaf_modes.data_ptr(),
+                   _MASKS(*[None if t is None else t.data_ptr() for t in ladder]),
+                   _STATE(*[t.data_ptr() for t in outs]), raw.data_ptr(), reg.data_ptr(),
+                   n_ues, cap, n_feat, min(cfg.window_slots, cap), depth,
+                   cfg.hysteresis_slots, int(decide), int(slot_idx), ttl, cfg.default_mode,
+                   breaker[0], window, breaker[1], build.stream(kpm_vecs)), "policy_step")
     build.launch_counts["tree_infer"] += 1
     new = state._replace(rings=rings._replace(buf=buf, idx=idx, count=count),
-                         active_mode=active, pending_mode=pending, streak=streak,
-                         n_switches=n_switches)
-    return new, raw
+                         active_mode=active_mode, pending_mode=pending, streak=streak,
+                         n_switches=n_switches, decision_age=age, trip_ring=trip_ring,
+                         quarantine=quarantine)
+    return (new, raw, reg) if return_register else (new, raw)

@@ -30,9 +30,12 @@ methodology's stage 1 (MMSE only, AWGN injected at a per-UE ``rho``).  PRNG
 derivation matches the reference: UE ``u`` in slot ``s`` uses
 ``fold_in(fold_in(key, u), s)``.
 
-Left for later slices (they raise): fault injection, multi-cell topology and
-the streaming ``active`` mask.  There is one slot loop, so ``use_scan`` has
-no effect.
+Under a ``FaultSpec`` the expert output is corrupted and screened each slot
+(``_corrupt_and_screen``) and the closed loop runs the degradation ladder;
+the streaming executor (``repro_torch.core.streaming``) runs segments of
+either loop with an ``active`` mask and a global first slot.  Multi-cell
+topology is left for a later slice.  There is one slot loop, so
+``use_scan`` has no effect.
 """
 
 from __future__ import annotations
@@ -46,11 +49,8 @@ import torch
 from repro_torch import random as jr
 from repro_torch.core.closed_loop import (
     DevicePolicy,
-    DeviceTreePolicy,
     SwitchConfig,
     init_device_switch,
-    switch_boundary,
-    switch_update,
 )
 from repro_torch.core.expert_bank import ExecutionMode, Expert, ExpertBank
 from repro_torch.core.methodology import perturb_estimate
@@ -386,8 +386,16 @@ def _stack_tree(items: list) -> Any:
     return torch.stack(items, dim=0)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP, {item})")
+def _map_tree(fn, tree):
+    """Apply ``fn`` to every tensor of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A ``(U,)`` mask shaped to broadcast over ``x``'s trailing axes."""
+    return mask.reshape(mask.shape + (1,) * (x.ndim - 1))
 
 
 class BatchedPuschPipeline:
@@ -589,21 +597,63 @@ class BatchedPuschPipeline:
         }
         return new_link, outputs
 
+    def _corrupt_and_screen(self, out, h_sel: torch.Tensor, modes: torch.Tensor,
+                            corrupt: torch.Tensor, faults) -> tuple[torch.Tensor, torch.Tensor]:
+        """Fault injection and the slot's health screen on the selected estimate.
+
+        ``corrupt (U,)`` flags this slot's corruption burst; it lands only on
+        UEs served by the AI expert (mode 0; overflowed and audit-reverted UEs
+        already hold the fail-safe estimate), as NaN, Inf or a scaled copy per
+        ``faults.corruption_kind``.  The screen then checks every AI-served
+        UE's estimate for finiteness, whatever the injection (a diverged
+        expert trips it too), reverts tripped UEs to the bank's unswitched
+        fail-safe estimate (``BankOutput.baseline``) and returns the per-UE
+        trip flags.  A scaled corruption stays finite and passes.  With no
+        corruption and finite estimates every select is the identity.
+        """
+        srv = out.served_by if out.served_by is not None else modes.to(torch.int32)
+        hit = corrupt & (srv == 0)
+        if faults.corruption_kind == "nan":
+            bad = torch.full_like(h_sel, float("nan"))
+        elif faults.corruption_kind == "inf":
+            bad = torch.full_like(h_sel, float("inf"))
+        else:
+            bad = h_sel * faults.corruption_scale
+        h_sel = torch.where(_rows(hit, h_sel), bad, h_sel)
+        finite = torch.isfinite(h_sel).reshape(h_sel.shape[0], -1).all(dim=1)
+        tripped = (srv == 0) & ~finite
+        if out.baseline is None:
+            raise ValueError("fault injection needs a batched bank output carrying the "
+                             "fail-safe baseline (BankOutput.baseline)")
+        h_sel = torch.where(_rows(tripped, h_sel), out.baseline, h_sel)
+        return h_sel, tripped.to(torch.int32)
+
     # -- one batched slot ------------------------------------------------------
 
     def _slot_core(self, profile: TdlProfile, link: DeviceLinkState,
                    modes: torch.Tensor, keys: torch.Tensor, p: ChannelParams,
-                   rho: torch.Tensor | None = None):
+                   rho: torch.Tensor | None = None, *, active: torch.Tensor | None = None,
+                   faults=None, corrupt: torch.Tensor | None = None):
         """One slot for every UE.  With ``rho (U,)`` it is the methodology's
         stage 1 (paper Fig. 3): MMSE only, AWGN injected at node 2c at each
-        UE's intensity, no switching and no AI in the loop.  The reference's
-        topology, streaming-mask and fault arguments wait for their slices
-        (ROADMAP, Queue 1: faults, topology, streaming)."""
+        UE's intensity, no switching and no AI in the loop.
+
+        ``active (U,)`` is the streaming bank-slot mask: a detached lane runs
+        the fail-safe expert (so it claims no GATED capacity), its link state
+        freezes and every output and KPM leaf is zero; an all-true mask
+        leaves the slot bitwise as without it.  ``faults`` with ``corrupt
+        (U,)`` injects expert-output corruption and runs the health screen
+        (``health_tripped``).  Multi-cell topology is a later slice's.
+        """
         n_ues = keys.shape[0]
+        if active is not None:
+            modes = torch.where(active, modes.to(torch.int32),
+                                torch.full_like(modes, self.bank.default_mode,
+                                                dtype=torch.int32))
         p = per_ue_params(p, n_ues)
         pre = self._ue_pre(profile, p, link.reported_snr_db, link.olla_offset_db, keys)
         zeros = torch.zeros(n_ues, dtype=torch.int32, device=keys.device)
-        overflow = audit_tripped = zeros
+        overflow = audit_tripped = health_tripped = zeros
         if rho is None:
             out = self.bank(modes.to(torch.int32), pre["h_ls"])
             h_sel = out.selected
@@ -612,6 +662,9 @@ class BatchedPuschPipeline:
                 overflow = out.overflow.to(torch.int32)
             if out.audit_tripped is not None:
                 audit_tripped = out.audit_tripped.to(torch.int32)
+            if faults is not None:
+                h_sel, health_tripped = self._corrupt_and_screen(out, h_sel, modes, corrupt,
+                                                                 faults)
         else:
             h_mmse = self._mmse_from_ls_batched(pre["h_ls"])
             h_sel = perturb_estimate(h_mmse, rho, jr.fold_in(keys, 0x9E7))
@@ -622,7 +675,12 @@ class BatchedPuschPipeline:
         outputs["executed_flops"] = exec_flops
         outputs["gated_overflow"] = overflow
         outputs["audit_tripped"] = audit_tripped
-        outputs["health_tripped"] = zeros
+        outputs["health_tripped"] = health_tripped
+        if active is not None:
+            new_link = DeviceLinkState(*(torch.where(active, n, o)
+                                         for n, o in zip(new_link, link)))
+            outputs = _map_tree(
+                lambda x: torch.where(_rows(active, x), x, torch.zeros_like(x)), outputs)
         return new_link, outputs
 
     def _ue_keys(self, key, ue_keys, n_ues: int) -> torch.Tensor:
@@ -636,27 +694,41 @@ class BatchedPuschPipeline:
 
     # -- campaign drivers ------------------------------------------------------
 
+    def _run_open(self, profile, link, ue_keys, modes, params, *, slot0: int = 0,
+                  active=None, faults=None, corrupt=None):
+        """The open loop over ``modes (S, U)``: slot ``s`` folds the global
+        slot index ``slot0 + s`` into every UE's key.  ``active``, ``faults``
+        and ``corrupt (S, U)`` as in ``_slot_core``."""
+        outs = []
+        for s in range(modes.shape[0]):
+            link, out = self._slot_core(
+                profile, link, modes[s], jr.fold_in(ue_keys, slot0 + s), params.at(s),
+                active=active, faults=faults,
+                corrupt=None if corrupt is None else corrupt[s])
+            outs.append(out)
+        return link, _stack_tree(outs)
+
     def run(self, schedule: Callable[[int], ChannelConfig], modes, *, n_slots: int,
             n_ues: int, key=None, ue_keys=None, use_scan: bool = True, faults=None):
         """Open-loop ``n_slots x n_ues`` campaign over a declared mode grid.
 
         ``key`` is the root key (``repro_torch.random.PRNGKey``, or a
         reference ``uint32`` key); returns ``(final_link, trajectory)`` with
-        every trajectory leaf ``(n_slots, n_ues)``.
+        every trajectory leaf ``(n_slots, n_ues)``.  ``faults`` (a
+        ``FaultSpec``) injects expert-output corruption behind the health
+        screen (decision and telemetry faults exist only in the closed loop).
         """
-        if faults is not None:
-            raise _not_ported("fault injection", "Queue 1: faults and streaming")
         dev = self.device
+        corrupt = None
+        if faults is not None:
+            if not use_scan:
+                raise ValueError("fault injection needs use_scan=True")
+            corrupt = torch.as_tensor(faults.resolve(n_slots, n_ues).corrupt, device=dev)
         profile, params = resolve_schedule(self.cfg, schedule, n_slots, n_ues, dev)
         modes = normalize_modes(modes, n_slots, n_ues, dev)
         ue_keys = self._ue_keys(key, ue_keys, n_ues)
-        link = init_device_link(n_ues, dev)
-        outs = []
-        for s in range(n_slots):
-            keys = jr.fold_in(ue_keys, s)
-            link, out = self._slot_core(profile, link, modes[s], keys, params.at(s))
-            outs.append(out)
-        return link, _stack_tree(outs)
+        return self._run_open(profile, init_device_link(n_ues, dev), ue_keys, modes, params,
+                              faults=faults, corrupt=corrupt)
 
     def run_perturbed(self, schedule: Callable[[int], ChannelConfig], rho, *,
                       n_slots: int, key=None, ue_keys=None):
@@ -681,23 +753,65 @@ class BatchedPuschPipeline:
             outs.append(out)
         return link, _stack_tree(outs)
 
-    def _closed_step(self, profile, sw_cfg, policy, ue_keys, link, sw, slot_idx, p):
-        """One closed-loop slot: committed modes in, decision out."""
+    def _closed_step(self, profile, sw_cfg, policy, ue_keys, link, sw, slot_idx, p, *,
+                     active=None, faults=None, fault_s=None):
+        """One closed-loop slot: committed modes in, decision out.
+
+        ``faults`` with ``fault_s`` (this slot's ``(decision_valid, corrupt,
+        telemetry_valid)`` ``(U,)`` masks) runs the degradation ladder in the
+        reference's order: quarantined UEs run the fail-safe expert (claiming
+        no GATED capacity) while their register keeps deciding; the estimate
+        is corrupted and screened; the decision phase drops masked telemetry
+        and lost decisions, the boundary runs the TTL decay, and the slot's
+        health and audit trips feed the breaker last.  ``quarantined``
+        records the overlay as of the start of the slot.  ``active`` (the
+        streaming mask) freezes a detached lane's whole control state and
+        zeroes its entries.  For a ``DeviceTreePolicy`` on the card the
+        whole decision phase is one ``policy_step`` launch.
+        """
         keys = jr.fold_in(ue_keys, slot_idx)
         committed = sw.active_mode
-        link, out = self._slot_core(profile, link, committed, keys, p)
+        dv = cor = tv = trip = None
+        if faults is not None:
+            quarantined = (sw.quarantine > 0).to(torch.int32)
+            exec_modes = torch.where(quarantined > 0,
+                                     torch.full_like(committed, sw_cfg.default_mode),
+                                     committed)
+            dv, cor, tv = fault_s
+        else:
+            quarantined = torch.zeros_like(committed)
+            exec_modes = committed
+        link, out = self._slot_core(profile, link, exec_modes, keys, p, active=active,
+                                    faults=faults, corrupt=cor)
         vecs = trajectory_kpm_matrix(out["kpms"], sw_cfg.feature_names)
         decide = sw_cfg.period_slots == 1 or slot_idx % sw_cfg.period_slots == 0
-        if isinstance(policy, DeviceTreePolicy):  # the whole phase in one launch
-            new_sw, raw = policy_step(sw, vecs, policy, sw_cfg, decide=decide)
-        else:
-            new_sw, raw = switch_update(sw, vecs, policy, sw_cfg, decide=decide)
-            new_sw = switch_boundary(new_sw)
-        # the boundary leaves the register as the update wrote it
-        out = dict(out, active_mode=committed, raw_decision=raw,
-                   pending_mode=new_sw.pending_mode,
-                   quarantined=torch.zeros_like(committed))
+        if faults is not None:
+            trip = (out["health_tripped"] > 0) | (out["audit_tripped"] > 0)
+        new_sw, raw, reg = policy_step(
+            sw, vecs, policy, sw_cfg, decide=decide, decision_valid=dv, telemetry_valid=tv,
+            trip=trip, active=active, slot_idx=slot_idx, faults=faults, return_register=True)
+        if active is not None:
+            zero = torch.zeros_like(committed)
+            committed = torch.where(active, committed, zero)
+            quarantined = torch.where(active, quarantined, zero)
+        out = dict(out, active_mode=committed, raw_decision=raw, pending_mode=reg,
+                   quarantined=quarantined)
         return link, new_sw, out
+
+    def _run_closed(self, profile, sw_cfg, link, sw, ue_keys, params, policy, n_slots: int,
+                    *, slot0: int = 0, active=None, faults=None, fault_masks=None):
+        """The closed loop over ``n_slots`` slots from global slot ``slot0``:
+        ``(final link, final switch state, trajectory)``.  ``fault_masks`` is
+        the ``(decision_valid, corrupt, telemetry_valid)`` triple of ``(S, U)``
+        bool tensors."""
+        outs = []
+        for s in range(n_slots):
+            fs = None if fault_masks is None else tuple(m[s] for m in fault_masks)
+            link, sw, out = self._closed_step(profile, sw_cfg, policy, ue_keys, link, sw,
+                                              slot0 + s, params.at(s), active=active,
+                                              faults=faults, fault_s=fs)
+            outs.append(out)
+        return link, sw, _stack_tree(outs)
 
     def run_closed_loop(self, schedule: Callable[[int], ChannelConfig],
                         policy: DevicePolicy, sw_cfg: SwitchConfig, *, n_slots: int,
@@ -710,21 +824,22 @@ class BatchedPuschPipeline:
         takes effect at the next boundary.  Returns ``(final_link,
         final_switch_state, trajectory)``; the trajectory adds
         ``active_mode`` / ``raw_decision`` / ``pending_mode`` /
-        ``quarantined`` to ``run``'s leaves.
+        ``quarantined`` to ``run``'s leaves.  ``faults`` (a ``FaultSpec``)
+        runs the whole degradation ladder: decision loss and the TTL decay,
+        corruption, the health screen and the breaker, telemetry loss.
         """
-        if faults is not None:
-            raise _not_ported("fault injection", "Queue 1: faults and streaming")
         dev = self.device
         profile, params = resolve_schedule(self.cfg, schedule, n_slots, n_ues, dev)
         ue_keys = self._ue_keys(key, ue_keys, n_ues)
+        fault_masks = None
+        if faults is not None:
+            rf = faults.resolve(n_slots, n_ues)
+            fault_masks = tuple(torch.as_tensor(m, device=dev) for m in (
+                rf.decision_valid, rf.corrupt, rf.telemetry_valid))
         link = init_device_link(n_ues, dev)
-        sw = init_device_switch(n_ues, len(sw_cfg.feature_names), sw_cfg, dev)
-        outs = []
-        for s in range(n_slots):
-            link, sw, out = self._closed_step(profile, sw_cfg, policy, ue_keys, link,
-                                              sw, s, params.at(s))
-            outs.append(out)
-        return link, sw, _stack_tree(outs)
+        sw = init_device_switch(n_ues, len(sw_cfg.feature_names), sw_cfg, dev, faults=faults)
+        return self._run_closed(profile, sw_cfg, link, sw, ue_keys, params, policy, n_slots,
+                                faults=faults, fault_masks=fault_masks)
 
 
 def _params_to(params: Any, device: torch.device) -> Any:

@@ -1,7 +1,7 @@
 """OTA experiment scenarios (paper 6, Figs. 7/9) + the scenario registry.
 
-A copy of ``repro.phy.scenario`` (numpy/Python only).  ``multi_cell`` and
-``churn_cell`` need the topology and streaming slices and raise here.
+A copy of ``repro.phy.scenario`` (numpy/Python only).  ``multi_cell`` needs
+the topology slice and raises here.
 
 The paper's two OTA operating points are ``good`` (LOS, no interference)
 and ``poor`` (same link + frequency-selective in-band UL interference from
@@ -29,9 +29,12 @@ Registered entries:
   phase-transition and bursty users simultaneously.  Per-UE scenarios
   return one schedule per UE; the batched engine stacks them into
   ``ChannelParams`` with a ``(n_slots, n_ues)`` leading shape.
-* ``multi_cell`` / ``churn_cell`` — registered under their reference names
-  so specs resolve, but they raise until the topology and streaming slices
-  are ported.
+* ``churn_cell`` — **per-id**: every stable UE id gets the same periodic
+  interference stream, phase-shifted by ``(id * stagger) % period``, so a UE
+  re-packed into another bank slot keeps its own burst phase (streaming
+  campaigns).
+* ``multi_cell`` — registered under its reference name so specs resolve,
+  but it raises until the topology slice is ported.
 
 All registered scenarios share the ``INDOOR_LOS`` profile, so any mix of
 them is device-traceable in one scan (including per-UE mixes).
@@ -218,10 +221,16 @@ def _multi_cell(n_ues: int, **kwargs) -> list:
         "scenario 'multi_cell' is not ported yet (ROADMAP, Queue 1: multi-cell topology)")
 
 
-def _churn_cell(n_ues: int, **kwargs) -> list:
-    """Per-id staggered bursts for churn campaigns need the streaming slice."""
-    raise NotImplementedError(
-        "scenario 'churn_cell' is not ported yet (ROADMAP, Queue 1: faults and streaming)")
+def _churn_cell(n_ues: int, *, period: int = 12, burst_slots: int = 4,
+                stagger: int = 3) -> list:
+    """Churn-campaign cell: phase-staggered bursty interference per UE id, so
+    each stable identity carries its own condition trajectory whatever bank
+    slot it is packed into."""
+    return [
+        bursty_interference_schedule(period=period, burst_slots=burst_slots,
+                                     offset=(u * stagger) % period)
+        for u in range(n_ues)
+    ]
 
 
 register_scenario(

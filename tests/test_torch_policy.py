@@ -181,18 +181,23 @@ def test_spec_hash_matches_reference():
 
 
 def test_unported_paths_raise():
-    """Faults, topology and the ``multi_cell`` scenario still raise, naming
-    their ROADMAP item; the host and perturbed paths and SELECTED_ONLY banks
-    now build (they run in tests/test_torch_host_path.py and
+    """Topology and the ``multi_cell`` scenario still raise, naming their
+    ROADMAP item.  Faults and churn are ported: an unknown ``FaultSpec``
+    field raises the error type the reference raises, and the ``churn_cell``
+    scenario builds one schedule per UE id; the host and perturbed paths and
+    SELECTED_ONLY banks build (they run in tests/test_torch_host_path.py and
     tests/test_torch_methodology.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(Exception) as ref_err:
+        rses.CampaignSpec(faults={"decision_loss": 0.1})
+    with pytest.raises(type(ref_err.value), match="decision_loss"):
         tses.CampaignSpec(faults={"decision_loss": 0.1})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="multi-cell topology"):
         tses.CampaignSpec(topology={"n_cells": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from repro_torch.phy.scenario import get_scenario
+    from repro_torch.phy.scenario import get_scenario
 
+    with pytest.raises(NotImplementedError, match="multi-cell topology"):
         get_scenario("multi_cell").schedule(n_ues=4)
+    assert len(get_scenario("churn_cell").schedule(n_ues=5)) == 5
     for spec in (
             tses.CampaignSpec(path="host", n_ues=1, policies=(tses.PolicySpec(),)),
             tses.CampaignSpec(path="perturbed", n_ues=2, rho=(0.0, 1.0)),
