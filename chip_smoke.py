@@ -1,6 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU: build, check and time every kernel,
-run the CONCURRENT and GATED closed-loop campaigns, the host E3/dApp loop and
-the methodology's perturbation sweep at full width, and print a JSON verdict.
+run the CONCURRENT and GATED closed-loop campaigns, a multi-cell campaign on
+one rank and on two ranks sharing the card, the campaign service, the host
+E3/dApp loop and the methodology's perturbation sweep at full width, and print
+a JSON verdict.
 
 Usage (from the repository root, on a machine with an H100):
 
@@ -24,7 +26,10 @@ Phases, each of which raises on failure (exit code != 0):
    capacity, its float32 error against a float64 plain version at most
    ``GATED_EXACT_RATIO`` times the float32 plain version's, all of it at the
    paper's 32 channels, at 64 and, in the kernel's wide form, at 96 and
-   128), with kernel, plain-version and library times and the card's lower
+   128), the CONCURRENT bank's AI expert (``ai_expert_dense``: every UE
+   selected into an unfilled output) whole against the plain folded form
+   within the same tolerances and against float64, and equal to the masked
+   call with every UE selected, with kernel, plain-version and library times and the card's lower
    bound for the same work; the switches, the scatter, ``mmse_interp`` and
    the fused gated expert (against the unfused GATED path, also at K = 32
    with every UE selected and at 64, 96 and 128 channels) and
@@ -36,8 +41,9 @@ Phases, each of which raises on failure (exit code != 0):
    host time of a call alone;
 4. main path: ``ArchesSession(...).run()`` of the closed-loop campaign at
    the paper's 106-PRB slot with 32 UEs and the estimator's default width,
-   on a CONCURRENT bank; every kernel of that path must launch during the
-   run, every trajectory leaf must be finite, and the device loop must
+   on a CONCURRENT bank (its AI expert one ``gated_expert`` launch a slot
+   with every UE selected); every kernel of that path must launch during
+   the run, every trajectory leaf must be finite, and the device loop must
    equal its host replay;
 5. GATED main path: the same campaign on a fused GATED bank of capacity 16,
    with the same checks and the executed-FLOPs leaf held against the
@@ -56,12 +62,24 @@ Phases, each of which raises on failure (exit code != 0):
    zero churn == monolithic, the device loop == its host replay, all
    bitwise; a fused GATED churn run; the executor's stats and ms per slot
    beside the monolithic run's; the re-pack agreement of resident UEs
-   against a churn-free 48-UE run on both banks;
+   against a churn-free 48-UE run on both banks, 1.0 on every leaf read;
+7b. topology: 32 UEs in four coupled cells (``multi_cell``: good, poor,
+   good_poor_good, bursty_interference; coupling 0.3; noise offsets 0, 3,
+   0, -3 dB), closed-loop CONCURRENT and fused GATED (capacity 16) on one
+   rank with ms per slot beside the single-cell main path's; CONCURRENT
+   and fused GATED at full capacity on one rank and on two ranks sharing
+   the card (gloo, spawned after the build): the same bits on every
+   trajectory leaf, one ``all_reduce`` a slot on each rank;
+7c. service: ``CampaignService`` on the card runs a multi-cell and a
+   single-cell churn campaign, each equal to a direct ``run_streaming``
+   bitwise; a cancel at the first boundary keeps the checkpoint and a
+   resume from it equals the uninterrupted run bitwise; the HTTP API on
+   127.0.0.1 answers a status query;
 8. width: the fused gated expert at ``PAST_SMEM_CHANNELS`` channels, past
    the width whose weights fit a block's shared memory, at n_prb 273 and 24
    against its plain version and the float64 rule;
 9. GATED vs CONCURRENT: the same policy on a full-capacity GATED bank
-   against the CONCURRENT run, as agreement rates;
+   against the CONCURRENT run: the same bits on every KPM and decision;
 10. host loop: ``ArchesSession(path="host")`` at n_prb 106 with the AI
    expert at its default width and a tree policy, 40 slots: the scalar
    switch must launch exactly once per slot and ``mmse_interp`` must
@@ -160,6 +178,11 @@ PAST_SMEM_CHANNELS = 1472
 FAULT_SLOTS, FAULT_TTL = 32, 4
 #: the streaming campaign: bank capacity, stable ids, segment and depth
 STREAM_IDS, STREAM_SEG, STREAM_SLOTS = 48, 8, 32
+#: the multi-cell campaign: one scenario a cell, the cells' noise offsets,
+#: the inter-cell coupling, its depth and the ranks that share the card
+TOPO_CELLS = ("good", "poor", "good_poor_good", "bursty_interference")
+TOPO_NOISE_DB, TOPO_COUPLING = (0.0, 3.0, 0.0, -3.0), 0.3
+TOPO_SLOTS, TOPO_RANKS = 24, 2
 
 
 def sweep_ues() -> int:
@@ -698,7 +721,11 @@ def phase_gated_kernels() -> list[dict]:
     import copy
 
     from repro_torch import random as jr
-    from repro_torch.kernels.gated_expert import gated_expert_apply, gated_expert_apply_ref
+    from repro_torch.kernels.gated_expert import (
+        ai_expert_dense,
+        gated_expert_apply,
+        gated_expert_apply_ref,
+    )
     from repro_torch.kernels.gated_expert.ops import cluster_size
     from repro_torch.kernels.switch_select import (
         switch_gather_batched_ref,
@@ -848,6 +875,30 @@ def phase_gated_kernels() -> list[dict]:
         outs.append(gated_expert_apply(i_, s_, h_ls, des0.clone(), ai)[ue])
     if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])):
         raise AssertionError("gated_expert: one UE's estimate depends on the batch")
+    # the CONCURRENT bank's AI expert: every UE selected into a fresh, unfilled
+    # output, held whole against the plain folded form and the masked call
+    rows_all = torch.arange(N_UES, dtype=torch.int32, device=dev)
+    for cd, tol in ((None, GATED_F32_TOL), (torch.bfloat16, GATED_BF16_TOL)):
+        m_ = modules[cd]
+        # free a NaN block of the output's size first: the allocator hands it to
+        # the output, so an element the kernel leaves unwritten reads NaN
+        torch.full((N_UES,) + shape, float("nan"), dtype=torch.complex64, device=dev)
+        got = ai_expert_dense(h_ls, m_, compute_dtype=cd)
+        want = ai_expert_dense(h_ls, m_, compute_dtype=cd, backend="ref")
+        masked = gated_expert_apply(rows_all, rows_all, h_ls, torch.zeros_like(des0), m_,
+                                    compute_dtype=cd)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(torch.view_as_real(got)).all()):
+            raise AssertionError("ai_expert_dense left part of its output unwritten")
+        torch.testing.assert_close(got, want, **tol)
+        if not torch.equal(got, masked):
+            raise AssertionError("ai_expert_dense differs from gated_expert with every UE "
+                                 "selected")
+        log(f"  ai_expert_dense (the CONCURRENT AI expert), {'bf16' if cd else 'f32'}, "
+            f"{N_UES} UEs: max |err| {float((got - want).abs().max()):.3g} against the folded "
+            f"form, == gated_expert with every UE selected")
+        if cd is None:
+            against_float64("ai_expert_dense", rows_all, rows_all, h_ls, des0, m_, got, want)
     # wider than the paper's: 64 channels (the widest CP form), 96 and 128 (the wide
     # form, chunks of 32), held to the same rules (plain version, float64, one UE
     # bitwise at any capacity)
@@ -983,6 +1034,10 @@ def _check_history(sess, hist, n_slots: int) -> None:
         raise AssertionError("device decisions != host replay decisions")
 
 
+#: ms per slot of each path's second run, by its label
+LOOP_MS: dict[str, float] = {}
+
+
 def run_path(label: str, spec, kernels: tuple[str, ...], *, host_policies=None,
              auto_capacity: bool = False, rerun: bool = True):
     """One closed-loop ``ArchesSession.run()`` on the card.
@@ -1015,6 +1070,7 @@ def run_path(label: str, spec, kernels: tuple[str, ...], *, host_policies=None,
         sess.run()
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t0
+        LOOP_MS[label] = loop_s / spec.n_slots * 1e3
         msg += (f"; closed loop {loop_s:.3f} s = {spec.n_slots * N_UES / loop_s:.1f} "
                 f"slot-UEs/s ({loop_s / spec.n_slots * 1e3:.2f} ms/slot)")
     log(f"{msg}; AI share {hist.ai_share:.4f}; switches {int(hist.n_switches.sum())}; "
@@ -1057,15 +1113,21 @@ def agreement(got, want, label: str) -> tuple[dict, float]:
 
 def phase_gated_vs_concurrent(conc_hist, host_policies) -> None:
     """The CONCURRENT main path's policy on a full-capacity f32 GATED bank:
-    the same campaign, held by agreement rates (cuBLAS does not promise one
-    UE's column is the same bits whatever the batch)."""
+    the same campaign.  Both banks run the AI expert through the fused
+    kernel, which keeps each UE's bits at any batch and row, so below
+    capacity the two are the same bits on every shared leaf."""
     from repro_torch.core.session import ArchesSession
 
     spec = _main_spec(execution_mode="gated", fused=True)
     hist = ArchesSession(spec, device="cuda", host_policies=host_policies).run()
     agree, _ = agreement(hist, conc_hist, "GATED vs CONCURRENT on the card, capacity None")
-    if min(agree.values()) < AGREE_MIN:
-        raise AssertionError(f"GATED and CONCURRENT disagree: {agree}")
+    bitwise = {k: float(np.mean(hist.kpms[k] == v)) for k, v in conc_hist.kpms.items()}
+    log(f"GATED vs CONCURRENT below capacity: share of slot-UEs with the same bits, by KPM: "
+        f"{bitwise}")
+    if min(agree.values()) < 1.0 or min(bitwise.values()) < 1.0:
+        raise AssertionError(f"GATED and CONCURRENT differ below capacity: {agree}, {bitwise}")
+    if not np.array_equal(hist.decisions, conc_hist.decisions):
+        raise AssertionError("GATED and CONCURRENT decisions differ below capacity")
 
 
 def phase_reference() -> None:
@@ -1357,7 +1419,8 @@ def phase_faults(host_policies) -> dict:
     fs = _fault_spec()
     launches = {}
     for label, bank, kernels in (
-            ("CONCURRENT", {}, ("mmse_interp", "switch_select_batched", "tree_infer")),
+            ("CONCURRENT", {}, ("mmse_interp", "switch_select_batched", "tree_infer",
+                                "gated_expert")),
             ("GATED fused", dict(execution_mode="gated", fused=True,
                                  gated_capacity=GATED_CAPACITY),
              ("gated_expert", "mmse_interp", "tree_infer"))):
@@ -1459,9 +1522,9 @@ def phase_streaming(host_policies) -> None:
     uninterrupted one, the device loop == its host replay, one ``tree_infer``
     launch a slot; zero churn == the monolithic run; one fused GATED churn run;
     the executor's stats and ms per slot beside the monolithic run's; and the
-    re-pack agreement of resident UEs against a churn-free 48-UE run, on the
-    CONCURRENT bank (cuBLAS) and on the fused GATED bank (one UE bitwise at
-    any row)."""
+    re-pack agreement of resident UEs against a churn-free 48-UE run on both
+    banks, which must be 1.0 (both run the AI expert through the fused kernel,
+    one UE bitwise at any row and batch)."""
     import tempfile
 
     from repro_torch.core.session import ArchesSession, as_streaming_spec
@@ -1545,6 +1608,192 @@ def phase_streaming(host_policies) -> None:
             f"slot moved, against a churn-free {STREAM_IDS}-UE run: mode {a['mode']:.4f}, "
             f"mcs {a['mcs']:.4f}, tb_ok {a['tb_ok']:.4f}, snr bitwise {a['snr_bits']:.4f}, "
             f"rsrp bitwise {a['rsrp_bits']:.4f}")
+        # every stage computes each UE on its own: a resident UE keeps its bits
+        if a["ids"] == 0 or min(v for k, v in a.items() if k != "ids") < 1.0:
+            raise AssertionError(f"re-pack agreement {label}: {a}")
+
+
+def _topo_spec(**bank):
+    from repro_torch.core.session import CampaignSpec, ExpertBankSpec, PolicySpec
+    from repro_torch.core.topology import TopologySpec
+
+    n_cells = len(TOPO_CELLS)
+    return CampaignSpec(
+        path="closed_loop", scenario="multi_cell",
+        scenario_args=(("n_cells", n_cells), ("per_cell_scenario", TOPO_CELLS)),
+        n_prb=N_PRB, n_ues=N_UES, n_slots=TOPO_SLOTS, seed=7,
+        topology=TopologySpec(n_cells=n_cells, coupling=TOPO_COUPLING,
+                              cell_noise_offsets_db=TOPO_NOISE_DB),
+        bank=ExpertBankSpec(channels=CHANNELS, n_res_blocks=N_RES, **bank),
+        policies=(PolicySpec(kind="tree"),))
+
+
+def _topo_rank(rank, specs, host_policies):
+    """One rank of the shared-card run: each spec's session run once, timed,
+    with its launches and collectives."""
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.core import topology
+    from repro_torch.core.session import ArchesSession
+    from repro_torch.kernels import build
+
+    out = {}
+    for label, spec in specs:
+        sess = ArchesSession(spec, device="cuda", host_policies=host_policies)
+        sess.run()  # warm: first launches, cached constants
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        topology.reset_collective_counts()
+        t0 = time.perf_counter()
+        hist = sess.run()
+        torch.cuda.synchronize()
+        out[label] = {"hist": hist, "s": time.perf_counter() - t0,
+                      "n_shards": sess.cell_topology.n_shards,
+                      "launches": dict(build.launch_counts),
+                      "collectives": dict(topology.collective_counts)}
+    return out
+
+
+def phase_topology(host_policies, main_ms: float) -> None:
+    """The multi-cell closed loop at the main path's width: 32 UEs in four
+    coupled cells (one scenario and noise offset a cell), CONCURRENT and fused
+    GATED (capacity 16) on one rank, with ms per slot beside the single-cell
+    main path's; then CONCURRENT and fused GATED at full capacity on one rank
+    and on ``TOPO_RANKS`` ranks sharing the card (gloo), bitwise on every
+    trajectory leaf, with one ``all_reduce`` a slot on each rank."""
+    from repro_torch.core import topology
+    from repro_torch.core.session import ArchesSession
+    from repro_torch.kernels import build
+
+    full = {"CONCURRENT": _topo_spec(),
+            "GATED fused": _topo_spec(execution_mode="gated", fused=True, gated_capacity=N_UES)}
+    runs = (("CONCURRENT", full["CONCURRENT"],
+             ("gated_expert", "mmse_interp", "switch_select_batched", "tree_infer")),
+            ("GATED fused, capacity 16", _topo_spec(
+                execution_mode="gated", fused=True, gated_capacity=GATED_CAPACITY),
+             ("gated_expert", "mmse_interp", "tree_infer")),
+            ("GATED fused", full["GATED fused"], ("gated_expert", "mmse_interp", "tree_infer")))
+    one = {}
+    for label, spec, kernels in runs:
+        sess = ArchesSession(spec, device="cuda", host_policies=host_policies)
+        sess.run()
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        topology.reset_collective_counts()
+        t0 = time.perf_counter()
+        hist = sess.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(build.launch_counts)
+        missing = [k for k in kernels if counts[k] == 0]
+        if missing or counts["tree_infer"] != TOPO_SLOTS:
+            raise AssertionError(f"topology {label}: launches {counts}")
+        if topology.collective_counts["all_reduce"] != 0:
+            raise AssertionError(f"topology {label}: a collective on one shard")
+        _check_history(sess, hist, TOPO_SLOTS)
+        one[label] = {"hist": hist, "s": dt}
+        log(f"topology {label}, 1 rank: {len(TOPO_CELLS)} cells {TOPO_CELLS}, coupling "
+            f"{TOPO_COUPLING}, noise offsets {TOPO_NOISE_DB} dB, {TOPO_SLOTS} slots x {N_UES} "
+            f"UEs: {dt / TOPO_SLOTS * 1e3:.2f} ms/slot (single-cell main path {main_ms:.2f}); "
+            f"AI share {hist.ai_share:.4f}, per cell {np.round(hist.per_cell_ai_share, 4)}; "
+            f"throughput per cell {np.round(hist.per_cell_throughput / 1e6, 3)} Mbit/s; "
+            f"overflow slot-UEs {hist.overflow_slot_ues}; launches {counts}; "
+            f"device loop == host replay")
+    from repro_torch.core.topology import spawn_ranks
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_topo_rank, TOPO_RANKS, (tuple(full.items()), host_policies),
+                        device="cuda", backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    for label in full:
+        for r, out in enumerate(ranks):
+            got = out[label]
+            if got["n_shards"] != TOPO_RANKS:
+                raise AssertionError(f"topology {label}: rank {r} ran {got['n_shards']} shards")
+            if got["collectives"] != {"all_reduce": TOPO_SLOTS, "all_gather": 1}:
+                raise AssertionError(f"topology {label}: rank {r} collectives "
+                                     f"{got['collectives']}")
+            _same_history(got["hist"], one[label]["hist"],
+                          f"topology {label}: rank {r} of {TOPO_RANKS} vs 1 rank")
+        ms = max(out[label]["s"] for out in ranks) / TOPO_SLOTS * 1e3
+        log(f"topology {label}: {TOPO_RANKS} ranks sharing the card (gloo) == 1 rank on "
+            f"every trajectory leaf, bitwise, on every rank; all_reduce "
+            f"{ranks[0][label]['collectives']['all_reduce'] / TOPO_SLOTS:g} a slot a rank, "
+            f"one all_gather; {ms:.2f} ms/slot on {TOPO_RANKS} ranks (slowest rank) vs "
+            f"{one[label]['s'] / TOPO_SLOTS * 1e3:.2f} on 1; launches a rank "
+            f"{[out[label]['launches'] for out in ranks]}")
+    log(f"topology: {TOPO_RANKS} ranks spawned, run and joined in {spawn_s:.1f} s")
+
+
+#: the service's campaigns: a threshold policy (no tree to fit per campaign)
+SERVICE_POLICY = dict(kind="threshold", feature="snr", threshold=10.0, hysteresis=1.0)
+
+
+def phase_service() -> None:
+    """``CampaignService`` on the card: a multi-cell campaign (the topology
+    phase's, with a threshold policy) and a single-cell churn campaign (the
+    streaming phase's) each equal to a direct ``run_streaming`` of their
+    streaming form, bitwise; a campaign cancelled at its first boundary keeps
+    its checkpoint, and a resume from it equals the uninterrupted run
+    bitwise; the HTTP API on 127.0.0.1 answers a status query."""
+    import tempfile
+    import urllib.request
+
+    from repro_torch.core.session import ArchesSession, PolicySpec, as_streaming_spec
+    from repro_torch.service import CampaignService, CampaignState, ServiceAPI
+
+    policy = (PolicySpec(**SERVICE_POLICY),)
+    specs = {"multi-cell": dataclasses.replace(_topo_spec(), policies=policy),
+             "single-cell churn": dataclasses.replace(_stream_spec(), policies=policy)}
+    direct = {}
+    for label, spec in specs.items():
+        run_spec = as_streaming_spec(spec, max_segment_slots=STREAM_SEG)
+        direct[label] = ArchesSession(run_spec, device="cuda").run_streaming()
+    with tempfile.TemporaryDirectory() as d:
+        svc = CampaignService(d, max_segment_slots=STREAM_SEG, device="cuda").start()
+        api = ServiceAPI(svc, host="127.0.0.1").start()
+        try:
+            t0 = time.perf_counter()
+            ids = {label: svc.submit(spec) for label, spec in specs.items()}
+            for label, cid in ids.items():
+                if svc.wait(cid, timeout=300) != CampaignState.COMPLETED:
+                    raise AssertionError(f"service {label}: {svc.status(cid)}")
+                _same_history(svc.result(cid), direct[label],
+                              f"service {label} vs run_streaming")
+            service_s = time.perf_counter() - t0
+            with urllib.request.urlopen(f"{api.url}/campaigns/{ids['multi-cell']}",
+                                        timeout=10) as r:
+                status = json.loads(r.read().decode())
+            if status["state"] != "completed" or r.status != 200:
+                raise AssertionError(f"service API status: {r.status} {status}")
+            samples = svc.ring.snapshot()
+        finally:
+            api.stop()
+            svc.drain(timeout=60)
+
+        def cancel_first(service, rec, ev):
+            if ev.seg_idx == 0:
+                rec.cancel_event.set()
+
+        svc = CampaignService(os.path.join(d, "cancel"), max_segment_slots=STREAM_SEG,
+                              device="cuda", segment_callback=cancel_first).start()
+        cid = svc.submit(specs["multi-cell"])
+        state = svc.wait(cid, timeout=300)
+        steps = svc.status(cid)["checkpoint_steps"]
+        svc.drain(timeout=60)
+        if state != CampaignState.CANCELLED or steps != [1]:
+            raise AssertionError(f"service cancel: {state}, checkpoints {steps}")
+        run_spec = as_streaming_spec(specs["multi-cell"], max_segment_slots=STREAM_SEG)
+        resumed = ArchesSession(run_spec, device="cuda").run_streaming(
+            resume_from=svc.ckpt_dir(cid))
+        _same_history(resumed, direct["multi-cell"], "service: resumed from a cancel")
+    per_cell = [s.get("per_cell_throughput_bps") for s in samples
+                if s["campaign_id"] == ids["multi-cell"]]
+    log(f"service: {len(specs)} campaigns on the card ({', '.join(specs)}) == direct "
+        f"run_streaming on every leaf, in {service_s:.2f} s; cancelled at the first boundary "
+        f"with checkpoint {steps} kept, resumed == uninterrupted, bitwise; API status "
+        f"{status['state']} ({status['segments_done']}/{status['n_segments']} segments); "
+        f"{len(samples)} telemetry samples, multi-cell per-cell throughput (Mbit/s) "
+        f"{[np.round(np.asarray(p) / 1e6, 3).tolist() for p in per_cell]}")
 
 
 def phase_device_alone() -> None:
@@ -1608,7 +1857,7 @@ def main() -> int:
     rows = phase_kernels() + phase_gated_kernels() + [phase_scalar_switch()]
     conc, conc_hist, launches = run_path(
         "main path CONCURRENT", _main_spec(),
-        ("mmse_interp", "switch_select_batched", "tree_infer"))
+        ("mmse_interp", "switch_select_batched", "tree_infer", "gated_expert"))
     gated, gated_hist, gated_launches = run_path(
         "main path GATED fused", _main_spec(execution_mode="gated", fused=True,
                                             gated_capacity=GATED_CAPACITY),
@@ -1639,6 +1888,8 @@ def main() -> int:
                              f"{WIDE_SESSION_SLOTS} slots at {WIDE_SESSION_CHANNELS} channels")
     phase_faults(conc.host_policies)
     phase_streaming(conc.host_policies)
+    phase_topology(conc.host_policies, LOOP_MS["main path CONCURRENT"])
+    phase_service()
     phase_wide_width()
     host, host_launches = phase_host()
     phase_sweep(host)
@@ -1651,7 +1902,7 @@ def main() -> int:
     phase_gated_vs_concurrent(conc_hist, conc.host_policies)
     phase_reference()
     phase_device_alone()
-    phase_profile(conc, "CONCURRENT", ("gemm",))
+    phase_profile(conc, "CONCURRENT", ("gated_expert",))
     phase_profile(gated, "GATED fused", ("gated_expert",), per_launch=True)
     phase_profile(host, "host loop", ("conv", "fprop", "cudnn"))
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import cached_const
+from repro_torch.ue_reduce import ue_sum
 from repro_torch.kernels.switch_select import (
     switch_scatter,
     switch_select,
@@ -83,8 +84,8 @@ def _batched_nmse(selected: torch.Tensor, baseline: torch.Tensor) -> torch.Tenso
     axis, float32 ``(n_ues,)``: the in-loop accuracy audit of a gated expert
     against the always-computed fail-safe baseline."""
     axes = tuple(range(1, selected.ndim))
-    err = (torch.abs(selected - baseline).to(torch.float32) ** 2).sum(dim=axes)
-    ref = (torch.abs(baseline).to(torch.float32) ** 2).sum(dim=axes)
+    err = ue_sum(torch.abs(selected - baseline).to(torch.float32) ** 2, axes)
+    ref = ue_sum(torch.abs(baseline).to(torch.float32) ** 2, axes)
     return err / torch.clamp(ref, min=1e-30)
 
 

@@ -31,6 +31,7 @@ from scipy.spatial.distance import squareform
 from scipy.stats import spearmanr
 
 from repro_torch import random as jr
+from repro_torch.ue_reduce import ue_mean
 
 # -- Stage 1: controlled perturbation -----------------------------------------
 
@@ -50,7 +51,7 @@ def perturb_estimate(h_est: torch.Tensor, rho, key: torch.Tensor) -> torch.Tenso
     kr, ki = ks[..., 0, :], ks[..., 1, :]
     shape = tuple(h_est.shape[lead:])
     axes = tuple(range(lead, h_est.ndim))
-    scale = torch.abs(h_est).mean(dim=axes, keepdim=True) if axes else torch.abs(h_est)
+    scale = ue_mean(torch.abs(h_est), axes, keepdim=True) if axes else torch.abs(h_est)
     if isinstance(rho, torch.Tensor):  # per-perturbation intensities
         rho = rho.to(torch.float32).reshape(tuple(rho.shape) + (1,) * (h_est.ndim - rho.ndim))
     else:  # a Python float stays a kernel argument: nothing is uploaded

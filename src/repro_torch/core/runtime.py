@@ -78,16 +78,18 @@ class BatchedRunHistory:
     bank_slot: np.ndarray | None = None
 
     @classmethod
-    def from_trajectory(cls, modes, traj, *,
+    def from_trajectory(cls, modes, traj, *, cell_of_ue=None,
                         provisioned_capacity: int | None = None) -> "BatchedRunHistory":
-        """Build from ``BatchedPuschPipeline.run`` output."""
+        """Build from ``BatchedPuschPipeline.run`` output (``cell_of_ue``: the
+        topology's ``(U,)`` cell ids, for the per-cell reductions)."""
         kpms = {k: _np(v) for k, v in flatten_kpm_sources(traj["kpms"]).items()}
         outputs = {k: _np(v) for k, v in traj.items() if k != "kpms"}
         return cls(modes=_np(modes), kpms=kpms, outputs=outputs,
+                   cell_of_ue=None if cell_of_ue is None else np.asarray(cell_of_ue),
                    provisioned_capacity=provisioned_capacity)
 
     @classmethod
-    def from_closed_loop(cls, traj, final_switch=None, *,
+    def from_closed_loop(cls, traj, final_switch=None, *, cell_of_ue=None,
                          provisioned_capacity: int | None = None) -> "BatchedRunHistory":
         """Build from ``BatchedPuschPipeline.run_closed_loop`` output:
         ``modes`` are the device-decided active modes."""
@@ -100,6 +102,7 @@ class BatchedRunHistory:
             outputs=outputs,
             decisions=_np(traj["raw_decision"]),
             n_switches=None if final_switch is None else _np(final_switch.n_switches),
+            cell_of_ue=None if cell_of_ue is None else np.asarray(cell_of_ue),
             provisioned_capacity=provisioned_capacity,
         )
 
@@ -137,6 +140,47 @@ class BatchedRunHistory:
     def cell_kpm_series(self, name: str) -> np.ndarray:
         """Cell-level aggregate: per-slot mean over UEs."""
         return self.kpms[name].mean(axis=1)
+
+    # -- per-cell reductions (multi-cell campaigns) ------------------------------
+
+    def _cells(self) -> np.ndarray:
+        if self.cell_of_ue is None:
+            raise ValueError("this history has no cell layout: per-cell reductions need "
+                             "a campaign run under a TopologySpec")
+        return np.asarray(self.cell_of_ue)
+
+    @property
+    def n_cells(self) -> int:
+        return int(self._cells().max()) + 1
+
+    @property
+    def per_cell_ai_share(self) -> np.ndarray:
+        """Per-cell share of slot-UEs served by the AI expert ``(C,)``, as
+        ``ai_share`` (resident slot-UEs only in a streaming history)."""
+        cells = self._cells()
+        served = self.modes == 0
+        for fell_back in ("gated_overflow", "audit_tripped", "health_tripped",
+                          "quarantined"):
+            if fell_back in self.outputs:
+                served = served & (np.asarray(self.outputs[fell_back]) == 0)
+        if self.attached is not None:
+            att = np.asarray(self.attached, bool)
+            return np.asarray([
+                served[:, cells == c][att[:, cells == c]].mean()
+                if att[:, cells == c].any() else 0.0
+                for c in range(self.n_cells)])
+        return np.asarray([served[:, cells == c].mean() for c in range(self.n_cells)])
+
+    def per_cell_kpm(self, name: str) -> np.ndarray:
+        """Per-slot per-cell mean of one KPM ``(S, C)``."""
+        cells = self._cells()
+        v = self.kpms[name]
+        return np.stack([v[:, cells == c].mean(axis=1) for c in range(self.n_cells)], axis=1)
+
+    @property
+    def per_cell_throughput(self) -> np.ndarray:
+        """Per-cell mean PHY throughput over the campaign ``(C,)`` bit/s."""
+        return self.per_cell_kpm("phy_throughput").mean(axis=0)
 
     def per_ue(self, ue: int) -> list[SlotRecord]:
         """One UE's trajectory as host-loop-style slot records."""

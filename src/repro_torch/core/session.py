@@ -26,8 +26,11 @@ bf16 experts, with the NMSE audit), and ``run(auto_capacity=True)``.
 ``faults`` (a ``FaultSpec``) arms the degradation ladder on the batched,
 gated and closed-loop paths; ``churn`` (a ``ChurnSchedule``) makes the
 campaign a streaming one (``run_streaming``, ``repro_torch.core.streaming``).
-A spec that sets ``topology`` raises at construction, naming its ROADMAP
-item.
+``topology`` (a ``TopologySpec``) runs the campaign as ``n_cells`` coupled
+cells, its UE axis split over the ranks of the default ``torch.distributed``
+group (``repro_torch.core.topology``; one shard without a group): per-shard
+GATED compaction, one ``all_reduce`` of the cell loads a slot, and the
+history gains the per-cell reductions.
 """
 
 from __future__ import annotations
@@ -52,6 +55,12 @@ from repro_torch.core.runtime import (
 )
 from repro_torch.core.streaming import ChurnSchedule
 from repro_torch.core.telemetry import SELECTED_KPMS
+from repro_torch.core.topology import (
+    CellTopology,
+    TopologySpec,
+    per_shard_capacity,
+    rank_device,
+)
 from repro_torch.device import resolve_device
 
 
@@ -173,8 +182,8 @@ class CampaignSpec:
     UE axis the schedule's stable ids.  ``faults`` (a ``FaultSpec`` or its
     dict form) injects decision loss, expert corruption and telemetry loss
     on the batched, gated and closed-loop paths; ``FaultSpec()`` is bitwise
-    the same as ``None``.  ``topology`` is kept so the JSON form and hash
-    agree, but setting it raises until its slice is ported.
+    the same as ``None``.  ``topology`` (a ``TopologySpec`` or its dict
+    form) lays the campaign out as coupled cells over shards.
     """
 
     path: str = "batched"
@@ -191,15 +200,14 @@ class CampaignSpec:
     switch: SwitchSpec = dataclasses.field(default_factory=SwitchSpec)
     feature_names: tuple = SELECTED_KPMS
     rho: tuple | None = None
-    topology: Any = None
+    topology: TopologySpec | None = None
     churn: ChurnSchedule | None = None
     faults: FaultSpec | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "path", ExecutionPath.coerce(self.path).value)
-        if self.topology is not None:
-            raise NotImplementedError("CampaignSpec.topology is not ported yet "
-                                      "(ROADMAP, Queue 1: multi-cell topology)")
+        if self.topology is not None and not isinstance(self.topology, TopologySpec):
+            object.__setattr__(self, "topology", TopologySpec(**dict(self.topology)))
         if self.churn is not None and not isinstance(self.churn, ChurnSchedule):
             object.__setattr__(self, "churn", ChurnSchedule(**dict(self.churn)))
         if self.faults is not None and not isinstance(self.faults, FaultSpec):
@@ -241,6 +249,13 @@ class CampaignSpec:
             raise ValueError("gated execution is the batched path: the host loop "
                              "serves one UE and has no sub-batch to compact")
         device_paths = (ExecutionPath.BATCHED, ExecutionPath.GATED, ExecutionPath.CLOSED_LOOP)
+        if self.topology is not None:
+            if path is ExecutionPath.HOST:
+                raise ValueError("a sharded topology needs a batched path: the host loop "
+                                 "serves one UE on one device")
+            if self.n_ues % self.topology.n_cells:
+                raise ValueError(f"topology n_cells={self.topology.n_cells} does not divide "
+                                 f"n_ues={self.n_ues}")
         if self.churn is not None:
             if path not in device_paths:
                 raise ValueError(
@@ -252,7 +267,8 @@ class CampaignSpec:
                     "policy_assignment is bank-slot-indexed; a churn campaign re-packs "
                     "bank slots, so per-UE policy heterogeneity under churn is not "
                     "supported -- declare one shared policy")
-            self.churn.validate(self.n_slots, self.n_ues)
+            self.churn.validate(self.n_slots, self.n_ues,
+                                n_cells=1 if self.topology is None else self.topology.n_cells)
         if self.faults is not None and path not in device_paths:
             raise ValueError(
                 f"fault injection targets the device slot loop; path={self.path!r} has "
@@ -332,12 +348,10 @@ class ArchesSession:
     ``dapp`` is that run's ``DApp`` (its ``decisions`` carry the measured
     policy times).  A churn campaign's scenario is instantiated over the
     stable-id universe, so channel conditions follow the UE, not its bank
-    slot.
+    slot.  ``cell_topology`` is the resolved multi-cell layout (None: one
+    cell on one rank); under one, every rank of the group builds the same
+    session and runs its shard, and each returns the whole campaign.
     """
-
-    #: the multi-cell layout (None: one cell on one device; topology is a
-    #: later slice's)
-    cell_topology = None
 
     def __init__(self, spec: CampaignSpec, *, device: torch.device | str = "cuda",
                  ai_params: Any = None, host_policies: Sequence | None = None,
@@ -348,6 +362,10 @@ class ArchesSession:
         self.spec = spec
         self.path = spec.execution_path
         self.device = resolve_device(device)
+        self.cell_topology = (CellTopology.build(spec.topology, spec.n_ues)
+                              if spec.topology is not None else None)
+        if self.cell_topology is not None:
+            self.device = rank_device(self.device)
         self._validate()
         self.cfg = SlotConfig(n_prb=spec.n_prb)
         scenario = get_scenario(spec.scenario)
@@ -395,6 +413,32 @@ class ArchesSession:
             dataclasses.replace(spec.bank, execution_mode="gated")
             if path is ExecutionPath.GATED and bank_mode is ExecutionMode.CONCURRENT
             else spec.bank)
+        topo = self.cell_topology
+        if topo is not None:
+            if self._gated and self.bank_spec.gated_capacity is not None:
+                per_shard_capacity(self.bank_spec.gated_capacity, topo.n_shards)
+            declared_cells = spec.scenario_kwargs.get("n_cells")
+            if declared_cells is None:
+                # a cell-aware scenario not passed n_cells lays out its default
+                import inspect
+
+                p = inspect.signature(get_scenario(spec.scenario).factory).parameters.get(
+                    "n_cells")
+                if p is not None and p.default is not inspect.Parameter.empty:
+                    declared_cells = p.default
+            if declared_cells is not None and declared_cells != topo.n_cells:
+                raise ValueError(
+                    f"scenario lays out n_cells={declared_cells} but the topology lays out "
+                    f"{topo.n_cells} cells: one cell count per campaign (pass n_cells in "
+                    "scenario_args)")
+
+    @property
+    def _gated(self) -> bool:
+        return ExecutionMode.coerce(self.bank_spec.execution_mode) is ExecutionMode.GATED
+
+    @property
+    def _cells(self):
+        return None if self.cell_topology is None else self.cell_topology.cell_of_ue
 
     # -- compiled components ---------------------------------------------------
 
@@ -414,7 +458,14 @@ class ArchesSession:
                                           self.cfg, self.net)
         return self._ai_params
 
-    def _build_engine(self, gated_capacity: int | None):
+    def _engine_capacity(self, campaign_capacity: int | None) -> int | None:
+        """The engine's GATED capacity for a campaign-wide one: compaction is
+        shard-local, so under a topology it is the per-shard share."""
+        if campaign_capacity is None or self.cell_topology is None or not self._gated:
+            return campaign_capacity
+        return per_shard_capacity(campaign_capacity, self.cell_topology.n_shards)
+
+    def _build_engine(self, campaign_capacity: int | None):
         from repro_torch.phy.pipeline import BatchedPuschPipeline
 
         bank = self.bank_spec
@@ -422,7 +473,7 @@ class ArchesSession:
             self.cfg, self.ai_params, net=self.net,
             execution_mode=ExecutionMode.coerce(bank.execution_mode),
             use_pallas_switch=bank.use_pallas_switch,
-            gated_capacity=gated_capacity, fused_gated=bank.fused,
+            gated_capacity=self._engine_capacity(campaign_capacity), fused_gated=bank.fused,
             expert_dtype=bank.dtype, audit_nmse_threshold=bank.audit_nmse_threshold,
             device=self.device,
         )
@@ -588,9 +639,17 @@ class ArchesSession:
             demand_hist = BatchedRunHistory(
                 modes=modes.numpy(), kpms={}, outputs={},
                 attached=None if spec.churn is None else spec.churn.residency(spec.n_slots))
-        cap = max(suggest_gated_capacity(demand_hist), 1)  # one row at least
+        n_shards = 1 if self.cell_topology is None else self.cell_topology.n_shards
         if spec.churn is not None:
-            cap = min(cap, spec.n_ues)  # the id axis may be wider than the bank
+            # the demand lives on the stable-id axis, which need not split across
+            # bank shards: size from the resident demand, round up to an equal
+            # share a shard and clip to the bank
+            cap = suggest_gated_capacity(demand_hist)
+            cap = min(max(-(-cap // n_shards), 1) * n_shards, spec.n_ues)
+        else:
+            # compaction is shard-local: cover the worst shard's peak demand,
+            # one row a shard at least
+            cap = max(suggest_gated_capacity(demand_hist, n_shards=n_shards), n_shards)
         self._engine = self._build_engine(cap)
         if spec.churn is not None:
             return dataclasses.replace(self.run_streaming(), provisioned_capacity=cap)
@@ -634,15 +693,30 @@ class ArchesSession:
         spec = self.spec
         modes = normalize_modes(np.asarray(spec.modes, np.int32), spec.n_slots,
                                 spec.n_ues, self.device)
-        _, traj = self.engine.run(self.schedule, modes, n_slots=spec.n_slots,
-                                  n_ues=spec.n_ues,
-                                  key=jr.PRNGKey(spec.seed, self.device),
-                                  faults=spec.faults)
-        return BatchedRunHistory.from_trajectory(modes, traj,
+        key = jr.PRNGKey(spec.seed, self.device)
+        if self.cell_topology is not None:
+            from repro_torch.core.topology import run_sharded
+
+            _, traj = run_sharded(self.engine, self.cell_topology, self.schedule, modes,
+                                  n_slots=spec.n_slots, key=key, faults=spec.faults)
+        else:
+            _, traj = self.engine.run(self.schedule, modes, n_slots=spec.n_slots,
+                                      n_ues=spec.n_ues, key=key, faults=spec.faults)
+        return BatchedRunHistory.from_trajectory(modes, traj, cell_of_ue=self._cells,
                                                  provisioned_capacity=provisioned_capacity)
 
     def _run_closed_loop(self, provisioned_capacity: int | None = None) -> BatchedRunHistory:
         spec = self.spec
+        if self.cell_topology is not None:
+            from repro_torch.core.topology import run_closed_loop_sharded
+
+            _, final_switch, traj = run_closed_loop_sharded(
+                self.engine, self.cell_topology, self.schedule, self.device_policy,
+                spec.switch.to_config(spec.feature_names), n_slots=spec.n_slots,
+                key=jr.PRNGKey(spec.seed, self.device), faults=spec.faults)
+            return BatchedRunHistory.from_closed_loop(
+                traj, final_switch, cell_of_ue=self._cells,
+                provisioned_capacity=provisioned_capacity)
         runtime = ArchesRuntime.from_spec(spec, engine=self.engine,
                                           device_policy=self.device_policy)
         return runtime.run_batched(self.schedule, n_slots=spec.n_slots, n_ues=spec.n_ues,
@@ -671,8 +745,15 @@ class ArchesSession:
 
     def _run_perturbed(self) -> BatchedRunHistory:
         spec = self.spec
-        _, traj = self.engine.run_perturbed(self.schedule, spec.rho, n_slots=spec.n_slots,
-                                            key=jr.PRNGKey(spec.seed, self.device))
+        key = jr.PRNGKey(spec.seed, self.device)
+        if self.cell_topology is not None:
+            from repro_torch.core.topology import run_perturbed_sharded
+
+            _, traj = run_perturbed_sharded(self.engine, self.cell_topology, self.schedule,
+                                            spec.rho, n_slots=spec.n_slots, key=key)
+        else:
+            _, traj = self.engine.run_perturbed(self.schedule, spec.rho, n_slots=spec.n_slots,
+                                                key=key)
         # stage 1 is MMSE-only by construction: the mode grid is all-1
         modes = np.ones((spec.n_slots, spec.n_ues), np.int32)
-        return BatchedRunHistory.from_trajectory(modes, traj)
+        return BatchedRunHistory.from_trajectory(modes, traj, cell_of_ue=self._cells)

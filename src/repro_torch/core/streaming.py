@@ -45,7 +45,15 @@ O(capacity) carry, manifest-chained through
 replays the chain (anchored on a monolithic checkpoint where one starts
 it), bitwise the uninterrupted run.
 
-Multi-cell topology is a later slice's: a session with one raises.
+**Under a multi-cell topology** the bank is laid out in the topology's
+cells (the admission re-pack keeps each id in its home cell's block), each
+slot couples the cells through the channel, and the history carries each
+id's home cell.  With more than one shard each rank runs its block of bank
+slots; a shard's block must hold whole cell blocks, so no re-pack moves a
+UE across ranks.  After each segment the shards' trajectories and carries
+are gathered (one collective), and the segment is assembled on the main
+thread in order on every rank (``pipeline`` has no effect there), with
+every rank taking the same stop decision; only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -383,6 +391,23 @@ def _delta_ckpt_state(*, next_seg, spec_fp, t0, t1, occupant, link, sw, modes_fu
     return state
 
 
+def _concat_host(parts: list, axis: int):
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _concat_host([p[k] for p in parts], axis) for k in first}
+    return np.concatenate(parts, axis=axis)
+
+
+def _gather_bank(topo, local: dict | None) -> dict:
+    """The shards' host copies of a segment (``traj`` leaves ``(S, U_shard)``,
+    carry leaves ``(U_shard, ...)``), gathered into the whole bank's."""
+    from repro_torch.core.topology import all_gather_parts
+
+    parts = all_gather_parts(topo, local)
+    return {k: _concat_host([p[k] for p in parts], 1 if k == "traj" else 0)
+            for k in parts[0]}
+
+
 def _dir_bytes(directory: str) -> int:
     """Total payload bytes of one checkpoint directory."""
     return sum(os.path.getsize(os.path.join(directory, n)) for n in os.listdir(directory)
@@ -506,6 +531,7 @@ def run_streaming(session, *, checkpoint_dir: str | None = None,
     from repro_torch.core.runtime import BatchedRunHistory
     from repro_torch.core.session import ExecutionPath
     from repro_torch.core.telemetry import flatten_kpm_sources
+    from repro_torch.core.topology import agree_any
     from repro_torch.phy.pipeline import init_device_link, normalize_modes, resolve_schedule
 
     if checkpoint_format not in ("delta", "monolithic"):
@@ -518,16 +544,25 @@ def run_streaming(session, *, checkpoint_dir: str | None = None,
     path = spec.execution_path
     if path not in (ExecutionPath.BATCHED, ExecutionPath.GATED, ExecutionPath.CLOSED_LOOP):
         raise ValueError(f"streaming supports batched/gated/closed_loop, not {spec.path!r}")
-    if session.cell_topology is not None:
-        raise NotImplementedError("streaming under a multi-cell topology is not ported yet "
-                                  "(ROADMAP, Queue 1: multi-cell topology)")
     closed = path is ExecutionPath.CLOSED_LOOP
     capacity = spec.n_ues  # the bank's width
     n_ids, n_slots, seg = churn.n_ue_ids, spec.n_slots, churn.segment_slots
-    res = churn.validate(n_slots, capacity)
+    topo = session.cell_topology
+    n_cells = 1 if topo is None else topo.n_cells
+    res = churn.validate(n_slots, capacity, n_cells=n_cells)
+    home = None if topo is None else home_cells(n_ids, n_cells)
+    # more than one shard: this rank runs bank slots [lo, hi), whole cell blocks
+    multi = topo is not None and topo.n_shards > 1
+    if multi and n_cells % topo.n_shards:
+        raise ValueError(f"streaming over {topo.n_shards} shards needs whole cell blocks a "
+                         f"shard: n_cells={n_cells} is not a multiple of it")
+    runs = topo is None or topo.holds_ues
+    lo, hi = (0, capacity) if topo is None else topo.block() if runs else (0, 0)
+    writes = topo is None or topo.rank == 0
 
     engine = session.engine
     dev = engine.device
+    cells = topo.slot_cells(dev) if topo is not None and runs else None
     # fault masks live on the stable-id axis and follow their UE into slots
     faults = spec.faults
     rf = None if faults is None else faults.resolve(n_slots, n_ids)
@@ -543,11 +578,11 @@ def run_streaming(session, *, checkpoint_dir: str | None = None,
         modes_grid = normalize_modes(np.asarray(spec.modes, np.int32), n_slots, n_ids).numpy()
 
     def cold_switch():
-        return init_device_switch(capacity, len(sw_cfg.feature_names), sw_cfg, dev,
+        return init_device_switch(hi - lo, len(sw_cfg.feature_names), sw_cfg, dev,
                                   faults=faults)
 
     occupant = np.full(capacity, -1, np.int64)
-    link = init_device_link(capacity, dev)
+    link = init_device_link(hi - lo, dev)
     sw = cold_switch() if closed else None
 
     # whole-campaign accumulators on the stable-id axis
@@ -573,11 +608,15 @@ def run_streaming(session, *, checkpoint_dir: str | None = None,
     def restore_carry(saved):
         nonlocal occupant, link, sw
         occupant = np.asarray(saved["occupant"])
-        link = type(link)(**{k: v.to(dev) for k, v in saved["link"].items()})
+
+        def mine(v):  # the checkpoint holds the whole bank: this rank's block
+            return v[lo:hi].to(dev)
+
+        link = type(link)(**{k: mine(v) for k, v in saved["link"].items()})
         if closed:
             sw_saved = dict(saved["sw"])
-            rings = type(sw.rings)(**{k: v.to(dev) for k, v in sw_saved.pop("rings").items()})
-            sw = type(sw)(rings=rings, **{k: v.to(dev) for k, v in sw_saved.items()})
+            rings = type(sw.rings)(**{k: mine(v) for k, v in sw_saved.pop("rings").items()})
+            sw = type(sw)(rings=rings, **{k: mine(v) for k, v in sw_saved.items()})
 
     def check_fp(saved, step):
         saved_fp = (int(saved["meta"]["spec_fp_hi"]) << 32) | int(saved["meta"]["spec_fp_lo"])
@@ -627,7 +666,7 @@ def run_streaming(session, *, checkpoint_dir: str | None = None,
             restore_carry(d)
             if closed:
                 n_switches_id = d["n_switches_id"].numpy().copy()
-    if checkpoint_dir is not None:
+    if checkpoint_dir is not None and writes:
         # delta chains need every predecessor on disk; monolithic keeps 3
         mgr = CheckpointManager(checkpoint_dir, save_every=1,
                                 keep=None if checkpoint_format == "delta" else 3)
@@ -645,7 +684,7 @@ def run_streaming(session, *, checkpoint_dir: str | None = None,
     def full_history(attached):
         return BatchedRunHistory(modes=modes_full, kpms=kpms_full, outputs=outputs_full,
                                  decisions=decisions_full, n_switches=n_switches_id,
-                                 attached=attached, bank_slot=bank_slot_full)
+                                 cell_of_ue=home, attached=attached, bank_slot=bank_slot_full)
 
     def assemble_segment(item) -> bool:
         """Wait for one segment's copy, scatter it, checkpoint it, notify."""
@@ -653,7 +692,7 @@ def run_streaming(session, *, checkpoint_dir: str | None = None,
         t1 = t0 + seg
         ids_b, slots_b = item["ids_b"], item["slots_b"]
         t_a = time.perf_counter()
-        h = host_copy(item["device"], item["ready"])
+        h = item["host"] if "host" in item else host_copy(item["device"], item["ready"])
         t_b = time.perf_counter()
         st["wait_s"] += t_b - t_a
         traj = h["traj"]
@@ -704,7 +743,7 @@ def run_streaming(session, *, checkpoint_dir: str | None = None,
                     kpms={k: v[t0:t1] for k, v in kpms_full.items()},
                     outputs={k: v[t0:t1] for k, v in outputs_full.items()},
                     decisions=None if decisions_full is None else decisions_full[t0:t1],
-                    n_switches=n_switches_id, attached=res[t0:t1],
+                    n_switches=n_switches_id, cell_of_ue=home, attached=res[t0:t1],
                     bank_slot=bank_slot_full[t0:t1]),
             )))
         return False
@@ -728,6 +767,7 @@ def run_streaming(session, *, checkpoint_dir: str | None = None,
                 worker_error[0] = e
                 stop_event.set()
 
+    pipeline = pipeline and not multi
     worker = None
     if pipeline:
         worker = threading.Thread(target=assembly_worker, name="arches-streaming-assembly",
@@ -740,55 +780,73 @@ def run_streaming(session, *, checkpoint_dir: str | None = None,
             if stop_event.is_set():
                 break
             t_d = time.perf_counter()
-            new_occupant = repack_bank(occupant, res[t0])
+            new_occupant = repack_bank(occupant, res[t0], n_cells=n_cells)
             perm = gather_permutation(occupant, new_occupant)
-            link = gather_state_rows(link, perm, init_device_link(capacity, dev))
-            if closed:
-                sw = gather_state_rows(sw, perm, cold_switch())
-                nsw_base = sw.n_switches
+            # this rank's slots: a survivor's source slot lies in the same block
+            mine = perm[lo:hi]
+            mine = np.where(mine >= 0, mine - lo, -1)
+            if runs:
+                link = gather_state_rows(link, mine, init_device_link(hi - lo, dev))
+                if closed:
+                    sw = gather_state_rows(sw, mine, cold_switch())
+                    nsw_base = sw.n_switches
             occupant = new_occupant
             occ_c = np.maximum(occupant, 0)
             occupied = occupant >= 0
             slots_b = np.nonzero(occupied)[0]
             ids_b = occupant[slots_b]
-
-            occ_t = torch.as_tensor(occ_c, dtype=torch.int64, device=dev)
-            keys_seg = id_keys.index_select(0, occ_t)
-            params_seg = type(params)(*(
-                x[t0:t0 + seg].index_select(1, occ_t) if per_ue else x[t0:t0 + seg]
-                for x in params))
-            active = torch.as_tensor(occupied, device=dev)
-            fault_seg = None
-            if rf is not None:
-                # the kernels take contiguous rows; a column gather is Fortran-ordered
-                fault_seg = tuple(
-                    torch.as_tensor(np.ascontiguousarray(m[t0:t0 + seg][:, occ_c]), device=dev)
-                    for m in (rf.decision_valid, rf.corrupt, rf.telemetry_valid))
             modes_seg = None
-            if closed:
-                link, sw, traj = engine._run_closed(
-                    profile, sw_cfg, link, sw, keys_seg, params_seg, policy, seg, slot0=t0,
-                    active=active, faults=faults, fault_masks=fault_seg)
-            else:
+            if not closed:
                 modes_seg = np.ascontiguousarray(modes_grid[t0:t0 + seg][:, occ_c])
-                link, traj = engine._run_open(
-                    profile, link, keys_seg, torch.as_tensor(modes_seg, device=dev),
-                    params_seg, slot0=t0, active=active, faults=faults,
-                    corrupt=None if fault_seg is None else fault_seg[1])
-            device = {"traj": traj}
-            if closed:
-                device.update(nsw_base=nsw_base, nsw_after=sw.n_switches)
-            if mgr is not None:  # the carry, for the checkpoint
-                device["link"] = dict(link._asdict())
+
+            device = None
+            if runs:
+                occ_l = occ_c[lo:hi]
+                occ_t = torch.as_tensor(occ_l, dtype=torch.int64, device=dev)
+                keys_seg = id_keys.index_select(0, occ_t)
+                params_seg = type(params)(*(
+                    x[t0:t0 + seg].index_select(1, occ_t) if per_ue else x[t0:t0 + seg]
+                    for x in params))
+                active = torch.as_tensor(occupied[lo:hi], device=dev)
+                fault_seg = None
+                if rf is not None:
+                    # the kernels take contiguous rows; a column gather is Fortran-ordered
+                    fault_seg = tuple(
+                        torch.as_tensor(np.ascontiguousarray(m[t0:t0 + seg][:, occ_l]),
+                                        device=dev)
+                        for m in (rf.decision_valid, rf.corrupt, rf.telemetry_valid))
                 if closed:
-                    device["sw"] = _state_dict(sw)
+                    link, sw, traj = engine._run_closed(
+                        profile, sw_cfg, link, sw, keys_seg, params_seg, policy, seg,
+                        slot0=t0, active=active, faults=faults, fault_masks=fault_seg,
+                        cells=cells)
+                else:
+                    link, traj = engine._run_open(
+                        profile, link, keys_seg,
+                        torch.as_tensor(np.ascontiguousarray(modes_seg[:, lo:hi]), device=dev),
+                        params_seg, slot0=t0, active=active, faults=faults,
+                        corrupt=None if fault_seg is None else fault_seg[1], cells=cells)
+                device = {"traj": traj}
+                if closed:
+                    device.update(nsw_base=nsw_base, nsw_after=sw.n_switches)
+                if mgr is not None or multi:  # the carry, for the checkpoint
+                    device["link"] = dict(link._asdict())
+                    if closed:
+                        device["sw"] = _state_dict(sw)
             item = {"seg_idx": t0 // seg, "t0": t0, "device": device,
                     "ready": host_copy.mark(), "ids_b": ids_b, "slots_b": slots_b,
                     "occupant": occupant, "modes_seg": modes_seg}
+            if multi:
+                # the whole bank's segment on every rank, in one collective
+                local = None if device is None else host_copy(device, item["ready"])
+                item["host"] = _gather_bank(topo, local)
             st["dispatch_s"] += time.perf_counter() - t_d
             dispatched += 1
 
-            if pipeline:
+            if multi:
+                if agree_any(topo, assemble_segment(item)):
+                    break
+            elif pipeline:
                 while True:
                     try:
                         work_q.put(item, timeout=0.05)

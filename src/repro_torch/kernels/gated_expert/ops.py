@@ -12,7 +12,10 @@ input and writing complex64 (no sub-batch, no transposes, no real/imaginary
 split).  On a CPU tensor, or with ``backend="ref"``, the plain version
 ``gated_expert_apply_ref`` composes the gather, the folded-GEMM estimator and
 the plain scatter.  Either way the result is a new tensor and ``designated``
-keeps the fail-safe estimate.  The kernel takes any width: past the
+keeps the fail-safe estimate.  ``ai_expert_dense`` is the same launch with
+every UE selected (``idx = src = arange(U)``): the CONCURRENT bank's AI
+expert, whose every UE's estimate is then the same bits at any batch size
+and row, as a cuBLAS GEMM does not promise.  The kernel takes any width: past the
 channels whose stem and head weights fit a block's shared memory beside the
 staged slice (1,408 float32 channels at NR's widest carrier) the wide form's
 global-weight variant reads them from global memory.
@@ -75,7 +78,8 @@ def _launch(idx, src, h_ls, designated, ai, compute_dtype,
             global_weights: bool | None = None) -> torch.Tensor:
     """One launch.  ``global_weights`` picks the wide form's variant: None
     takes the staged one where its block fits the card, else the
-    global-weight one."""
+    global-weight one.  ``designated`` None: every UE is selected and the
+    kernel writes a new tensor in full."""
     folded = _folded(ai)
     n_ues, n_ant, n_sym, n_p = h_ls.shape
     channels = folded["stem_w"].shape[0] // folded["width"]
@@ -99,12 +103,16 @@ def _launch(idx, src, h_ls, designated, ai, compute_dtype,
     capacity = idx.shape[0]
     workspace = torch.empty(capacity * n_ant * ws_floats(n_sym, n_p, channels),
                             dtype=torch.float32, device=h_ls.device)
-    out = build.unfilled(torch.clone, designated)  # the kernel writes selected UEs over it
+    if designated is None:
+        out = build.unfilled(torch.empty, (n_ues, n_ant, 1, 2 * n_p, n_sym),
+                             dtype=torch.complex64, device=h_ls.device)
+    else:
+        out = build.unfilled(torch.clone, designated)  # the kernel writes selected UEs over it
     fn = build.function("gated_expert", "gated_expert_launch",
                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     build.check(fn(idx.data_ptr(), src.data_ptr(), h_ls.data_ptr(), out.data_ptr(),
                    w.data_ptr(), b.data_ptr(), workspace.data_ptr(), capacity, n_ant, n_sym,
-                   n_p, channels, n_res, bf16, int(global_weights), build.stream(designated)),
+                   n_p, channels, n_res, bf16, int(global_weights), build.stream(out)),
                 "gated_expert")
     build.launch_counts["gated_expert"] += 1
     return out
@@ -150,3 +158,38 @@ def gated_expert_apply(idx: torch.Tensor, src: torch.Tensor, h_ls: torch.Tensor,
     if not all(t.is_contiguous() for t in (idx, src, h_ls, designated)):
         raise ValueError("gated_expert kernel needs contiguous operands")
     return _launch(idx, src, h_ls, designated, ai, compute_dtype)
+
+
+_ALL_ROWS: dict = {}
+
+
+def _all_rows(n_ues: int, device: torch.device) -> torch.Tensor:
+    """``arange(n_ues)`` as int32 on ``device``, made once."""
+    key = (n_ues, device)
+    if key not in _ALL_ROWS:
+        _ALL_ROWS[key] = torch.arange(n_ues, dtype=torch.int32, device=device)
+    return _ALL_ROWS[key]
+
+
+def ai_expert_dense(h_ls: torch.Tensor, ai: AiEstimator | dict[str, Any], *,
+                    compute_dtype: torch.dtype | None = None,
+                    backend: str = "auto") -> torch.Tensor:
+    """The AI expert on every UE: ``(U, ant, S, Np)`` LS -> ``(U, ant, 1, 2 Np, S)``.
+
+    On a CUDA tensor one launch of the fused kernel with every UE selected
+    (``idx = src = arange(U)``), written into a new tensor in full.  Each
+    (row, antenna) chain runs on its own cluster in one fixed order, so a
+    UE's estimate is the same bits whatever the batch and its row.  On a CPU
+    tensor, or with ``backend="ref"``, the plain folded-GEMM form
+    (``ai_estimate_folded``).  ``compute_dtype`` as in ``gated_expert_apply``.
+    """
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown ai_expert_dense backend {backend!r}; one of {_BACKENDS}")
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype {compute_dtype}; None (float32) or torch.bfloat16")
+    if backend == "ref" or h_ls.device.type != "cuda":
+        return ai_estimate_folded(_folded(ai), h_ls, compute_dtype=compute_dtype)
+    if h_ls.dtype != torch.complex64 or not h_ls.is_contiguous():
+        raise ValueError(f"the kernel needs a contiguous complex64 LS input, got {h_ls.dtype}")
+    rows = _all_rows(h_ls.shape[0], h_ls.device)
+    return _launch(rows, rows, h_ls, None, ai, compute_dtype)

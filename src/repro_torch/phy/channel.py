@@ -27,6 +27,7 @@ import torch
 from repro_torch import random as jr
 from repro_torch.device import cached_const
 from repro_torch.phy.nr import SlotConfig
+from repro_torch.ue_reduce import ue_mean, ue_sum
 
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
@@ -133,14 +134,24 @@ def _freq_response(key: torch.Tensor, cfg: SlotConfig,
         steps.append(g)
     g_t = torch.stack(steps, dim=-1)  # (U, ant, l, T, sym)
     g_t = _scale(g_t, amps[:, None])
-    h = torch.einsum("st,ualtm->ualsm", steering, g_t)
-    return h.to(torch.complex64)
+    return _tap_sum(steering, g_t).to(torch.complex64)
+
+
+def _tap_sum(steering: torch.Tensor, g_t: torch.Tensor) -> torch.Tensor:
+    """``einsum("st,ualtm->ualsm")`` tap by tap in a fixed order: each UE's
+    response is the same bits in any batch (a GEMM's kernel, and its order,
+    follows the batch)."""
+    h = None
+    for t in range(steering.shape[1]):
+        term = steering[:, t, None] * g_t[..., t, None, :]
+        h = term if h is None else h + term
+    return h
 
 
 def _normalize_power(h: torch.Tensor) -> torch.Tensor:
     """Per-UE unit mean power: ``h / sqrt(mean |h|^2 + 1e-12)``."""
     axes = tuple(range(1, h.ndim))
-    p = _abs2(h).mean(dim=axes)
+    p = ue_mean(_abs2(h), axes)
     s = torch.sqrt(p + 1e-12).reshape((-1,) + (1,) * (h.ndim - 1))
     return _unscale(h, s)
 
@@ -235,6 +246,84 @@ def per_ue_params(p: ChannelParams, n_ues: int) -> ChannelParams:
     return ChannelParams(*out)
 
 
+# -- multi-cell coupling (the topology layer) -----------------------------------
+#
+# A campaign laid out as ``n_cells`` cells couples them through the channel: a
+# cell whose members see interference raises the noise floor of the other cells.
+# The per-cell load is a sum of exact {0, 1} counts, so its value does not depend
+# on how the UE axis is split into shards; across shards the partial counts are
+# summed by one collective a slot (``reduce``).
+
+
+class CellParams(NamedTuple):
+    """Per-cell channel offsets and inter-cell coupling (replicated on every shard).
+
+    ``noise_scale`` / ``inr_scale`` are linear per-cell multipliers of each
+    member UE's thermal noise / interference power; cell ``c``'s noise floor
+    is also multiplied by ``1 + coupling * mean load of the other cells``,
+    where a cell's load is the share of its UEs with interference on this
+    slot.  ``ues_per_cell`` is the global count, so shard-local code never
+    needs the campaign's UE count.
+    """
+
+    noise_scale: torch.Tensor  # (n_cells,) float32
+    inr_scale: torch.Tensor  # (n_cells,) float32
+    coupling: torch.Tensor  # () float32
+    ues_per_cell: torch.Tensor  # () float32
+
+    def to(self, device) -> "CellParams":
+        return CellParams(*(x.to(device) for x in self))
+
+
+def cell_params(n_cells: int, ues_per_cell: int, *, noise_offsets_db=(),
+                inr_offsets_db=(), coupling: float = 0.0,
+                device: torch.device | str = "cpu") -> CellParams:
+    """Lower per-cell dB offsets to ``CellParams`` (an empty tuple: no offset)."""
+    def lin(offs, noun):
+        if not len(offs):
+            return torch.ones(n_cells, dtype=torch.float32, device=device)
+        if len(offs) != n_cells:
+            raise ValueError(f"{noun} has {len(offs)} entries for n_cells={n_cells}")
+        return torch.as_tensor(
+            (10.0 ** (np.asarray(offs, np.float64) / 10.0)).astype(np.float32), device=device)
+
+    return CellParams(
+        noise_scale=lin(noise_offsets_db, "noise_offsets_db"),
+        inr_scale=lin(inr_offsets_db, "inr_offsets_db"),
+        coupling=torch.tensor(np.float32(coupling), device=device),
+        ues_per_cell=torch.tensor(np.float32(ues_per_cell), device=device),
+    )
+
+
+def apply_cell_coupling(p: ChannelParams, cell_of_ue: torch.Tensor, cells: CellParams, *,
+                        reduce=None) -> ChannelParams:
+    """Fold per-cell offsets and inter-cell leakage into one slot's per-UE params.
+
+    ``p`` has ``(U,)`` leaves (``per_ue_params``; under sharding the shard's
+    UEs) and ``cell_of_ue (U,)`` their global cell ids.  The load counts
+    are summed with ``index_add_`` (exact integers in float32, so any order
+    and any split of the UEs gives the same bits); ``reduce``, when given,
+    sums the shards' ``(n_cells,)`` partial counts (the slot's one
+    collective).  The rest follows the reference's float32 operations in
+    its order.
+    """
+    n_cells = cells.noise_scale.shape[0]
+    interf = p.interf_on.expand(cell_of_ue.shape).to(torch.float32)
+    load = torch.zeros(n_cells, dtype=torch.float32, device=interf.device)
+    load.index_add_(0, cell_of_ue.to(torch.int64), interf)
+    if reduce is not None:
+        load = reduce(load)
+    mean_load = load / cells.ues_per_cell
+    if n_cells > 1:
+        other = (mean_load.sum() - mean_load) / (n_cells - 1)
+    else:
+        other = torch.zeros_like(mean_load)
+    noise_mult = cells.noise_scale * (1.0 + cells.coupling * other)
+    idx = cell_of_ue.to(torch.int64)
+    return p._replace(noise_var=p.noise_var * noise_mult[idx],
+                      inr_lin=p.inr_lin * cells.inr_scale[idx])
+
+
 def simulate_slot_channel_traced(
     key: torch.Tensor, cfg: SlotConfig, profile: TdlProfile, p: ChannelParams
 ) -> dict[str, torch.Tensor]:
@@ -290,7 +379,7 @@ def apply_channel(key: torch.Tensor, tx_grid: torch.Tensor,
                   fields: dict[str, torch.Tensor]) -> torch.Tensor:
     """RX grid ``y = H x + interference + AWGN`` per UE:
     ``tx_grid (U, l, sc, sym)`` -> ``(U, ant, sc, sym)``."""
-    y = (fields["h"] * tx_grid[:, None]).sum(dim=2)
+    y = ue_sum(fields["h"] * tx_grid[:, None], 2)
     y = y + fields["interference"]
     noise = _complex_normal(key, tuple(y.shape[1:]))
     std = torch.sqrt(fields["noise_var"]).reshape(-1, 1, 1, 1)

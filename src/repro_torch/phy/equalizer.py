@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.device import cached_const
 from repro_torch.phy.nr import SlotConfig
+from repro_torch.ue_reduce import ue_sum
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,7 +31,17 @@ def time_interpolate(cfg: SlotConfig, h_dmrs: torch.Tensor) -> torch.Tensor:
     """``(..., n_sc, n_dmrs_sym)`` at the DMRS symbols -> ``(..., n_sc, n_sym)``."""
     w = cached_const(("time_weights", cfg, h_dmrs.dtype), h_dmrs.device,
                      lambda: torch.as_tensor(_time_weights(cfg)).to(h_dmrs.dtype))
-    return torch.einsum("...sd,md->...sm", h_dmrs, w)
+    return _symbol_sum(h_dmrs, w)
+
+
+def _symbol_sum(h_dmrs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("...sd,md->...sm")`` one DMRS symbol at a time, in order: the
+    same bits in any batch."""
+    out = None
+    for d in range(w.shape[1]):
+        term = h_dmrs[..., d, None] * w[:, d]
+        out = term if out is None else out + term
+    return out
 
 
 def mmse_equalize(
@@ -46,8 +57,8 @@ def mmse_equalize(
     layer-0 MRC/MMSE symbols and the nominal post-MRC SINR.
     """
     h = time_interpolate(cfg, h_est_dmrs)[:, :, 0]  # (U, ant, sc, sym)
-    num = (torch.conj(h) * rx_grid).sum(dim=1)
-    den = (torch.abs(h) ** 2).sum(dim=1)
+    num = ue_sum(torch.conj(h) * rx_grid, 1)
+    den = ue_sum(torch.abs(h) ** 2, 1)
     nv = noise_var.reshape(-1, 1, 1)
     d = den + nv
     x_hat = torch.complex(num.real / d, num.imag / d)

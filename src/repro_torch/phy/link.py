@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.phy.mcs import McsEntry
+from repro_torch.ue_reduce import ue_mean
 
 
 def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -37,7 +38,7 @@ def effective_mi_dynamic(sinr_data: torch.Tensor, qm: torch.Tensor) -> torch.Ten
     """Per-UE mean MI per symbol / qm; ``sinr_data (U, n)``, ``qm (U,)``."""
     qm_f = qm.to(torch.float32)
     mi = qam_mutual_information_dynamic(sinr_data, qm_f[:, None])
-    return mi.mean(dim=-1) / qm_f
+    return ue_mean(mi, -1) / qm_f
 
 
 def tb_success_dynamic(

@@ -20,7 +20,9 @@ synchronisation with the card, by design (link adaptation is host logic).
 
 ``BatchedPuschPipeline`` runs every UE of a slot at once (a leading UE axis
 replaces the reference's ``vmap``; a Python slot loop over device-resident
-tensors replaces its ``lax.scan``), with the folded-GEMM AI expert and the
+tensors replaces its ``lax.scan``), with the AI expert (on the card one
+``gated_expert`` launch with every UE selected, so each UE's estimate is
+the same bits whatever the batch; the folded GEMMs on the CPU) and the
 per-UE switch; under GATED the AI expert runs only on the UEs that select
 it, through ``switch_scatter`` or the fused ``gated_expert`` kernel.
 ``run`` is the open-loop campaign (a declared mode grid);
@@ -33,14 +35,17 @@ derivation matches the reference: UE ``u`` in slot ``s`` uses
 Under a ``FaultSpec`` the expert output is corrupted and screened each slot
 (``_corrupt_and_screen``) and the closed loop runs the degradation ladder;
 the streaming executor (``repro_torch.core.streaming``) runs segments of
-either loop with an ``active`` mask and a global first slot.  Multi-cell
-topology is left for a later slice.  There is one slot loop, so
-``use_scan`` has no effect.
+either loop with an ``active`` mask and a global first slot.  Under a
+multi-cell topology (``repro_torch.core.topology``) each slot folds the
+per-cell offsets and the inter-cell coupling into its channel, and each
+shard runs its block of UEs.  There is one slot loop, so ``use_scan`` has
+no effect.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
@@ -68,6 +73,7 @@ from repro_torch.phy.channel import (
     ChannelConfig,
     ChannelParams,
     TdlProfile,
+    apply_cell_coupling,
     apply_channel,
     channel_params_schedule,
     channel_params_ue_schedule,
@@ -91,6 +97,7 @@ from repro_torch.phy.mcs import (
     transport_block_size,
 )
 from repro_torch.phy.nr import SlotConfig
+from repro_torch.ue_reduce import ue_mean
 
 # MAC overheads (bytes) for the PHY->MAC KPM coupling
 _MAC_HEADER_BYTES = 3
@@ -454,6 +461,28 @@ class BatchedPuschPipeline:
         compute_dtype = torch.bfloat16 if expert_dtype == "bfloat16" else None
         params = _params_to(ai_params, dev)
         self.ai = AiEstimator(params, cfg.n_dmrs_sym, compute_dtype).to(dev)
+        ai_fn = lambda _p, h_ls: self.ai(h_ls)  # noqa: E731
+        #: how a bank that runs the AI expert on every UE runs it on the card
+        self.ai_route = None
+        if execution_mode is not ExecutionMode.GATED:
+            if hasattr(self.ai, "kernel_w"):
+                from repro_torch.kernels.gated_expert import ai_expert_dense
+
+                # one fused launch with every UE selected: each UE's estimate
+                # is the same bits at any batch and row (a GEMM's are not)
+                self.ai_route = "gated_expert"
+                backend = "auto" if use_pallas_switch else "ref"
+
+                def ai_fn(_p, h_ls):
+                    return ai_expert_dense(h_ls, self.ai, compute_dtype=compute_dtype,
+                                           backend=backend)
+            else:
+                self.ai_route = "folded GEMM"
+                if dev.type == "cuda":
+                    warnings.warn(
+                        "the AI expert's convolutions are not 3x3, which the fused "
+                        "gated_expert kernel takes: the bank runs it as folded GEMMs, "
+                        "whose bits per UE depend on the batch", stacklevel=2)
 
         gated_fused_apply = None
         if fused_gated:
@@ -466,8 +495,7 @@ class BatchedPuschPipeline:
 
         self.bank = ExpertBank(
             [
-                Expert(name="ai", fn=lambda _p, h_ls: self.ai(h_ls),
-                       params=ai_params, flops=net.flops(cfg)),
+                Expert(name="ai", fn=ai_fn, params=ai_params, flops=net.flops(cfg)),
                 Expert(name="mmse", fn=lambda _p, h_ls: self._mmse_from_ls_batched(h_ls),
                        params=None, flops=estimator_flops(cfg)),
             ],
@@ -528,8 +556,8 @@ class BatchedPuschPipeline:
         dd_errs, sig_pows = [], []
         for q in QM_VALUES:
             nearest = qam.nearest_point(data_hat, q)
-            dd_errs.append((torch.abs(data_hat - nearest) ** 2).mean(dim=-1))
-            sig_pows.append((torch.abs(nearest) ** 2).mean(dim=-1))
+            dd_errs.append(ue_mean(torch.abs(data_hat - nearest) ** 2, -1))
+            sig_pows.append(ue_mean(torch.abs(nearest) ** 2, -1))
         ues = torch.arange(n_ues, device=h_sel.device)
         dd_err = torch.stack(dd_errs)[pre["qm_idx"], ues]
         sig_pow = torch.stack(sig_pows)[pre["qm_idx"], ues]
@@ -538,7 +566,7 @@ class BatchedPuschPipeline:
         # genie per-RE SINR for the MIESM TB model, PRB-smoothed
         genie_err = torch.abs(data_hat - pre["syms"]) ** 2
         n = genie_err.shape[1] - genie_err.shape[1] % 12
-        smoothed = genie_err[:, :n].reshape(n_ues, -1, 12).mean(dim=-1)
+        smoothed = ue_mean(genie_err[:, :n].reshape(n_ues, -1, 12), -1)
         genie_sinr = 1.0 / torch.clamp(smoothed, min=1e-9)
 
         ok = tb_success_dynamic(genie_sinr, pre["qm"], pre["code_rate"], key=pre["k_crc"])
@@ -546,7 +574,7 @@ class BatchedPuschPipeline:
         tbs = pre["tbs"]
         slot_dur = cfg.slot_duration_s
         phy_bits = torch.where(ok, tbs / slot_dur, torch.zeros_like(tbs))
-        rsrp = (torch.abs(h_sel) ** 2).reshape(n_ues, -1).mean(dim=-1)
+        rsrp = ue_mean((torch.abs(h_sel) ** 2).reshape(n_ues, -1), -1)
 
         tb_bytes = tbs / 8.0
         mac_sdu_bytes = torch.clamp(tb_bytes - _MAC_HEADER_BYTES, min=0.0) * ok_f
@@ -633,7 +661,7 @@ class BatchedPuschPipeline:
     def _slot_core(self, profile: TdlProfile, link: DeviceLinkState,
                    modes: torch.Tensor, keys: torch.Tensor, p: ChannelParams,
                    rho: torch.Tensor | None = None, *, active: torch.Tensor | None = None,
-                   faults=None, corrupt: torch.Tensor | None = None):
+                   faults=None, corrupt: torch.Tensor | None = None, cells=None):
         """One slot for every UE.  With ``rho (U,)`` it is the methodology's
         stage 1 (paper Fig. 3): MMSE only, AWGN injected at node 2c at each
         UE's intensity, no switching and no AI in the loop.
@@ -643,7 +671,10 @@ class BatchedPuschPipeline:
         freezes and every output and KPM leaf is zero; an all-true mask
         leaves the slot bitwise as without it.  ``faults`` with ``corrupt
         (U,)`` injects expert-output corruption and runs the health screen
-        (``health_tripped``).  Multi-cell topology is a later slice's.
+        (``health_tripped``).  ``cells`` (``repro_torch.core.topology.
+        SlotCells``) folds the per-cell offsets and the inter-cell coupling
+        into the slot's channel; a detached lane's interference is off first,
+        so it adds nothing to its cell's load.
         """
         n_ues = keys.shape[0]
         if active is not None:
@@ -651,6 +682,11 @@ class BatchedPuschPipeline:
                                 torch.full_like(modes, self.bank.default_mode,
                                                 dtype=torch.int32))
         p = per_ue_params(p, n_ues)
+        if cells is not None:
+            if active is not None:
+                p = p._replace(interf_on=torch.where(active, p.interf_on,
+                                                     torch.zeros_like(p.interf_on)))
+            p = apply_cell_coupling(p, cells.cell_of_ue, cells.params, reduce=cells.reduce)
         pre = self._ue_pre(profile, p, link.reported_snr_db, link.olla_offset_db, keys)
         zeros = torch.zeros(n_ues, dtype=torch.int32, device=keys.device)
         overflow = audit_tripped = health_tripped = zeros
@@ -695,16 +731,16 @@ class BatchedPuschPipeline:
     # -- campaign drivers ------------------------------------------------------
 
     def _run_open(self, profile, link, ue_keys, modes, params, *, slot0: int = 0,
-                  active=None, faults=None, corrupt=None):
+                  active=None, faults=None, corrupt=None, cells=None):
         """The open loop over ``modes (S, U)``: slot ``s`` folds the global
-        slot index ``slot0 + s`` into every UE's key.  ``active``, ``faults``
-        and ``corrupt (S, U)`` as in ``_slot_core``."""
+        slot index ``slot0 + s`` into every UE's key.  ``active``, ``faults``,
+        ``corrupt (S, U)`` and ``cells`` as in ``_slot_core``."""
         outs = []
         for s in range(modes.shape[0]):
             link, out = self._slot_core(
                 profile, link, modes[s], jr.fold_in(ue_keys, slot0 + s), params.at(s),
                 active=active, faults=faults,
-                corrupt=None if corrupt is None else corrupt[s])
+                corrupt=None if corrupt is None else corrupt[s], cells=cells)
             outs.append(out)
         return link, _stack_tree(outs)
 
@@ -744,17 +780,23 @@ class BatchedPuschPipeline:
         n_ues = rho.shape[0]
         profile, params = resolve_schedule(self.cfg, schedule, n_slots, n_ues, dev)
         ue_keys = self._ue_keys(key, ue_keys, n_ues)
-        modes = torch.ones(n_ues, dtype=torch.int32, device=dev)  # MMSE-only stage
-        link = init_device_link(n_ues, dev)
+        return self._run_perturbed(profile, ue_keys, rho, params, n_slots)
+
+    def _run_perturbed(self, profile, ue_keys, rho, params, n_slots: int, *, cells=None):
+        """The stage-1 loop over ``n_slots`` slots from a cold link."""
+        n_ues = ue_keys.shape[0]
+        modes = torch.ones(n_ues, dtype=torch.int32, device=self.device)  # MMSE-only stage
+        link = init_device_link(n_ues, self.device)
         outs = []
         for s in range(n_slots):
             keys = jr.fold_in(ue_keys, s)
-            link, out = self._slot_core(profile, link, modes, keys, params.at(s), rho=rho)
+            link, out = self._slot_core(profile, link, modes, keys, params.at(s), rho=rho,
+                                        cells=cells)
             outs.append(out)
         return link, _stack_tree(outs)
 
     def _closed_step(self, profile, sw_cfg, policy, ue_keys, link, sw, slot_idx, p, *,
-                     active=None, faults=None, fault_s=None):
+                     active=None, faults=None, fault_s=None, cells=None):
         """One closed-loop slot: committed modes in, decision out.
 
         ``faults`` with ``fault_s`` (this slot's ``(decision_valid, corrupt,
@@ -782,7 +824,7 @@ class BatchedPuschPipeline:
             quarantined = torch.zeros_like(committed)
             exec_modes = committed
         link, out = self._slot_core(profile, link, exec_modes, keys, p, active=active,
-                                    faults=faults, corrupt=cor)
+                                    faults=faults, corrupt=cor, cells=cells)
         vecs = trajectory_kpm_matrix(out["kpms"], sw_cfg.feature_names)
         decide = sw_cfg.period_slots == 1 or slot_idx % sw_cfg.period_slots == 0
         if faults is not None:
@@ -799,7 +841,8 @@ class BatchedPuschPipeline:
         return link, new_sw, out
 
     def _run_closed(self, profile, sw_cfg, link, sw, ue_keys, params, policy, n_slots: int,
-                    *, slot0: int = 0, active=None, faults=None, fault_masks=None):
+                    *, slot0: int = 0, active=None, faults=None, fault_masks=None,
+                    cells=None):
         """The closed loop over ``n_slots`` slots from global slot ``slot0``:
         ``(final link, final switch state, trajectory)``.  ``fault_masks`` is
         the ``(decision_valid, corrupt, telemetry_valid)`` triple of ``(S, U)``
@@ -809,7 +852,7 @@ class BatchedPuschPipeline:
             fs = None if fault_masks is None else tuple(m[s] for m in fault_masks)
             link, sw, out = self._closed_step(profile, sw_cfg, policy, ue_keys, link, sw,
                                               slot0 + s, params.at(s), active=active,
-                                              faults=faults, fault_s=fs)
+                                              faults=faults, fault_s=fs, cells=cells)
             outs.append(out)
         return link, sw, _stack_tree(outs)
 

@@ -1,7 +1,6 @@
 """OTA experiment scenarios (paper 6, Figs. 7/9) + the scenario registry.
 
-A copy of ``repro.phy.scenario`` (numpy/Python only).  ``multi_cell`` needs
-the topology slice and raises here.
+A copy of ``repro.phy.scenario`` (numpy/Python only).
 
 The paper's two OTA operating points are ``good`` (LOS, no interference)
 and ``poor`` (same link + frequency-selective in-band UL interference from
@@ -33,8 +32,9 @@ Registered entries:
   interference stream, phase-shifted by ``(id * stagger) % period``, so a UE
   re-packed into another bank slot keeps its own burst phase (streaming
   campaigns).
-* ``multi_cell`` — registered under its reference name so specs resolve,
-  but it raises until the topology slice is ported.
+* ``multi_cell`` — ``n_cells`` cells, each running a named registered
+  homogeneous scenario over its contiguous block of UEs (the layout of
+  ``repro_torch.core.topology``).
 
 All registered scenarios share the ``INDOOR_LOS`` profile, so any mix of
 them is device-traceable in one scan (including per-UE mixes).
@@ -43,7 +43,7 @@ them is device-traceable in one scan (including per-UE mixes).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 from repro_torch.phy.channel import INDOOR_LOS, ChannelConfig
 
@@ -215,10 +215,32 @@ def _mixed_cell(
     return [bases[u % len(bases)] for u in range(n_ues)]
 
 
-def _multi_cell(n_ues: int, **kwargs) -> list:
-    """Per-cell composition needs the topology slice."""
-    raise NotImplementedError(
-        "scenario 'multi_cell' is not ported yet (ROADMAP, Queue 1: multi-cell topology)")
+def _multi_cell(n_ues: int, *, n_cells: int = 2,
+                per_cell_scenario: Sequence[str] = ("good", "poor")) -> list:
+    """Multi-cell campaign: cell ``c`` runs a named registered scenario.
+
+    ``per_cell_scenario`` names one homogeneous scenario per cell (cycled
+    when shorter than ``n_cells``) and every member UE follows its cell's
+    schedule.  UE ``u`` belongs to cell ``u // (n_ues / n_cells)``, the
+    layout of ``repro_torch.core.topology``.
+    """
+    if n_cells < 1:
+        raise ValueError(f"n_cells {n_cells} must be >= 1")
+    if n_ues % n_cells:
+        raise ValueError(f"n_cells={n_cells} does not divide n_ues={n_ues}: cells "
+                         "partition the UE axis into equal sub-batches")
+    names = tuple(per_cell_scenario)
+    if not names:
+        raise ValueError("per_cell_scenario names at least one scenario")
+    cell_schedules = []
+    for c in range(n_cells):
+        sc = get_scenario(names[c % len(names)])  # an unknown name raises KeyError
+        if sc.per_ue:
+            raise ValueError(f"per_cell_scenario entry {sc.name!r} is per-UE; each cell "
+                             "needs one homogeneous condition stream")
+        cell_schedules.append(sc.schedule())
+    ues_per_cell = n_ues // n_cells
+    return [cell_schedules[u // ues_per_cell] for u in range(n_ues)]
 
 
 def _churn_cell(n_ues: int, *, period: int = 12, burst_slots: int = 4,

@@ -143,7 +143,9 @@ def test_cuda_bank_outputs_stay_unswitched(cuda, fused):
     mode = torch.tensor([0, 1, 0, 0, 1, 0], dtype=torch.int32, device=cuda)
     conc = BatchedPuschPipeline(cfg, params, net=net, device=cuda)
     out = conc.bank(mode, h_ls)
-    assert torch.equal(out.all_outputs[0], conc.ai(h_ls))
+    # the AI expert computed alone, by the bank's own route on the card
+    # (one gated_expert launch with every UE selected)
+    assert torch.equal(out.all_outputs[0], conc.bank.experts[0].fn(None, h_ls))
     assert out.all_outputs[0].data_ptr() != out.selected.data_ptr()
     assert out.baseline.data_ptr() != out.selected.data_ptr()
     gated = BatchedPuschPipeline(cfg, params, net=net, execution_mode=ExecutionMode.GATED,

@@ -43,3 +43,16 @@ def test_no_source_names_jax_or_repro():
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     for f in files:
         assert not _imported_roots(f) & {"jax", "jaxlib", "repro"}, f
+
+
+def test_topology_and_service_modules_are_walked():
+    """The multi-cell topology and the campaign service are among the
+    modules the probe above imports without JAX."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.core.topology", "repro_torch.service", "repro_torch.service.service",
+            "repro_torch.service.api", "repro_torch.service.ring",
+            "repro_torch.service.exporters", "repro_torch.service.__main__"} <= names

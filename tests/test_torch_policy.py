@@ -181,22 +181,25 @@ def test_spec_hash_matches_reference():
 
 
 def test_unported_paths_raise():
-    """Topology and the ``multi_cell`` scenario still raise, naming their
-    ROADMAP item.  Faults and churn are ported: an unknown ``FaultSpec``
-    field raises the error type the reference raises, and the ``churn_cell``
-    scenario builds one schedule per UE id; the host and perturbed paths and
+    """Every campaign option of the reference's spec builds: an unknown
+    ``FaultSpec`` field raises the error type the reference raises; a
+    topology spec builds a ``TopologySpec`` and its session a one-shard
+    layout, and the ``multi_cell`` and ``churn_cell`` scenarios build one
+    schedule per UE (they run in tests/test_torch_topology.py and
+    tests/test_torch_streaming.py); the host and perturbed paths and
     SELECTED_ONLY banks build (they run in tests/test_torch_host_path.py and
     tests/test_torch_methodology.py)."""
     with pytest.raises(Exception) as ref_err:
         rses.CampaignSpec(faults={"decision_loss": 0.1})
     with pytest.raises(type(ref_err.value), match="decision_loss"):
         tses.CampaignSpec(faults={"decision_loss": 0.1})
-    with pytest.raises(NotImplementedError, match="multi-cell topology"):
-        tses.CampaignSpec(topology={"n_cells": 2})
+    from repro_torch.core.topology import TopologySpec
     from repro_torch.phy.scenario import get_scenario
 
-    with pytest.raises(NotImplementedError, match="multi-cell topology"):
-        get_scenario("multi_cell").schedule(n_ues=4)
+    spec = tses.CampaignSpec(topology={"n_cells": 2}, scenario="multi_cell")
+    assert spec.topology == TopologySpec(n_cells=2)
+    assert tses.ArchesSession(spec, device="cpu").cell_topology.n_shards == 1
+    assert len(get_scenario("multi_cell").schedule(n_ues=4)) == 4
     assert len(get_scenario("churn_cell").schedule(n_ues=5)) == 5
     for spec in (
             tses.CampaignSpec(path="host", n_ues=1, policies=(tses.PolicySpec(),)),
