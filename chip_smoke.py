@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port on one GPU: build, check and time every kernel,
 run the CONCURRENT and GATED closed-loop campaigns, a multi-cell campaign on
 one rank and on two ranks sharing the card, the campaign service, the host
-E3/dApp loop and the methodology's perturbation sweep at full width, and print
-a JSON verdict.
+E3/dApp loop and the methodology's perturbation sweep at full width, train
+the AI expert, serve granite-20b at its published width through the
+ARCHES-switched decoder, and print a JSON verdict.
 
 Usage (from the repository root, on a machine with an H100):
 
@@ -16,7 +17,8 @@ Phases, each of which raises on failure (exit code != 0):
 3. kernels: each kernel at its path's shapes against its plain
    PyTorch version (switches, scatter, tree and the fused decision phase
    ``policy_step`` bitwise, the per-UE switch and the scatter out of place
-   with their inputs untouched, ``mmse_interp``
+   with their inputs untouched, both switches also on the LM decoder's
+   (8, 49,152) bf16 logits, ``mmse_interp``
    within ``MMSE_TOL`` at the host loop's, the sweep's and the closed
    loop's row counts and at n_prb 24 and 273, with each error against a
    complex128 product beside the plain version's, bitwise the same twice
@@ -90,6 +92,21 @@ Phases, each of which raises on failure (exit code != 0):
 11. perturbed sweep: ``sensitivity_sweep_batched`` on that session's engine
    at n_prb 106 (the 21 default rhos x 8 trials = 168 UEs, 8 slots a trial),
    then the stage-2 filter and ``design_policy_inputs``;
+11b. train: ``train_ai_estimator`` at n_prb 106, 32 channels x 4 blocks,
+   200 steps of a mixture sampler on the port's PHY: the loss falls (also on
+   held-out samples), the gradient of one sample matches the CPU's within
+   ``TRAIN_GRAD_RTOL``, the first 3 steps match the CPU's within
+   ``TRAIN_LOSS_RTOL`` and ``TRAIN_WEIGHT_ATOL`` and themselves on the card
+   bitwise (deterministic algorithms), no kernel launches, the trained weights through the fused
+   ``gated_expert`` kernel match their plain folded form; ms a step;
+11c. serve: granite-20b at its published width (bf16), 4 of its 52
+   layers: the weight draw's time and peak memory; ``generate`` 16 steps,
+   ``SwitchedDecoder.step`` at modes 0, 1 and an (8,) vector and
+   ``generate_switched`` under a dApp, the scalar and per-UE switch kernels
+   launching on the bf16 logits, the selected rows the chosen expert's
+   bits, the given cache untouched; tokens/s and ms a switched step by
+   mode and expert; bf16 against float32 weights on the card; the reduced
+   config on the card against the CPU;
 12. reference: small CONCURRENT, GATED, host and perturbed campaigns on the
    card against the same campaigns run by the plain versions on the CPU;
 13. device alone: each kernel's and its yardstick's device time and
@@ -99,7 +116,10 @@ Phases, each of which raises on failure (exit code != 0):
 14. profile: one more run of each closed loop and of the host loop under
     ``torch.profiler``: the device's busy share, the launches per slot,
     the AI expert's device time per slot (on the fused GATED bank also
-    launch by launch, by the UEs each slot served), and kernel time by name.
+    launch by launch, by the UEs each slot served), and kernel time by name;
+    then one training step: the kernels cuDNN runs for the convolutions'
+    forward and backward under deterministic algorithms; then one decode
+    step and one switched step of the full-width decoder, by kernel.
 
 Each path's launch counts are zeroed just before its ``run()`` (or the
 sweep) and read just after it.
@@ -183,6 +203,30 @@ STREAM_IDS, STREAM_SEG, STREAM_SLOTS = 48, 8, 32
 TOPO_CELLS = ("good", "poor", "good_poor_good", "bursty_interference")
 TOPO_NOISE_DB, TOPO_COUPLING = (0.0, 3.0, 0.0, -3.0), 0.3
 TOPO_SLOTS, TOPO_RANKS = 24, 2
+#: AI-expert training on the card (the paper's n_prb 106, the estimator's
+#: default 32 channels x 4 blocks): steps, learning rate, and the first steps
+#: held against the CPU.  The tolerances of card against CPU: the same
+#: float32 convolutions reduced in another order (cuDNN against oneDNN).  The
+#: losses, on samples whose channel draws round differently on the two
+#: devices, read 3.6e-07 relative and the weights after 3 steps 7.87e-06
+#: (H100, run AL); one gradient on the same weights and sample is held per
+#: leaf as max |diff| / max |g|, the check that sees a gradient wrong in
+#: magnitude (AdamW's first steps are nearly lr * sign(g), so the weights
+#: and losses barely see one)
+TRAIN_STEPS, TRAIN_LR, TRAIN_CPU_STEPS = 200, 2e-3, 3
+TRAIN_LOSS_RTOL, TRAIN_WEIGHT_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4, 1e-4
+#: the LM serving phase: granite-20b at its published width; the depth is cut
+#: from 52 layers to SERVE_LAYERS (the weight draw's time and the script's
+#: limit), nothing else
+SERVE_ARCH, SERVE_LAYERS = "granite-20b", 4
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_SEQ, SERVE_WINDOW, SERVE_STEPS = 8, 128, 1024, 64, 16
+#: the reduced config on the card against the CPU: the CPU tests' float32
+#: tolerance against the reference (tests/test_torch_lm.py)
+LM_LOGIT_TOL = dict(rtol=1e-5, atol=2e-6)
+#: bf16 weights against float32 weights at full width on the card: the
+#: logits' relative L2 error (bf16 keeps 8 bits of mantissa, 2**-9 relative
+#: rounding a weight, through 4 layers of 6,144-wide sums)
+LM_BF16_REL = 0.05
 
 
 def sweep_ues() -> int:
@@ -1796,6 +1840,450 @@ def phase_service() -> None:
         f"{[np.round(np.asarray(p) / 1e6, 3).tolist() for p in per_cell]}")
 
 
+def phase_lm_switch_kernels() -> list[dict]:
+    """The two switch kernels on the LM decoder's logits at full width:
+    ``(SERVE_BATCH, 49,152)`` bf16, two experts.  The per-UE switch bitwise
+    against its plain version with its inputs untouched, the scalar switch
+    bitwise in place on modes 0 and 1; each timed in turns against its
+    yardstick (``torch.where`` out of place, ``copy_``)."""
+    from repro_torch.kernels.switch_select import (
+        switch_select,
+        switch_select_batched_ref,
+        switch_select_ref,
+    )
+    from repro_torch.models import get_config
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2020)
+    shape = (SERVE_BATCH, get_config(SERVE_ARCH).vocab)
+    des0, alt = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+    kept = (des0.clone(), alt.clone())
+    modes = (torch.arange(SERVE_BATCH, device=dev) % 2).to(torch.int32)
+    got = switch_select(modes, [des0, alt])
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16),
+                       switch_select_batched_ref(modes, [des0, alt]).view(torch.int16)):
+        raise AssertionError("bf16 per-UE switch differs from its plain version")
+    if not (torch.equal(des0, kept[0]) and torch.equal(alt, kept[1])):
+        raise AssertionError("bf16 per-UE switch wrote into an expert output")
+    for mode in (0, 1):
+        des = des0.clone()
+        out = switch_select(mode, [des, alt])
+        torch.cuda.synchronize()
+        want = switch_select_ref(mode, [des0, alt])
+        if out.data_ptr() != des.data_ptr() or not torch.equal(out.view(torch.int16),
+                                                                want.view(torch.int16)):
+            raise AssertionError(f"bf16 scalar switch differs from its plain version, "
+                                 f"mode {mode}")
+    n_bytes = des0.numel() * des0.element_size()
+    mask = (modes != 0).reshape(-1, 1)
+    ms_b, lib_b, reading_b = turns(lambda: switch_select(modes, [des0, alt]),
+                                   lambda: torch.where(mask, alt, des0), iters=200)
+    plain_b = time_ms(lambda: switch_select_batched_ref(modes, [des0, alt]), iters=200)
+    des = des0.clone()
+    ms_s, lib_s, reading_s = turns(lambda: switch_select(1, [des, alt]),
+                                   lambda: des.copy_(alt), iters=200)
+    plain_s = time_ms(lambda: switch_select_ref(1, [des0, alt]), iters=200)
+    device_alone("switch_select_batched, bf16 logits",
+                 lambda: switch_select(modes, [des0, alt]), "copy_rows_kernel")
+    device_alone("torch.where, bf16 logits", lambda: torch.where(mask, alt, des0), None)
+    device_alone("scalar switch, bf16 logits, copy", lambda: switch_select(1, [des, alt]),
+                 "switch_select_scalar")
+    device_alone("copy_ of the bf16 logits", lambda: des.copy_(alt), None)
+    # every row of the fresh output read once and written once, plus the modes;
+    # the scalar copy reads and writes the buffer once
+    bms_b, by_b = bound_ms(2.0 * n_bytes + 4 * SERVE_BATCH, 0.0)
+    bms_s, by_s = bound_ms(2.0 * n_bytes, 0.0)
+    log(f"kernel switch_select_batched at {shape} bf16 (the LM logits): bitwise, inputs "
+        f"untouched; call {reading_b} (torch.where); plain {plain_b * 1e3:.2f} us; bound "
+        f"{bms_b * 1e3:.3f} us by {by_b}")
+    log(f"kernel switch_select (scalar) at {shape} bf16: bitwise on modes 0 and 1, in "
+        f"place; copy {reading_s} (copy_); plain {plain_s * 1e3:.2f} us; bound "
+        f"{bms_s * 1e3:.3f} us by {by_s}")
+    common = dict(route="cuda", source="src/repro_torch/csrc/switch_select.cu",
+                  launches=0, max_abs_err=0.0)
+    return [
+        dict(name="switch_select_batched_bf16", counter="switch_select_batched",
+             replaces="src/repro/kernels/switch_select/switch_select.py:156",
+             ms=ms_b, plain_ms=plain_b, bound_ms=bms_b, bound_by=by_b, library_ms=lib_b,
+             shape=f"{shape} bf16 logits x 2 experts, out of place", **common),
+        dict(name="switch_select_bf16", counter="switch_select",
+             replaces="src/repro/kernels/switch_select/switch_select.py:62",
+             ms=ms_s, plain_ms=plain_s, bound_ms=bms_s, bound_by=by_s, library_ms=lib_s,
+             shape=f"{shape} bf16 logits, copy path", **common),
+    ]
+
+
+def train_sampler(cfg, dev):
+    """The training mixture of conditions on the port's PHY, for one device:
+    SNR uniform in 5-14 dB, in-band interference on half the draws (INR
+    12-26 dB) with the POOR scenario's pilot contamination; returns
+    ``sample(key) -> (LS at the pilots, the true channel at the DMRS
+    symbols)``.  The same mixture as the reference benchmark's sampler
+    (``benchmarks/common.py``), rebuilt here on ``repro_torch``."""
+    from repro_torch import random as jr
+    from repro_torch.phy import dmrs as D
+    from repro_torch.phy.channel import ChannelConfig, apply_channel, simulate_slot_channel
+    from repro_torch.phy.estimators import ls_estimate
+
+    pilots = D.dmrs_sequence(cfg, dev)
+    data = torch.zeros((1, cfg.n_data_re()), dtype=torch.complex64, device=dev)
+    grid = D.map_slot_grid(cfg, data, pilots)
+    dmrs_idx = torch.as_tensor(cfg.dmrs_symbols, device=dev)
+    # unit-amplitude template (snr 0 dB, inr 0 dB), rescaled per draw
+    ch = ChannelConfig(snr_db=0.0, interference=True, inr_db=0.0,
+                       interference_symbol_duty=3.0 / 14.0, dmrs_collision=True)
+
+    def sample(key):
+        k1, k2, k3 = jr.split(key, 3)
+        snr = jr.uniform(k3, (), 5.0, 14.0)
+        interf = jr.bernoulli(jr.fold_in(k3, 1), 0.5, ())
+        inr = jr.uniform(jr.fold_in(k3, 2), (), 12.0, 26.0)
+        fields = dict(simulate_slot_channel(k1, cfg, ch))
+        noise_var = torch.pow(10.0, -snr / 10.0)
+        amp = torch.where(interf, torch.sqrt(noise_var * torch.pow(10.0, inr / 10.0)), 0.0)
+        fields["noise_var"] = noise_var
+        fields["interference"] = fields["interference"] * amp
+        rx = apply_channel(k2[None], grid, {k: v[None] for k, v in fields.items()})[0]
+        return ls_estimate(cfg, rx, pilots), fields["h"].index_select(3, dmrs_idx)
+
+    return sample
+
+
+#: what the training phase leaves for its profile pass after the timed phases
+TRAINED: dict = {}
+
+
+def phase_train() -> None:
+    """``train_ai_estimator`` on the card at n_prb 106, 32 channels x 4 blocks,
+    ``TRAIN_STEPS`` steps of the mixture sampler: the loss must fall (the last
+    20 steps' mean below the first 20's); the first ``TRAIN_CPU_STEPS`` steps
+    against the same steps on the CPU (losses within ``TRAIN_LOSS_RTOL``, the
+    weights within ``TRAIN_WEIGHT_ATOL``) and against themselves on the card
+    under deterministic algorithms (bitwise); one gradient on the same
+    weights and sample against the CPU's (``TRAIN_GRAD_RTOL`` of each leaf's
+    largest component);
+    the trained weights through the fused ``gated_expert`` kernel
+    (``ai_expert_dense``) against their plain folded form.  The training path
+    reaches no hand-written kernel (the reference's training reaches no Pallas
+    kernel): the launch counts over the run must stay 0."""
+    from repro_torch import random as jr
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.kernels.gated_expert import ai_expert_dense
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    from repro_torch.phy import ai_estimator as tai
+    from repro_torch.phy.nr import SlotConfig
+
+    dev = resolve_device("cuda")
+    cpu = torch.device("cpu")
+    cfg = SlotConfig(n_prb=N_PRB)
+    net = tai.AiEstimatorConfig(channels=CHANNELS, n_res_blocks=N_RES)
+    samplers = {"cpu": train_sampler(cfg, cpu), "cuda": train_sampler(cfg, dev)}
+    short = {}
+    for label, d in (("cpu", cpu), ("cuda", dev), ("cuda again", dev)):
+        t0 = time.perf_counter()
+        short[label] = tai.train_ai_estimator(
+            jr.PRNGKey(0, d), cfg, samplers[label.split()[0]], net=net,
+            steps=TRAIN_CPU_STEPS, lr=TRAIN_LR, device=d)
+        log(f"train: {TRAIN_CPU_STEPS} steps on {label} in {time.perf_counter() - t0:.2f} s, "
+            f"losses {short[label][1]}")
+    (p_cpu, l_cpu), (p_gpu, l_gpu), (p_again, l_again) = (
+        short[k] for k in ("cpu", "cuda", "cuda again"))
+    if not np.allclose(l_gpu, l_cpu, rtol=TRAIN_LOSS_RTOL, atol=0.0):
+        raise AssertionError(f"train: card losses {l_gpu} vs CPU {l_cpu}")
+    w_gpu, w_cpu, w_again = (tree_leaves(p) for p in (p_gpu, p_cpu, p_again))
+    if l_gpu != l_again or not all(torch.equal(a, b) for a, b in zip(w_gpu, w_again)):
+        raise AssertionError("train: two card runs of the same steps differ under "
+                             "deterministic algorithms")
+    w_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(w_gpu, w_cpu))
+    # one gradient, card and CPU, on the same weights and the same (CPU-drawn) sample
+    p0 = tai.init_params(jr.split(jr.PRNGKey(0))[0], cfg, net)
+    h_ls, h_true = samplers["cpu"](jr.PRNGKey(7))
+    grads = {}
+    for label, d in (("cpu", cpu), ("cuda", dev)):
+        live = [w.to(d).requires_grad_(True) for w in tree_leaves(p0)]
+        tree = tree_unflatten(p0, live)
+        with torch.enable_grad():
+            loss = tai._loss(tree, h_ls.to(d), h_true.to(d))
+            grads[label] = [g.cpu() for g in torch.autograd.grad(loss, live)]
+    g_err = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(grads["cuda"], grads["cpu"]))
+    log(f"train: one gradient on the same weights and sample, card vs CPU: max |diff| / "
+        f"max |g| over the leaves {g_err:.3g} (limit {TRAIN_GRAD_RTOL}); weights after "
+        f"{TRAIN_CPU_STEPS} steps max |diff| {w_err:.3g} (limit {TRAIN_WEIGHT_ATOL})")
+    if not g_err <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train: card gradient {g_err:.3g} from the CPU's")
+    if not w_err <= TRAIN_WEIGHT_ATOL:
+        raise AssertionError(f"train: card weights {w_err:.3g} from the CPU's after "
+                             f"{TRAIN_CPU_STEPS} steps")
+    log(f"train: the first {TRAIN_CPU_STEPS} steps, card vs CPU: losses within "
+        f"{TRAIN_LOSS_RTOL} relative (max {max(abs(a - b) / b for a, b in zip(l_gpu, l_cpu)):.3g}), "
+        f"weights max |diff| {w_err:.3g}; card vs card bitwise (deterministic algorithms "
+        f"{torch.are_deterministic_algorithms_enabled()}, cudnn.deterministic "
+        f"{torch.backends.cudnn.deterministic}, cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32})")
+
+    sample = samplers["cuda"]
+    keys = jr.split(jr.PRNGKey(5, dev), 20)
+    sample_ms = time_ms(lambda: [sample(k) for k in keys], iters=1, warmup=1) / len(keys)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, losses = tai.train_ai_estimator(jr.PRNGKey(0, dev), cfg, sample, net=net,
+                                            steps=TRAIN_STEPS, lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    if any(launches.values()):
+        raise AssertionError(f"train: the training path launched a kernel: {launches}")
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"train: loss did not fall: first 20 {first}, last 20 {last}")
+    # held-out samples: the trained weights against the initial ones
+    held = [sample(k) for k in jr.split(jr.PRNGKey(99, dev), 8)]
+    init = tai.init_params(jr.split(jr.PRNGKey(0, dev))[0], cfg, net)
+    with torch.no_grad():
+        held_loss = {n: float(np.mean([float(tai._loss(p, h, t)) for h, t in held]))
+                     for n, p in (("init", init), ("trained", params))}
+    if not held_loss["trained"] < held_loss["init"]:
+        raise AssertionError(f"train: held-out loss did not fall: {held_loss}")
+    # the trained weights go straight into a session's AI expert: the fused kernel
+    ai = tai.AiEstimator(params, cfg.n_dmrs_sym)
+    h_ls = torch.stack([h for h, _ in held])
+    got = ai_expert_dense(h_ls, ai)
+    want = ai_expert_dense(h_ls, ai, backend="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **GATED_F32_TOL)
+    log(f"train: {TRAIN_STEPS} steps on the card at n_prb {N_PRB}, {CHANNELS} ch x {N_RES} "
+        f"blocks, lr {TRAIN_LR}: {train_s:.2f} s = {train_s / TRAIN_STEPS * 1e3:.2f} ms a step "
+        f"(the sampler alone {sample_ms:.2f} ms a sample); loss first-20 mean {first:.5f} -> "
+        f"last-20 mean {last:.5f} (first {losses[0]:.5f}, last {losses[-1]:.5f}); held-out "
+        f"loss init {held_loss['init']:.5f} -> trained {held_loss['trained']:.5f}; launches "
+        f"{launches}; trained weights through gated_expert (ai_expert_dense, 8 UEs) vs the "
+        f"plain folded form: max |err| {float((got - want).abs().max()):.3g}")
+    TRAINED.update(params=params, sample=sample, cfg=cfg, net=net)
+
+
+def phase_train_profile() -> None:
+    """One training step on the card under ``torch.profiler`` (after every
+    timed phase): the kernels the convolutions' forward and backward run
+    under deterministic algorithms, by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import random as jr
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.phy import ai_estimator as tai
+
+    params, sample = TRAINED["params"], TRAINED["sample"]
+    h_ls, h_true = sample(jr.PRNGKey(3, "cuda"))
+    cfg = AdamWConfig(learning_rate=TRAIN_LR)
+    state = adamw_init(params, cfg)
+    tai._train_step(params, state, h_ls, h_true, TRAIN_LR, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tai._train_step(params, state, h_ls, h_true, TRAIN_LR, cfg)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    log(f"train profile: one step, {sum(e.count for e in events)} kernel launches, "
+        f"{sum(e.self_device_time_total for e in events):.1f} us of device time")
+    for e in events:
+        name = e.key.lower()
+        if any(k in name for k in ("conv", "cudnn", "wgrad", "dgrad", "xmma", "implicit",
+                                   "winograd", "fft", "gemm", "sm90")):
+            log(f"  train kernel: {e.self_device_time_total:9.1f} us {e.count:4d} calls  "
+                f"{e.key[:150]}")
+
+
+#: what the serving phase leaves for its profile pass after the timed phases
+SERVED: dict = {}
+
+
+def phase_serve_profile() -> None:
+    """One plain decode step and one CONCURRENT switched step of the
+    full-width decoder under ``torch.profiler`` (after every timed phase):
+    device time against the wall, and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, dec, params, tok, cache = (SERVED[k] for k in
+                                      ("model", "dec", "params", "tok", "cache"))
+    for label, fn in (("decode_step", lambda: model.decode_step(params, tok, cache)),
+                      ("switched step, mode 0", lambda: dec.step(0, params, tok, cache))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+                        key=lambda e: e.self_device_time_total, reverse=True)
+        busy = sum(e.self_device_time_total for e in events)
+        log(f"serve profile, {label}: {sum(e.count for e in events)} kernel launches, "
+            f"{busy / 1e3:.3f} ms of device time in {wall * 1e3:.3f} ms wall (under the "
+            f"profiler)")
+        for e in events[:8]:
+            log(f"  serve kernel: {e.self_device_time_total:9.1f} us {e.count:4d} calls  "
+                f"{e.key[:120]}")
+
+
+def phase_serve() -> dict[str, int]:
+    """granite-20b at its published width (d_model 6,144, 48 heads, 1 KV head,
+    head_dim 128, d_ff 24,576, vocab 49,152, bf16), ``SERVE_LAYERS`` layers:
+    the weight draw (time, peak memory); then, with the launch counts zeroed
+    just before and read just after, ``ServingEngine.generate`` for
+    ``SERVE_STEPS`` steps, ``SwitchedDecoder.step`` with mode 0, mode 1 and a
+    ``(SERVE_BATCH,)`` mode vector, and ``generate_switched`` under a dApp:
+    the scalar and the per-UE switch kernels must each launch on the bf16
+    logits, and the selected rows must be the chosen expert's logits,
+    bitwise.  Then the bf16 weights against float32 ones on the card, the
+    reduced config on the card against the CPU, and the call times."""
+    from repro_torch import random as jr
+    from repro_torch.core.dapp import DApp
+    from repro_torch.core.expert_bank import ExecutionMode
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.models import Model, get_config
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serving import ServingEngine, SwitchedDecodeConfig, SwitchedDecoder
+
+    dev = resolve_device("cuda")
+    full = get_config(SERVE_ARCH)
+    cfg = full.with_(n_layers=SERVE_LAYERS)
+    model = Model(cfg)
+    log(f"serve: {full.name} at its published width (d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} KV head, head_dim {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}); cut: n_layers {full.n_layers} -> "
+        f"{SERVE_LAYERS} (the weight draw's time and the script's limit); "
+        f"{model.n_params() / 1e9:.3f} B params of the full model's "
+        f"{full.n_params() / 1e9:.3f} B")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(jr.PRNGKey(0, dev))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"serve: weight draw {draw_s:.2f} s, {w_bytes / 1e9:.3f} GB of bf16 weights, peak "
+        f"device memory of the draw {peak / 1e9:.3f} GB (threefry in chunks of "
+        f"2**24 elements)")
+
+    prompts = jr.randint(jr.PRNGKey(1, dev), (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab)
+    eng = ServingEngine(model, params, max_seq=SERVE_MAX_SEQ)
+    dec = SwitchedDecoder(model, SwitchedDecodeConfig(window=SERVE_WINDOW))
+    dapp = DApp(lambda x: 0 if x[0] > 1e-4 else 1, ["expert_kl"], window_slots=1)
+    eng.generate(prompts, 2)  # first calls (cuBLAS handles, allocator) outside the run
+    _, cache = model.prefill(params, prompts, model.init_cache(
+        SERVE_BATCH, SERVE_MAX_SEQ, dtype=torch.float32, device=dev))
+    kept = {k: v.clone() for k, v in cache.items()}
+    tok = prompts[:, -1:]
+    vec = (torch.arange(SERVE_BATCH, device=dev) % 2).to(torch.int32)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, SERVE_STEPS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    l0, _, k0 = dec.step(0, params, tok, cache)
+    l1, _, k1 = dec.step(1, params, tok, cache)
+    lv, new_cache, kv = dec.step(vec, params, tok, cache)
+    t0 = time.perf_counter()
+    switched = eng.generate_switched(prompts, SERVE_STEPS, decoder=dec, dapp=dapp)
+    torch.cuda.synchronize()
+    sw_s = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    if launches["switch_select"] == 0 or launches["switch_select_batched"] == 0:
+        raise AssertionError(f"serve: a switch kernel never launched: {launches}")
+    outs = [e.fn(None, params, tok, cache) for e in dec.bank.experts]
+    torch.cuda.synchronize()
+    if not all(torch.equal(cache[k], kept[k]) for k in kept):
+        raise AssertionError("serve: a switched step wrote the cache it was given")
+    rows_ok = (torch.equal(l0, outs[0]) and torch.equal(l1, outs[1])
+               and all(torch.equal(lv[b], outs[int(m)][b]) for b, m in enumerate(vec.tolist())))
+    if not rows_ok:
+        raise AssertionError("serve: the selected logits are not the chosen expert's, bitwise")
+    for name, x in (("generate", res.tokens), ("generate_switched", switched.tokens)):
+        if x.shape != (SERVE_BATCH, SERVE_STEPS) or not ((x >= 0) & (x < cfg.vocab)).all():
+            raise AssertionError(f"serve: {name} tokens {x.shape}")
+    if l0.dtype is not torch.bfloat16 or not bool(torch.isfinite(lv.float()).all()):
+        raise AssertionError(f"serve: logits {l0.dtype}, finite {torch.isfinite(lv).all()}")
+    log(f"serve: generate {SERVE_BATCH} x {SERVE_STEPS} tokens (prompt {SERVE_PROMPT}, "
+        f"max_seq {SERVE_MAX_SEQ}) in {gen_s:.3f} s = {SERVE_BATCH * SERVE_STEPS / gen_s:.1f} "
+        f"tokens/s with the prefill; switched steps at modes 0, 1, {vec.tolist()}: the "
+        f"selected rows are the chosen expert's bits, the given cache untouched; "
+        f"KPMs mode 0 {k0}; generate_switched {SERVE_STEPS} steps in {sw_s:.3f} s, modes "
+        f"{switched.history.modes.tolist()}; launches {launches}")
+
+    # call times: a plain decode step, the switched step (CONCURRENT: three decode
+    # steps, the switch and the KPMs) by mode, and SELECTED_ONLY by expert
+    sel = SwitchedDecoder(model, SwitchedDecodeConfig(
+        window=SERVE_WINDOW, execution_mode=ExecutionMode.SELECTED_ONLY))
+    times, reading = turns_of(
+        iters=10,
+        decode_step=lambda: model.decode_step(params, tok, cache),
+        concurrent_exact=lambda: dec.step(0, params, tok, cache),
+        concurrent_windowed=lambda: dec.step(1, params, tok, cache),
+        concurrent_vector=lambda: dec.step(vec, params, tok, cache),
+        selected_exact=lambda: sel.step(0, params, tok, cache),
+        selected_windowed=lambda: sel.step(1, params, tok, cache))
+    log(f"serve: ms a call, in turns: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f" ({reading}); decode tokens/s at batch {SERVE_BATCH}: "
+        f"{SERVE_BATCH / times['decode_step'] * 1e3:.1f} plain, "
+        f"{SERVE_BATCH / times['concurrent_exact'] * 1e3:.1f} switched")
+
+    # bf16 weights against float32 weights on the card: relative error and argmax
+    params32 = model.init(jr.PRNGKey(0, dev), dtype=torch.float32)
+    if not all(torch.equal(a, b.to(torch.bfloat16)) for a, b in
+               zip(tree_leaves(params), tree_leaves(params32))):
+        raise AssertionError("serve: the bf16 draw is not the float32 draw rounded")
+    cache32 = model.init_cache(SERVE_BATCH, SERVE_MAX_SEQ, dtype=torch.float32, device=dev)
+    l16 = model.prefill(params, prompts, cache32)[0].float()
+    l32 = model.prefill(params32, prompts, cache32)[0]
+    rel = float(torch.linalg.vector_norm(l16 - l32) / torch.linalg.vector_norm(l32))
+    err = float((l16 - l32).abs().max())
+    top2 = torch.topk(l32, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err  # rows whose argmax bf16 cannot flip
+    agree = l16.argmax(-1) == l32.argmax(-1)
+    del params32, cache32
+    torch.cuda.empty_cache()
+    if not rel <= LM_BF16_REL or not bool(agree[clear].all()):
+        raise AssertionError(f"serve: bf16 vs float32 logits: relative {rel}, argmax agree "
+                             f"{agree.tolist()} (clear {clear.tolist()})")
+    log(f"serve: bf16 vs float32 weights at full width (prefill logits): relative L2 error "
+        f"{rel:.4g} (limit {LM_BF16_REL}), max |err| {err:.4g}, argmax agreement "
+        f"{float(agree.float().mean()):.3f} ({int(clear.sum())} rows with a top-2 margin over "
+        f"2 x max |err|, all agreeing)")
+
+    # the reduced config on the card against the CPU (float32; plain switches there)
+    small = Model(get_config(SERVE_ARCH, reduced=True))
+    got = {}
+    for d in (torch.device("cpu"), dev):
+        p = small.init(jr.PRNGKey(0, d))
+        pr = jr.randint(jr.PRNGKey(1, d), (4, 12), 0, small.cfg.vocab)
+        sdec = SwitchedDecoder(small, SwitchedDecodeConfig(window=4))
+        logits, c = small.prefill(p, pr, small.init_cache(4, 32, dtype=torch.float32, device=d))
+        seq = [logits.cpu()]
+        t = pr[:, -1:]
+        for m in (0, 1, torch.tensor([0, 1, 1, 0], dtype=torch.int32)):
+            logits, c, _ = sdec.step(m, p, t, c)
+            t = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            seq.append(logits.cpu())
+        got[d.type] = seq
+    worst = 0.0
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b, **LM_LOGIT_TOL)
+        worst = max(worst, float((a - b).abs().max()))
+    log(f"serve: reduced {SERVE_ARCH} (float32) card vs CPU: prefill and 3 switched steps "
+        f"within {LM_LOGIT_TOL}, max |diff| {worst:.3g}")
+    SERVED.update(model=model, dec=dec, params=params, tok=tok, cache=cache)
+    return launches
+
+
 def phase_device_alone() -> None:
     """The kernels' and their yardsticks' device time alone, queued by the
     kernel phases, under ``torch.profiler``."""
@@ -1854,7 +2342,8 @@ def main() -> int:
     smi = phase_device()
     torch.use_deterministic_algorithms(True)
     phase_build()
-    rows = phase_kernels() + phase_gated_kernels() + [phase_scalar_switch()]
+    rows = (phase_kernels() + phase_gated_kernels() + [phase_scalar_switch()]
+            + phase_lm_switch_kernels())
     conc, conc_hist, launches = run_path(
         "main path CONCURRENT", _main_spec(),
         ("mmse_interp", "switch_select_batched", "tree_infer", "gated_expert"))
@@ -1893,10 +2382,14 @@ def main() -> int:
     phase_wide_width()
     host, host_launches = phase_host()
     phase_sweep(host)
+    phase_train()
+    serve_launches = phase_serve()
     for r in rows:
+        counter = r.pop("counter", r["name"])
         source = {"gated_expert": gated_launches, "switch_gather_batched": unf_launches,
-                  "switch_select": host_launches}.get(r["name"], launches)
-        r["launches"] = source[r["name"]]
+                  "switch_select": host_launches, "switch_select_batched_bf16": serve_launches,
+                  "switch_select_bf16": serve_launches}.get(r["name"], launches)
+        r["launches"] = source[counter]
         r.pop("shape")
     log(f"kernels held against their plain versions: {[r['name'] for r in rows]}")
     phase_gated_vs_concurrent(conc_hist, conc.host_policies)
@@ -1905,6 +2398,8 @@ def main() -> int:
     phase_profile(conc, "CONCURRENT", ("gated_expert",))
     phase_profile(gated, "GATED fused", ("gated_expert",), per_launch=True)
     phase_profile(host, "host loop", ("conv", "fprop", "cudnn"))
+    phase_train_profile()
+    phase_serve_profile()
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")

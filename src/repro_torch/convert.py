@@ -11,7 +11,13 @@ reference's arrays), so this module imports neither ``jax`` nor ``repro``:
   ``feature``/``threshold``/``leaf_values`` tables -> the port's host
   ``DecisionTreePolicy`` (pass it as ``ArchesSession(host_policies=...)``);
 * ``device_tree_policy`` -- the same tables -> a ``DeviceTreePolicy`` on a
-  device, for ``BatchedPuschPipeline.run_closed_loop``.
+  device, for ``BatchedPuschPipeline.run_closed_loop``;
+* ``lm_params_from_reference`` -- the side LM stack's param tree (nested
+  dicts of arrays, the stacked layer axis leading) -> the port's, dtype for
+  dtype (a bfloat16 leaf stays bfloat16).
+
+Trained AI-expert weights (``train_ai_estimator``'s result) carry over
+through ``ai_params_from_reference`` like initial ones.
 """
 
 from __future__ import annotations
@@ -38,6 +44,22 @@ def ai_params_from_reference(params: Any, device: torch.device | str = "cpu") ->
         **{k: _t(params[k], device) for k in _AI_KEYS},
         "res": [{k: _t(blk[k], device) for k in _RES_KEYS} for blk in params["res"]],
     }
+
+
+def _leaf(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own: exact via float32
+        return torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def lm_params_from_reference(params: Any, device: torch.device | str = "cpu") -> Any:
+    """The reference's LM param tree -> the port's (same structure and dtypes)."""
+    if isinstance(params, dict):
+        return {k: lm_params_from_reference(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(lm_params_from_reference(v, device) for v in params)
+    return _leaf(params, device)
 
 
 def tree_policy_from_reference(feature, threshold, leaf_values,

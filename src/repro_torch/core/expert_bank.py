@@ -71,12 +71,13 @@ class ExecutionMode(enum.Enum):
 @dataclasses.dataclass(frozen=True)
 class Expert:
     """One entry of the bank: ``fn(params, *inputs) -> tensor`` and its
-    static per-call (per UE-slot) cost in FLOPs."""
+    static per-call (per UE-slot) costs in FLOPs and device-memory bytes."""
 
     name: str
     fn: Callable[..., Any]
     params: Any = None
     flops: float = 0.0
+    bytes_hbm: float = 0.0
 
 
 def _batched_nmse(selected: torch.Tensor, baseline: torch.Tensor) -> torch.Tensor:
@@ -317,11 +318,6 @@ class ExpertBank:
 
     # -- cost model ---------------------------------------------------------------
 
-    def _flops(self, device) -> torch.Tensor:
-        flops = tuple(e.flops for e in self.experts)
-        return cached_const(("bank_flops",) + flops, device,
-                            lambda: np.asarray(flops, np.float32))
-
     def flops_for(self, mode: int | None = None) -> float:
         """FLOPs per call: every expert (CONCURRENT) or the selected one
         (SELECTED_ONLY)."""
@@ -335,12 +331,33 @@ class ExpertBank:
             raise ValueError("SELECTED_ONLY cost depends on the mode: pass it")
         return float(flops[mode])
 
-    def executed_flops(self, out: BankOutput) -> torch.Tensor:
-        """FLOPs this call executed: ``sum_e executed_ue[e] * flops[e]``."""
+    def bytes_for(self, mode: int | None = None) -> float:
+        """Device-memory bytes per call: every expert (CONCURRENT) or the
+        selected one (SELECTED_ONLY)."""
+        if self.execution_mode is ExecutionMode.CONCURRENT:
+            return float(sum(e.bytes_hbm for e in self.experts))
+        if self.execution_mode is ExecutionMode.GATED:
+            raise ValueError("GATED cost depends on the realized mode mix: use "
+                             "executed_bytes(out)")
+        if mode is None:
+            raise ValueError("SELECTED_ONLY cost depends on the mode: pass it")
+        return float(self.experts[mode].bytes_hbm)
+
+    def _executed(self, out: BankOutput, key: str, costs: tuple[float, ...]) -> torch.Tensor:
         if out.executed_ue is None:
             raise ValueError("BankOutput carries no executed_ue counts")
-        return (out.executed_ue.to(torch.float32)
-                * self._flops(out.executed_ue.device)).sum()
+        dev = out.executed_ue.device
+        per_expert = cached_const((key,) + costs, dev, lambda: np.asarray(costs, np.float32))
+        return (out.executed_ue.to(torch.float32) * per_expert).sum()
+
+    def executed_flops(self, out: BankOutput) -> torch.Tensor:
+        """FLOPs this call executed: ``sum_e executed_ue[e] * flops[e]``."""
+        return self._executed(out, "bank_flops", tuple(e.flops for e in self.experts))
+
+    def executed_bytes(self, out: BankOutput) -> torch.Tensor:
+        """Device-memory bytes this call moved: ``sum_e executed_ue[e] *
+        bytes_hbm[e]``."""
+        return self._executed(out, "bank_bytes", tuple(e.bytes_hbm for e in self.experts))
 
     def provisioned_flops(self, n_ues: int) -> float:
         """Per-slot FLOPs the hardware is provisioned for: the GATED sub-batch

@@ -29,6 +29,12 @@ sub-batch when ``src[u] >= 0`` and keeps its designated (fail-safe) slice
 otherwise.  On a CUDA tensor the kernel's second entry point writes a new
 tensor; on a CPU tensor, or with ``backend="ref"``, the plain version
 ``switch_gather_batched_ref`` does.  Neither touches its inputs.
+
+The kernels only move bytes, so, like the reference's switch, they take any
+real element type of 2, 4 or 8 bytes (bfloat16 and float16 logits of the LM
+decoder, float32, int32, float64, int64) and complex64; a wrapper passes
+byte counts, always even.  The plain versions are dtype-generic PyTorch and
+return the same bits.
 """
 
 from __future__ import annotations
@@ -67,20 +73,20 @@ def switch_gather_batched_ref(src: torch.Tensor, compact: torch.Tensor,
     return torch.where(keep, designated, taken)
 
 
-def _floats(x: torch.Tensor) -> int:
-    """Float32 count of a switch leaf.  The kernels read a complex64 leaf as
-    float pairs through its own ``data_ptr()``, so no real view is made."""
+def _nbytes(x: torch.Tensor) -> int:
+    """Bytes of a switch leaf: any real dtype of 2, 4 or 8 bytes (bfloat16,
+    float16, float32, int32, float64, int64, ...), as the reference's switch
+    passes every real dtype through, or complex64, which the kernels read
+    through its own ``data_ptr()`` (no real view is made)."""
     dt = x.dtype
-    if dt is torch.complex64:
-        n = 2 * x.numel()
-    elif dt is torch.float32:
-        n = x.numel()
-    elif x.is_complex():
-        raise TypeError(f"complex leaves must be complex64, got {dt}")
-    else:
-        raise TypeError(f"switch leaves must be float32/complex64, got {dt}")
+    if x.is_complex():
+        if dt is not torch.complex64:
+            raise TypeError(f"complex leaves must be complex64, got {dt}")
+    elif dt is torch.bool or x.element_size() not in (2, 4, 8):
+        raise TypeError(f"switch leaves take 2-, 4- or 8-byte real elements or "
+                        f"complex64, got {dt}")
     _check_resolved(x)
-    return n
+    return x.numel() * x.element_size()
 
 
 def _check_resolved(x: torch.Tensor) -> None:
@@ -110,15 +116,15 @@ def _check_contiguous(alternatives: Sequence[torch.Tensor]) -> None:
 #: the most experts one launch of the per-UE switch takes (the kernel's table)
 MAX_EXPERTS = 8
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: (modes, expert pointer array, experts, out, n_ues, floats per UE, stream)
+#: (modes, expert pointer array, experts, out, n_ues, bytes per UE, stream)
 _SELECT_ARGS = (_P, ctypes.POINTER(_P), _I, _P, _I, _L, _P)
-#: (src, compact, designated, out, n_ues, floats per UE, capacity, stream)
+#: (src, compact, designated, out, n_ues, bytes per UE, capacity, stream)
 _GATHER_ARGS = (_P, _P, _P, _P, _I, _L, _I, _P)
-#: (mode pointer or None, mode value, alternative, designated, floats, wanted mode,
-#: stream)
+#: (mode pointer or None, mode value, alternative, designated, bytes, wanted
+#: mode, stream)
 _SCALAR_ARGS = (_P, _I, _P, _P, _L, _I, _P)
 #: per-UE switch signatures already validated: (experts, shape, dtype, device
-#: index) -> (floats per UE, the ctypes pointer-array type)
+#: index) -> (bytes per UE, the ctypes pointer-array type)
 _SIGNATURES: dict[tuple, tuple[int, type]] = {}
 
 
@@ -167,7 +173,7 @@ def switch_select(mode: int | torch.Tensor,
         return switch_select_ref(mode, outputs)
     if on_card and mode.dtype is not torch.int32:
         raise TypeError(f"a mode on the card must be int32, got {mode.dtype}")
-    n = _floats(designated)
+    n_bytes = _nbytes(designated)
     if not designated.is_contiguous():
         raise ValueError("switch kernel needs a contiguous designated buffer")
     _check_contiguous(alternatives)
@@ -175,7 +181,7 @@ def switch_select(mode: int | torch.Tensor,
     mode_ptr, mode_value = (mode.data_ptr(), 0) if on_card else (None, mode)
     des, stream = designated.data_ptr(), build.stream(designated)
     for k, a in enumerate(alternatives, 1):
-        build.check(fn(mode_ptr, mode_value, a.data_ptr(), des, n, k, stream),
+        build.check(fn(mode_ptr, mode_value, a.data_ptr(), des, n_bytes, k, stream),
                     "switch_select_scalar")
         build.launch_counts["switch_select"] += 1
     return designated
@@ -201,9 +207,8 @@ def _switch_batched(modes: torch.Tensor, outputs: Sequence[torch.Tensor]) -> tor
         if len(outputs) > MAX_EXPERTS:
             raise ValueError(f"the per-UE switch takes at most {MAX_EXPERTS} experts, "
                              f"not {len(outputs)}")
-        n = _floats(des)
-        known = _SIGNATURES[sig] = (n // max(shape[0], 1), _P * len(outputs))
-    per_ue, table = known
+        known = _SIGNATURES[sig] = (_nbytes(des) // max(shape[0], 1), _P * len(outputs))
+    row_bytes, table = known
     if modes.dtype is not torch.int32 or not modes.is_contiguous():
         raise TypeError(f"modes must be contiguous int32, got {modes.dtype}")
     for a in outputs:  # what each call's tensors must match
@@ -218,14 +223,14 @@ def _switch_batched(modes: torch.Tensor, outputs: Sequence[torch.Tensor]) -> tor
     out = build.unfilled(torch.empty_like, des)
     fn = build.function("switch_select", "switch_select_launch", _SELECT_ARGS)
     build.check(fn(modes.data_ptr(), table(*[a.data_ptr() for a in outputs]), len(outputs),
-                   out.data_ptr(), shape[0], per_ue, build.stream(des)), "switch_select")
+                   out.data_ptr(), shape[0], row_bytes, build.stream(des)), "switch_select")
     build.launch_counts["switch_select_batched"] += 1
     return out
 
 
 _BACKENDS = ("auto", "pallas", "cuda", "ref")
 #: scatter signatures already validated: (src shape, compact shape, designated
-#: shape, dtype, device) -> (floats per UE, the kernel's ctypes function)
+#: shape, dtype, device) -> (bytes per UE, the kernel's ctypes function)
 _SCATTER_SIGNATURES: dict[tuple, tuple[int, ctypes._CFuncPtr]] = {}
 
 
@@ -244,7 +249,7 @@ def _check_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.T
 
 def _scatter_plan(src: torch.Tensor, compact: torch.Tensor, designated: torch.Tensor,
                   resolve=None) -> tuple[int, ctypes._CFuncPtr]:
-    """The kernel's floats per UE and its function, for tensors it may take.
+    """The kernel's bytes per UE and function, for tensors it may take.
 
     What the signature alone decides (shapes, capacity, dtype, device) is
     checked once, when the signature is first seen, and ``resolve()`` then
@@ -258,8 +263,7 @@ def _scatter_plan(src: torch.Tensor, compact: torch.Tensor, designated: torch.Te
     known = _SCATTER_SIGNATURES.get(sig)
     if known is None:
         _check_scatter(src, compact, designated)
-        n_ues = designated.shape[0]
-        known = _SCATTER_SIGNATURES[sig] = (_floats(designated) // max(n_ues, 1),
+        known = _SCATTER_SIGNATURES[sig] = (_nbytes(designated) // max(designated.shape[0], 1),
                                             resolve() if resolve else None)
     if src.dtype is not torch.int32:
         raise TypeError(f"src must be int32, got {src.dtype}")
@@ -297,11 +301,12 @@ def switch_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.T
     if backend == "ref" or not designated.is_cuda:
         _check_scatter(src, compact, designated)
         return switch_gather_batched_ref(src, compact, designated)
-    per_ue, fn = _scatter_plan(src, compact, designated, lambda: build.function(
+    row_bytes, fn = _scatter_plan(src, compact, designated, lambda: build.function(
         "switch_select", "switch_gather_launch", _GATHER_ARGS))
     out = build.unfilled(torch.empty_like, designated)
     build.check(fn(src.data_ptr(), compact.data_ptr(), designated.data_ptr(), out.data_ptr(),
-                   designated.shape[0], per_ue, compact.shape[0], build.stream(designated)),
+                   designated.shape[0], row_bytes, compact.shape[0],
+                   build.stream(designated)),
                 "switch_gather")
     build.launch_counts["switch_gather_batched"] += 1
     return out

@@ -1,4 +1,5 @@
-"""Expert B: the residual-CNN channel estimator, inference only (paper 5.2).
+"""Expert B: the residual-CNN channel estimator (paper 5.2): inference and
+its in-framework training.
 
 Two forms, as in ``repro.phy.ai_estimator``:
 
@@ -20,7 +21,14 @@ contract: a product of two bf16 values is exact in float32, so the port
 upcasts the rounded operands and runs the float32 GEMM.
 
 Structure: naive comb-2 baseline + stem conv + R residual blocks + 2x
-sub-pixel up-projection + head conv.  Training waits for a later slice.
+sub-pixel up-projection + head conv.
+
+Training (``train_ai_estimator``) runs the eager form under
+``torch.autograd`` with the port's AdamW (``repro_torch.optim``), on the
+card unless ``device="cpu"`` is given: the reference's training reaches no Pallas kernel either (it
+differentiates ``lax.conv_general_dilated`` through XLA), so the
+convolutions' backward is PyTorch's.  The trained weight dict feeds
+``fold_ai_params`` / ``AiEstimator`` as it is.
 
 ``kernel_operands`` packs the same weights in the layout the fused GATED
 kernel (``csrc/gated_expert.cu``) reads; ``AiEstimator`` keeps that pack,
@@ -32,11 +40,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import random as jr
+from repro_torch.device import resolve_device
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
 from repro_torch.phy.nr import SlotConfig
 
 
@@ -136,6 +148,82 @@ def ai_estimate_from_ls(params: dict[str, Any], h_ls: torch.Tensor) -> torch.Ten
     x = torch.stack([h_ls.real, h_ls.imag], dim=1).to(torch.float32).transpose(-1, -2)
     out = _forward_one_antenna(params, x)  # (ant, 2, n_sc, sym)
     return torch.complex(out[:, 0], out[:, 1])[:, None]
+
+
+# -- in-framework training ---------------------------------------------------------
+
+
+def _loss(params: dict[str, Any], h_ls: torch.Tensor, h_true: torch.Tensor) -> torch.Tensor:
+    """Task-aligned loss: the estimator's post-MRC EVM contribution.
+
+    The MRC combiner cancels estimation error parallel to the channel vector
+    and is hurt by the component that rotates the combining direction, so
+    the symbol error an estimate contributes at RE (sc, sym) is, to first
+    order, ``|sum_a conj(delta_a) h_a|^2 / (sum_a |h_a|^2)^2``; a small
+    plain-MSE anchor keeps early training stable.  Where the antenna sum is
+    0 exactly, ``abs``'s gradient is 0 in both frameworks.
+    """
+    pred = ai_estimate_from_ls(params, h_ls)
+    err = pred - h_true  # (ant, 1, sc, sym)
+    num = torch.abs(torch.sum(torch.conj(err) * h_true, dim=0)) ** 2  # (1, sc, sym)
+    den = torch.sum(torch.abs(h_true) ** 2, dim=0) + 1e-3
+    e2e = torch.mean(num / den ** 2)
+    mse = torch.mean(err.real ** 2 + err.imag ** 2)
+    return e2e + 0.1 * mse
+
+
+def _train_step(params: dict[str, Any], opt_state, h_ls: torch.Tensor,
+                h_true: torch.Tensor, lr: float, opt_cfg: AdamWConfig):
+    """One AdamW step on ``_loss``'s gradient: ``(params, opt_state, loss)``."""
+    with torch.enable_grad():
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = _loss(live, h_ls, h_true)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    g_tree = tree_unflatten(live, grads)
+    params, opt_state = adamw_update(g_tree, opt_state, params, opt_cfg, learning_rate=lr)
+    return params, opt_state, loss.detach()
+
+
+def train_ai_estimator(
+    key: torch.Tensor,
+    cfg: SlotConfig,
+    sample_fn,
+    *,
+    net: AiEstimatorConfig = AiEstimatorConfig(),
+    steps: int = 600,
+    lr: float = 1e-3,
+    lr_final_frac: float = 0.05,
+    device: torch.device | str = "cuda",
+) -> tuple[dict[str, Any], list[float]]:
+    """Train Expert B on simulated slots (AdamW + cosine decay) on
+    ``device``, through ``resolve_device``: the card by default, which
+    raises where there is none, and the host only for ``device="cpu"``.
+    ``key`` is moved there, so every key ``sample_fn`` receives and every
+    weight lives on ``device``.
+
+    ``sample_fn(key) -> (h_ls, h_true_at_dmrs)`` takes a port key and returns
+    shapes ``(n_ant, n_dmrs_sym, n_pilot_sc)`` and ``(n_ant, 1, n_sc,
+    n_dmrs_sym)``.  The keys are split as the reference splits them
+    (``k_init, k_data = split(key)``, then one ``split(k_data)`` a step), and
+    the cosine learning rate is computed on the host in float64 and enters
+    the step as a float, as the reference passes it.  Returns the trained
+    weight dict and the per-step losses.
+    """
+    k_init, k_data = jr.split(key.to(resolve_device(device)))
+    params = init_params(k_init, cfg, net)
+    opt_cfg = AdamWConfig(learning_rate=lr, weight_decay=0.0)
+    opt_state = adamw_init(params, opt_cfg)
+    losses = []
+    for i in range(steps):
+        k_data, k = jr.split(k_data)
+        h_ls, h_true = sample_fn(k)
+        frac = i / max(steps - 1, 1)
+        cur_lr = lr * (lr_final_frac + (1 - lr_final_frac) * 0.5 * (
+            1 + np.cos(np.pi * frac)))
+        params, opt_state, loss = _train_step(params, opt_state, h_ls, h_true,
+                                              float(cur_lr), opt_cfg)
+        losses.append(float(loss))
+    return params, losses
 
 
 # -- batched path (slot engine) ---------------------------------------------------

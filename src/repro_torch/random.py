@@ -98,12 +98,17 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
-def bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+def bits(key: torch.Tensor, shape: tuple[int, ...], *, offset: int = 0) -> torch.Tensor:
     """32 random bits per element: ``(..., 2)`` keys -> ``(..., *shape)``
-    ``int64`` values in ``[0, 2**32)`` (``jax.random.bits``)."""
+    ``int64`` values in ``[0, 2**32)`` (``jax.random.bits``).
+
+    An element's bits depend only on the key and its flat index, so
+    ``offset`` draws the flat elements ``[offset, offset + prod(shape))`` of
+    a larger draw: a big tensor can be drawn in chunks with its bits."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=key.device).reshape(shape)
     k1, k2 = _words(key, len(shape))
     b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
     return b1 ^ b2
@@ -114,9 +119,12 @@ def uniform(
     shape: tuple[int, ...] = (),
     minval: float = 0.0,
     maxval: float = 1.0,
+    *,
+    offset: int = 0,
 ) -> torch.Tensor:
-    """float32 uniforms on ``[minval, maxval)`` (``jax.random.uniform``)."""
-    b = bits(key, shape)
+    """float32 uniforms on ``[minval, maxval)`` (``jax.random.uniform``);
+    ``offset`` as in ``bits``."""
+    b = bits(key, shape, offset=offset)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.full((), minval, dtype=torch.float32, device=key.device)
     hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
@@ -150,10 +158,29 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
 
 
-def normal(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
-    """float32 standard normals (``jax.random.normal``)."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
+def normal(key: torch.Tensor, shape: tuple[int, ...] = (), *,
+           offset: int = 0) -> torch.Tensor:
+    """float32 standard normals (``jax.random.normal``); ``offset`` as in
+    ``bits``."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, offset=offset)
     return _SQRT2_F32 * erf_inv(u)
+
+
+def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
+            maxval: int) -> torch.Tensor:
+    """int32 integers in ``[minval, maxval)`` (``jax.random.randint`` for
+    int32): two 32-bit draws folded into the span by uint32 modular
+    arithmetic, as the reference folds them (biased where the span is not
+    a power of 2, as there)."""
+    if not -2**31 <= minval <= maxval <= 2**31 - 1:
+        raise ValueError(f"randint takes int32 bounds, got [{minval}, {maxval})")
+    ks = split(key)
+    hi, lo = bits(ks[..., 0, :], shape), bits(ks[..., 1, :], shape)
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    mult = (2**16) % span
+    mult = ((mult * mult) & MASK) % span
+    off = ((((hi % span) * mult) & MASK) + lo % span) & MASK
+    return (minval + off % span).to(torch.int32)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: tuple[int, ...]) -> torch.Tensor:

@@ -583,11 +583,12 @@ def test_cuda_scalar_switch_out_of_range_device_mode_keeps_buffer(cuda):
 @pytest.mark.cuda
 def test_cuda_scalar_switch_lean_path_raises(cuda):
     """The lean launch path keeps every check the kernel needs, with the same
-    exception types: a wrong dtype, a non-contiguous view and mixed devices
-    raise before any launch, and so does a tensor with a lazy conjugate or
-    negative bit, whose ``data_ptr()`` holds the values before it."""
+    exception types: a dtype it does not move (complex128, a 1-byte int8),
+    a non-contiguous view and mixed devices raise before any launch, and so
+    does a tensor with a lazy conjugate or negative bit, whose ``data_ptr()``
+    holds the values before it."""
     before = build.launch_counts["switch_select"]
-    for dt in (torch.complex128, torch.float64):
+    for dt in (torch.complex128, torch.int8):
         outs = [torch.zeros(4, 6, dtype=dt, device=cuda) for _ in range(2)]
         with pytest.raises(TypeError):
             switch_select(1, outs)

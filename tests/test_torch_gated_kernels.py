@@ -121,8 +121,8 @@ def test_scatter_wrapper_checks():
     compact = torch.zeros(1, 4, dtype=torch.complex64)
     resolved = []
     for _ in range(2):  # the second call finds the signature validated
-        per_ue, _fn = ops._scatter_plan(src, compact, des, lambda: resolved.append(1))
-        assert per_ue == 8
+        row_bytes, _fn = ops._scatter_plan(src, compact, des, lambda: resolved.append(1))
+        assert row_bytes == 32  # 4 complex64 elements of 8 bytes a UE
     assert resolved == [1]  # the kernel's function is looked up once per signature
     cases = [
         (TypeError, src.long(), compact, des),  # int64 src
@@ -138,9 +138,9 @@ def test_scatter_wrapper_checks():
         with pytest.raises(exc):
             ops._scatter_plan(s_, c_, d_, lambda: resolved.append(1))
     assert resolved == [1]
-    with pytest.raises(TypeError):  # a dtype the kernel does not take, at first sight
-        ops._scatter_plan(src, torch.zeros(1, 4, dtype=torch.float64),
-                          torch.zeros(2, 4, dtype=torch.float64), lambda: None)
+    with pytest.raises(TypeError):  # a dtype the kernel does not take (1-byte), at first sight
+        ops._scatter_plan(src, torch.zeros(1, 4, dtype=torch.int8),
+                          torch.zeros(2, 4, dtype=torch.int8), lambda: None)
 
 
 # -- gated_expert_apply ---------------------------------------------------------------

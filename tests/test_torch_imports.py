@@ -56,3 +56,21 @@ def test_topology_and_service_modules_are_walked():
     assert {"repro_torch.core.topology", "repro_torch.service", "repro_torch.service.service",
             "repro_torch.service.api", "repro_torch.service.ring",
             "repro_torch.service.exporters", "repro_torch.service.__main__"} <= names
+
+
+def test_training_and_lm_serving_modules_are_walked():
+    """The optimizer, the LM stack's configs, models, serving and launcher
+    are among the modules the probe above imports without JAX."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.models", "repro_torch.models.config", "repro_torch.models.params",
+            "repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.models.decode", "repro_torch.models.model",
+            "repro_torch.serving", "repro_torch.serving.switched",
+            "repro_torch.serving.engine", "repro_torch.launch.serve",
+            "repro_torch.configs.granite_20b", "repro_torch.configs.command_r_plus_104b",
+            "repro_torch.configs.qwen1_5_110b"} <= names
