@@ -3,7 +3,8 @@ run the CONCURRENT and GATED closed-loop campaigns, a multi-cell campaign on
 one rank and on two ranks sharing the card, the campaign service, the host
 E3/dApp loop and the methodology's perturbation sweep at full width, train
 the AI expert, serve granite-20b at its published width through the
-ARCHES-switched decoder, and print a JSON verdict.
+ARCHES-switched decoder, run the public API's MMSE expert, train granite-20b
+at its published width, and print a JSON verdict.
 
 Usage (from the repository root, on a machine with an H100):
 
@@ -107,6 +108,25 @@ Phases, each of which raises on failure (exit code != 0):
    bits, the given cache untouched; tokens/s and ms a switched step by
    mode and expert; bf16 against float32 weights on the card; the reduced
    config on the card against the CPU;
+11d. api: ``mmse_estimate`` (the public API's expert A) on ``DEFAULT_SLOT``
+   for 32 UEs, the launch counts zeroed just before it and read just after
+   it: ``mmse_interp`` launches once, and the result is within ``MMSE_TOL``
+   of ``use_kernel=False``; MMSE-IRC on one UE's slot within
+   ``IRC_X_ATOL`` / ``IRC_SINR_RTOL`` of the CPU;
+11e. LM training: granite-20b at its published width (bf16, remat
+   "block"), ``LM_TRAIN_LAYERS`` of its 52 layers, ``TokenStream`` at 4,096
+   tokens, global batch 8 in 4 microbatches, ``LM_TRAIN_STEPS`` steps: the
+   draw's time, ms a step, tokens/s, the step against 8 N D at the bf16
+   peak, peak memory (at most ``LM_TRAIN_PEAK_GB``), the loss falling, no
+   hand-written kernel launched; one step each with quantized moments and
+   compressed gradients (also at half the batch) and their peaks; the
+   reduced config (float32): 3
+   steps card vs CPU and ``microbatches=2`` vs 1 within
+   ``LM_STEP_LOSS_RTOL`` / ``LM_STEP_WEIGHT_ATOL``, a ``run_training``
+   killed by ``FailureInjector`` and resumed equal to the uninterrupted run
+   bitwise; ``python -m repro_torch.launch.train --steps 3`` and
+   ``python examples_torch/quickstart.py --n-ues 4`` as subprocesses on the
+   card, exiting 0;
 12. reference: small CONCURRENT, GATED, host and perturbed campaigns on the
    card against the same campaigns run by the plain versions on the CPU;
 13. device alone: each kernel's and its yardstick's device time and
@@ -119,7 +139,9 @@ Phases, each of which raises on failure (exit code != 0):
     launch by launch, by the UEs each slot served), and kernel time by name;
     then one training step: the kernels cuDNN runs for the convolutions'
     forward and backward under deterministic algorithms; then one decode
-    step and one switched step of the full-width decoder, by kernel.
+    step and one switched step of the full-width decoder, by kernel; then
+    one full-width LM training step: its device busy and host shares, and
+    its kernels by device time.
 
 Each path's launch counts are zeroed just before its ``run()`` (or the
 sweep) and read just after it.
@@ -227,6 +249,30 @@ LM_LOGIT_TOL = dict(rtol=1e-5, atol=2e-6)
 #: logits' relative L2 error (bf16 keeps 8 bits of mantissa, 2**-9 relative
 #: rounding a weight, through 4 layers of 6,144-wide sums)
 LM_BF16_REL = 0.05
+#: the public API's kernel path: ``mmse_estimate`` on the main path's slot for
+#: its UEs, held to ``MMSE_TOL``; MMSE-IRC on the card against the CPU on the
+#: same inputs: 4x4 complex solves (cuSOLVER against LAPACK) and the
+#: combiner's sums, symbols O(1) (absolute) and the SINR (relative)
+IRC_X_ATOL, IRC_SINR_RTOL = 1e-4, 1e-4
+#: the LM training phase: granite-20b at its published width, bf16 weights,
+#: remat "block"; depth cut from 52 layers to LM_TRAIN_LAYERS (52 layers need
+#: 20.3 B params x (2 B weights + 2 B gradients + 8 B float32 moments) ~ 245
+#: GB, against 80 GB); the reference's TRAIN_4K sequence (4,096 tokens), its
+#: global batch cut from 256 to LM_TRAIN_BATCH to fit, in LM_TRAIN_MICRO
+#: microbatches; LM_TRAIN_STEPS steps for the loss curve; the run's peak
+#: memory must stay under LM_TRAIN_PEAK_GB (the steps with quantized moments
+#: and compressed gradients report theirs).  The learning rate is 1e-5, not
+#: the launcher's smoke-size 1e-3: AdamW's first step moves every weight by
+#: lr, which at d_model 6,144 moves a logit by about lr x 6,144 x E|x|; at 1e-3
+#: and 1e-4 the loss rose from 12.2 to over 26 within three steps
+LM_TRAIN_LAYERS, LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_MICRO = 4, 4096, 8, 4
+LM_TRAIN_STEPS, LM_TRAIN_LR, LM_TRAIN_PEAK_GB = 20, 1e-5, 70.0
+#: the reduced config (float32) on the card against the CPU over 3 steps, and
+#: microbatches=2 against 1 on the card: the same products reduced in another
+#: order (cuBLAS against oneDNN, or two halves of the batch); the CPU tests read
+#: 1.8e-07 relative on the losses and 5.4e-05 on the weights against the
+#: reference (tests/test_torch_train.py)
+LM_STEP_LOSS_RTOL, LM_STEP_WEIGHT_ATOL = 1e-5, 1e-4
 
 
 def sweep_ues() -> int:
@@ -2284,6 +2330,296 @@ def phase_serve() -> dict[str, int]:
     return launches
 
 
+def phase_api() -> dict[str, int]:
+    """The public API's kernel path: ``mmse_estimate`` (LS + Wiener) on the main
+    path's slot (n_prb 106, 4 antennas, 3 DMRS symbols) for ``N_UES`` UEs'
+    received grids, with the launch counts zeroed just before the call and
+    read just after it: ``mmse_interp`` must launch once; against
+    ``use_kernel=False`` (the plain version on the card) within ``MMSE_TOL``;
+    then MMSE-IRC on UE 0's grid and estimate, on the card against the CPU."""
+    from repro_torch import random as jr
+    from repro_torch.kernels import build
+    from repro_torch.phy import DEFAULT_SLOT, mmse_estimate
+    from repro_torch.phy.dmrs import dmrs_sequence
+    from repro_torch.phy.equalizer import mmse_irc_equalize
+    from repro_torch.phy.estimators import WienerInterpolator
+
+    dev = torch.device("cuda")
+    cfg = DEFAULT_SLOT
+    if (cfg.n_prb, cfg.n_ant, cfg.n_dmrs_sym) != (N_PRB, 4, 3):
+        raise AssertionError(f"DEFAULT_SLOT is not the main path's slot: {cfg}")
+    k1, k2 = jr.split(jr.PRNGKey(11, dev))
+    shape = (N_UES, cfg.n_ant, cfg.n_sc, cfg.n_sym)
+    rx = torch.complex(jr.normal(k1, shape), jr.normal(k2, shape))
+    pilots = dmrs_sequence(cfg, dev)
+    w = WienerInterpolator.build(cfg, device=dev)
+    mmse_estimate(cfg, rx, pilots, w)  # first call outside the count
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    got = mmse_estimate(cfg, rx, pilots, w, use_kernel=True)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    if launches["mmse_interp"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"api: mmse_estimate launched {launches}")
+    want = mmse_estimate(cfg, rx, pilots, w, use_kernel=False)
+    err = float((got - want).abs().max())
+    if got.shape != (N_UES, cfg.n_ant, 1, cfg.n_sc, cfg.n_dmrs_sym) or not err <= MMSE_TOL:
+        raise AssertionError(f"api: mmse_estimate {tuple(got.shape)}, max |err| {err}")
+    ms, plain_ms, reading = turns(lambda: mmse_estimate(cfg, rx, pilots, w),
+                                  lambda: mmse_estimate(cfg, rx, pilots, w, use_kernel=False))
+    x_g, s_g = mmse_irc_equalize(cfg, rx[0], got[0], pilots, 0.1)
+    x_c, s_c = mmse_irc_equalize(cfg, rx[0].cpu(), got[0].cpu(), pilots.cpu(), 0.1)
+    x_err = float((x_g.cpu() - x_c).abs().max())
+    s_err = float(((s_g.cpu() - s_c).abs() / s_c.abs()).max())
+    if not (x_err <= IRC_X_ATOL and s_err <= IRC_SINR_RTOL
+            and bool(torch.isfinite(x_g).all())):
+        raise AssertionError(f"api: MMSE-IRC card vs CPU: symbols {x_err}, SINR {s_err}")
+    irc_ms = time_ms(lambda: mmse_irc_equalize(cfg, rx[0], got[0], pilots, 0.1), iters=20)
+    log(f"api: mmse_estimate on DEFAULT_SLOT (n_prb {cfg.n_prb}), {N_UES} UEs: launches "
+        f"{launches}; kernel vs use_kernel=False max |err| {err:.3g} (limit {MMSE_TOL}); "
+        f"{ms * 1e3:.2f} us a call vs plain {plain_ms * 1e3:.2f} us ({reading}); "
+        f"mmse_irc_equalize (UE 0) card vs CPU: symbols max |err| {x_err:.3g} (limit "
+        f"{IRC_X_ATOL}), SINR max rel {s_err:.3g} (limit {IRC_SINR_RTOL}); {irc_ms:.3f} ms "
+        f"a call on the card")
+    return launches
+
+
+def _reduced_lm_checks() -> None:
+    """granite-20b's reduced config (float32): 3 steps on the card against the
+    same 3 on the CPU, ``microbatches=2`` against 1 on the card, and a
+    ``run_training`` killed by ``FailureInjector`` and resumed against the
+    uninterrupted run, bitwise, on the card."""
+    import tempfile
+
+    from repro_torch import random as jr
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import TokenStream
+    from repro_torch.models import Model, get_config
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import FailureInjector, run_training
+    from repro_torch.train import step as tstep
+
+    model = Model(get_config(SERVE_ARCH, reduced=True))
+    stream = TokenStream(vocab=model.cfg.vocab, seq_len=16, global_batch=4)
+    p0 = model.init(jr.PRNGKey(0))  # one draw for both devices
+
+    def steps(dev, **kw):
+        tc = tstep.TrainConfig(learning_rate=LM_TRAIN_LR, **kw)
+        state = tstep.init_train_state(model, tree_map(lambda p: p.to(dev), p0), tc)
+        losses = []
+        for i in range(3):
+            state, m = tstep.train_step(model, tc, state, stream.batch_at(i))
+            losses.append(float(m["loss"]))
+        return losses, [t.cpu() for t in tree_leaves(state.params)]
+
+    runs = {"cpu": steps(torch.device("cpu")), "cuda": steps(torch.device("cuda")),
+            "cuda mb2": steps(torch.device("cuda"), microbatches=2)}
+    for a, b in (("cuda", "cpu"), ("cuda mb2", "cuda")):
+        (la, wa), (lb, wb) = runs[a], runs[b]
+        l_err = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
+        w_err = max(float((x - y).abs().max()) for x, y in zip(wa, wb))
+        log(f"lm train: reduced {SERVE_ARCH} (float32), 3 steps, {a} vs {b}: losses max rel "
+            f"{l_err:.3g} (limit {LM_STEP_LOSS_RTOL}), weights max |diff| {w_err:.3g} (limit "
+            f"{LM_STEP_WEIGHT_ATOL}); losses {la}")
+        if not (l_err <= LM_STEP_LOSS_RTOL and w_err <= LM_STEP_WEIGHT_ATOL):
+            raise AssertionError(f"lm train: {a} vs {b}: losses {l_err}, weights {w_err}")
+
+    tc = tstep.TrainConfig(learning_rate=LM_TRAIN_LR, microbatches=2, quantize_moments=True,
+                           compress_grads=True)
+
+    def init():
+        return tstep.init_train_state(model, model.init(jr.PRNGKey(0, "cuda")), tc)
+
+    finals, reports = [], []
+    with tempfile.TemporaryDirectory() as root:
+        for name, inj in (("clean", None), ("killed", FailureInjector(fail_at_steps=(3, 5)))):
+            ckpt = CheckpointManager(os.path.join(root, name), save_every=2, keep=2)
+            reports.append(run_training(
+                step_fn=lambda s, b: tstep.train_step(model, tc, s, b), init_state=init,
+                data=stream.iterate, ckpt=ckpt, total_steps=6, failure_injector=inj,
+                log=lambda _msg: None))
+            finals.append(ckpt.restore_latest(init()))
+    (s0, a), (s1, b) = finals
+    leaves = list(zip(tree_leaves(a), tree_leaves(b)))
+    same = s0 == s1 == 6 and all((x is None and y is None) or torch.equal(x, y)
+                                 for x, y in leaves)
+    if not same or reports[1].restarts != 2:
+        raise AssertionError(f"lm train: killed and resumed run differs on the card "
+                             f"(restarts {reports[1].restarts})")
+    log(f"lm train: run_training killed at steps 3 and 5 and resumed == uninterrupted on "
+        f"the card, bitwise on all {len(leaves)} state leaves (quantized moments, "
+        f"compressed gradients, 2 microbatches)")
+
+
+def _entry_points() -> None:
+    """The launcher and the quickstart as a user runs them, on the card."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as ckpt:
+        for argv in ([sys.executable, "-m", "repro_torch.launch.train", "--steps", "3",
+                      "--ckpt-dir", ckpt],
+                     [sys.executable, str(ROOT / "examples_torch" / "quickstart.py"),
+                      "--n-ues", "4"]):
+            t0 = time.perf_counter()
+            out = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                                 timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"{argv[1:]} exited {out.returncode}:\n"
+                                     f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+            last = out.stdout.strip().splitlines()[-1]
+            log(f"lm train: {' '.join(argv[1:])} on the card exited 0 in "
+                f"{time.perf_counter() - t0:.1f} s: {last}")
+
+
+#: what the LM training phase leaves for its profile pass after the timed phases
+LM_TRAINED: dict = {}
+
+
+def phase_lm_train() -> None:
+    """granite-20b at its published width (d_model 6,144, 48 heads, 1 KV head,
+    d_ff 24,576, vocab 49,152), bf16 weights, remat "block", ``LM_TRAIN_LAYERS``
+    of its 52 layers, trained on ``TokenStream`` at ``LM_TRAIN_SEQ`` tokens, global
+    batch ``LM_TRAIN_BATCH`` in ``LM_TRAIN_MICRO`` microbatches: the weight draw's
+    time, ``LM_TRAIN_STEPS`` steps (ms a step, tokens/s, the step against its
+    bound, peak memory; the loss must fall below its first value), then one
+    step each with quantized moments and compressed gradients (this also at
+    half the batch) with their peaks; no hand-written kernel
+    lies on this path (launch counts 0).  Then the reduced-config checks and the
+    entry points as subprocesses."""
+    from repro_torch import random as jr
+    from repro_torch.data import TokenStream
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.models import Model, get_config
+    from repro_torch.train import step as tstep
+
+    dev = resolve_device("cuda")
+    full = get_config(SERVE_ARCH)
+    cfg = full.with_(n_layers=LM_TRAIN_LAYERS)
+    if cfg.remat != "block" or cfg.dtype != "bfloat16":
+        raise AssertionError(f"lm train: the published config's remat {cfg.remat}, {cfg.dtype}")
+    model = Model(cfg)
+    n_params = model.n_params()
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    # 6 N D for the forward and backward, 2 N D more for the forward that remat
+    # runs again in the backward; the attention's own products are not counted
+    flops = 8.0 * n_params * tokens
+    bound = flops / PEAK_BF16_FLOPS * 1e3
+    log(f"lm train: {full.name} at its published width (d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} KV head, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, "
+        f"remat {cfg.remat}); cut: n_layers {full.n_layers} -> {LM_TRAIN_LAYERS}, global "
+        f"batch 256 -> {LM_TRAIN_BATCH} (TRAIN_4K); {n_params / 1e9:.3f} B params; seq "
+        f"{LM_TRAIN_SEQ}, {LM_TRAIN_MICRO} microbatches, lr {LM_TRAIN_LR}")
+    stream = TokenStream(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the phase's own memory: what earlier phases keep on the card (the serving
+    # phase's model) is subtracted from every peak below
+    base = torch.cuda.memory_allocated()
+
+    def peak_gb() -> float:
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    t0 = time.perf_counter()
+    params = model.init(jr.PRNGKey(0, dev))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    draw_peak = peak_gb()
+
+    tc = tstep.TrainConfig(learning_rate=LM_TRAIN_LR, microbatches=LM_TRAIN_MICRO)
+    state = tstep.init_train_state(model, params, tc)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    losses, step_s, host_draw_s = [], [], []
+    for i in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = stream.batch_at(i)
+        t1 = time.perf_counter()
+        state, metrics = tstep.train_step(model, tc, state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        t2 = time.perf_counter()
+        host_draw_s.append(t1 - t0)
+        step_s.append(t2 - t1)
+    peak = peak_gb()
+    launches = dict(build.launch_counts)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    ms = float(np.mean(step_s[1:])) * 1e3  # the first step sets up cuBLAS and the allocator
+    log(f"lm train: weight draw {draw_s:.2f} s (peak {draw_peak:.3f} GB); {LM_TRAIN_STEPS} "
+        f"steps: first {step_s[0] * 1e3:.1f} ms, then {ms:.1f} ms a step (min "
+        f"{min(step_s[1:]) * 1e3:.1f}, max {max(step_s[1:]) * 1e3:.1f}), "
+        f"{tokens / ms * 1e3:.1f} tokens/s; bound (8 N D at {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s bf16) {bound:.1f} ms, share {bound / ms:.4f}; the batch draw on the host "
+        f"{np.mean(host_draw_s) * 1e3:.2f} ms a step; peak device memory {peak:.3f} GB "
+        f"over the {base / 1e9:.3f} GB earlier phases keep; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (first-5 mean {first:.4f}, last-5 mean "
+        f"{last:.4f}); launches {launches}")
+    log(f"lm train: losses {[round(x, 4) for x in losses]}")
+    if any(launches.values()):
+        raise AssertionError(f"lm train: the training path launched a kernel: {launches}")
+    if not (np.isfinite(losses).all() and last < first and last < losses[0]):
+        raise AssertionError(f"lm train: loss did not fall: {losses}")
+    if not peak <= LM_TRAIN_PEAK_GB:
+        raise AssertionError(f"lm train: peak {peak:.2f} GB over {LM_TRAIN_PEAK_GB} GB")
+    params = state.params
+    del state
+    torch.cuda.empty_cache()
+    # one step each; compressed gradients also at half the batch, which shows
+    # whether their peak is the backward pass's (activations) or the update's
+    half = TokenStream(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_BATCH // 2)
+    for label, kw, src in (("quantize_moments", dict(quantize_moments=True), stream),
+                           ("compress_grads", dict(compress_grads=True), stream),
+                           ("compress_grads, half the batch", dict(compress_grads=True), half)):
+        tc_k = tstep.TrainConfig(learning_rate=LM_TRAIN_LR, microbatches=LM_TRAIN_MICRO, **kw)
+        st = tstep.init_train_state(model, params, tc_k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, m = tstep.train_step(model, tc_k, st, src.batch_at(LM_TRAIN_STEPS))
+        loss = float(m["loss"])
+        k_ms = (time.perf_counter() - t0) * 1e3
+        k_peak = peak_gb()
+        del st, m
+        torch.cuda.empty_cache()
+        log(f"lm train: one step with {label} (batch {src.global_batch}): {k_ms:.1f} ms (its "
+            f"first), loss {loss:.4f}, peak device memory {k_peak:.3f} GB")
+        if not np.isfinite(loss):
+            raise AssertionError(f"lm train: {label} step loss {loss}")
+    LM_TRAINED.update(model=model, params=params, stream=stream, ms=ms)
+    _reduced_lm_checks()
+    _entry_points()
+
+
+def phase_lm_train_profile() -> None:
+    """One full-width training step under ``torch.profiler`` (after every timed
+    phase): the device's busy share of the step and its host share (the rest),
+    and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import step as tstep
+
+    model, params, stream = (LM_TRAINED[k] for k in ("model", "params", "stream"))
+    tc = tstep.TrainConfig(learning_rate=LM_TRAIN_LR, microbatches=LM_TRAIN_MICRO)
+    state = tstep.init_train_state(model, params, tc)
+    batch = stream.batch_at(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = tstep.train_step(model, tc, state, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    events = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    log(f"lm train profile: one step, {sum(e.count for e in events)} kernel launches, "
+        f"{busy * 1e3:.1f} ms of device time in {wall * 1e3:.1f} ms wall (under the profiler): "
+        f"device busy share {busy / wall:.4f}, host share {1 - busy / wall:.4f}")
+    for e in events[:10]:
+        log(f"  lm train kernel: {e.self_device_time_total / 1e3:9.2f} ms {e.count:5d} calls  "
+            f"{e.key[:110]}")
+
+
 def phase_device_alone() -> None:
     """The kernels' and their yardsticks' device time alone, queued by the
     kernel phases, under ``torch.profiler``."""
@@ -2384,6 +2720,8 @@ def main() -> int:
     phase_sweep(host)
     phase_train()
     serve_launches = phase_serve()
+    api_launches = phase_api()
+    phase_lm_train()
     for r in rows:
         counter = r.pop("counter", r["name"])
         source = {"gated_expert": gated_launches, "switch_gather_batched": unf_launches,
@@ -2400,6 +2738,11 @@ def main() -> int:
     phase_profile(host, "host loop", ("conv", "fprop", "cudnn"))
     phase_train_profile()
     phase_serve_profile()
+    SERVED.clear()
+    torch.cuda.empty_cache()
+    phase_lm_train_profile()
+    log(f"api: mmse_interp launches from mmse_estimate on the public path: "
+        f"{api_launches['mmse_interp']}")
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")

@@ -82,7 +82,10 @@ def _treedef(tree: Any) -> str:
 
 def _unflatten(template: Any, leaves) -> Any:
     if isinstance(template, dict):
-        return {k: _unflatten(template[k], leaves) for k in sorted(template)}
+        # leaves come in sorted-key order; the dict keeps the template's order,
+        # which tree code that walks dicts in insertion order sums by
+        vals = {k: _unflatten(template[k], leaves) for k in sorted(template)}
+        return {k: vals[k] for k in template}
     if _is_namedtuple(template):
         return type(template)(*(_unflatten(getattr(template, f), leaves)
                                 for f in template._fields))
@@ -116,9 +119,11 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def _from_disk(arr: np.ndarray, dtype_tag: str) -> torch.Tensor:
+    # ``np.ascontiguousarray`` returns at least one dimension: keep a 0-d leaf 0-d
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if dtype_tag == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save_pytree(tree: Any, directory: str, *, manifest_extra: dict | None = None) -> None:

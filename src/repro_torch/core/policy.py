@@ -211,3 +211,27 @@ def profile_and_fit_tree(engine, schedule, *, n_slots: int, n_ues: int,
     tree = fit_decision_tree(np.concatenate(xs).astype(np.float32),
                              np.concatenate(ys).astype(np.int32), depth=depth)
     return DecisionTreePolicy(tree, names)
+
+
+# -- Table-1 metrics -----------------------------------------------------------
+
+
+def classification_metrics(y_true: np.ndarray, y_pred: np.ndarray) -> dict:
+    """Accuracy / precision / recall / specificity / F1 for the positive
+    class 0 (AI): the paper labels interference slots mode=0 (Table 1)."""
+    y_true = np.asarray(y_true).astype(int)
+    y_pred = np.asarray(y_pred).astype(int)
+    pos = 0
+    tp = int(np.sum((y_pred == pos) & (y_true == pos)))
+    fp = int(np.sum((y_pred == pos) & (y_true != pos)))
+    tn = int(np.sum((y_pred != pos) & (y_true != pos)))
+    fn = int(np.sum((y_pred != pos) & (y_true == pos)))
+    prec = tp / max(tp + fp, 1)
+    rec = tp / max(tp + fn, 1)
+    return {
+        "accuracy": (tp + tn) / max(tp + tn + fp + fn, 1),
+        "precision": prec,
+        "recall": rec,
+        "specificity": tn / max(tn + fp, 1),
+        "f1": 2 * prec * rec / max(prec + rec, 1e-12),
+    }

@@ -1,8 +1,17 @@
 """Cross-layer KPM telemetry (paper 2, 4.3, 6) and the per-UE KPM window.
 
-The paper's selected KPM set is copied from ``repro.core.telemetry``, and
-so is ``segment_telemetry``, the campaign service's per-segment reduction of
-a history.  ``KPMRing`` holds every UE's rolling window
+KPM names and layer attribution follow the paper:
+
+* **Aerial Data Lake** (PHY, per slot): code rate, SINR, QAM order, MCS
+  index, TB size, code blocks, PDU length, NDI, RSRP, plus PHY throughput,
+  which is cumulative and so excluded from the correlation analysis (paper
+  4.3) but kept as a policy input.
+* **OAI** (L2+): SNR, MAC throughput, LCID4 throughput, MAC RX bytes, LCID4
+  RX bytes.
+
+The candidate and selected KPM sets are copied from ``repro.core.telemetry``,
+and so is ``segment_telemetry``, the campaign service's per-segment reduction
+of a history.  ``KPMRing`` holds every UE's rolling window
 with a leading UE axis (``buf (U, W, F)``, ``idx (U,)``, ``count (U,)``),
 so one push serves the whole slot.  The window mean adds the newest
 entries one at a time in a fixed order: the same elementwise float32 ops
@@ -17,11 +26,42 @@ from typing import Mapping, NamedTuple, Sequence
 import numpy as np
 import torch
 
+AERIAL_CANDIDATE_KPMS: tuple[str, ...] = (
+    "code_rate", "sinr", "qam_order", "mcs_index", "tb_size", "num_cbs",
+    "pdu_length", "ndi", "rsrp",
+)
+AERIAL_CUMULATIVE_KPMS: tuple[str, ...] = ("phy_throughput",)
+OAI_CANDIDATE_KPMS: tuple[str, ...] = (
+    "snr", "mac_throughput", "lcid4_throughput", "mac_rx_bytes", "lcid4_rx_bytes",
+)
+
 #: The paper's final policy input set (4.3): 5 Aerial + 5 OAI KPMs.
 SELECTED_KPMS: tuple[str, ...] = (
     "phy_throughput", "mcs_index", "pdu_length", "ndi", "rsrp", "snr",
     "mac_throughput", "lcid4_throughput", "mac_rx_bytes", "lcid4_rx_bytes",
 )
+
+ALL_CANDIDATE_KPMS: tuple[str, ...] = AERIAL_CANDIDATE_KPMS + OAI_CANDIDATE_KPMS
+
+#: Execution-cost leaves the batched engine adds to every trajectory: cost
+#: accounting, not channel KPMs, so outside the GATED == CONCURRENT contract.
+EXECUTION_COST_KPMS: tuple[str, ...] = (
+    "executed_flops", "gated_overflow", "audit_tripped", "health_tripped", "quarantined",
+)
+
+
+def physical_trajectory(traj: Mapping[str, torch.Tensor]) -> dict:
+    """A trajectory's physical leaves: everything but the cost accounting,
+    the leaves on which GATED and CONCURRENT execution must agree bitwise."""
+    return {k: v for k, v in traj.items() if k not in EXECUTION_COST_KPMS}
+
+
+def kpm_vector(kpms: Mapping[str, torch.Tensor | float], names: Sequence[str]) -> torch.Tensor:
+    """Order a KPM mapping into a dense float32 feature vector, on the device
+    of the KPMs' tensors (host numbers stay on the host)."""
+    device = next((v.device for v in kpms.values() if isinstance(v, torch.Tensor)), "cpu")
+    return torch.stack([torch.as_tensor(kpms[n], dtype=torch.float32, device=device)
+                        for n in names])
 
 
 def flatten_kpm_sources(kpms_by_source: Mapping[str, Mapping[str, torch.Tensor]]) -> dict:
@@ -143,3 +183,11 @@ def ring_window_mean(ring: KPMRing, window: int) -> torch.Tensor:
         acc = acc + ring.buf[rows, (ring.idx - off) % cap] * valid[:, None]
         n_valid = n_valid + valid
     return acc / torch.clamp(n_valid, min=1.0)[:, None]
+
+
+def ring_matrix(ring: KPMRing) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every UE's rows (oldest to newest not guaranteed) and their validity
+    mask ``(U, capacity)``."""
+    cap = ring.buf.shape[1]
+    valid = torch.arange(cap, device=ring.buf.device)[None] < ring.count[:, None]
+    return ring.buf, valid

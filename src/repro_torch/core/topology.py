@@ -31,6 +31,11 @@ wants ranks creates them (``spawn_ranks`` does so for tests and scripts).
 NCCL serves ranks that each have a card; gloo serves the CPU and ranks that
 share one card (NCCL takes no two ranks of one communicator on one device).
 Both reduce the count vector where it lies, on the card or the CPU.
+
+The reference's mesh factories (``make_cpu_mesh``, ``make_production_mesh``,
+``make_ue_mesh``) build JAX device meshes and have no counterpart here by
+name: ``CellTopology.build`` over the process group the caller made is
+their counterpart (the group is the mesh's ``ues`` axis).
 """
 
 from __future__ import annotations

@@ -241,6 +241,16 @@ ARCH_IDS: tuple[str, ...] = (
 #: the configs ported so far: the uniform dense family
 PORTED_ARCHS: tuple[str, ...] = ("granite-20b", "command-r-plus-104b", "qwen1.5-110b")
 
+#: the items of ROADMAP.md Queue 1 that hold the LM stack's unported work
+FAMILIES_QUEUE_ITEM = 3  # the other families (MoE, SSM, hybrid, enc-dec, ...)
+SHARDED_TRAINING_QUEUE_ITEM = 4  # the sharded training half (meshes, specs)
+
+
+def families_queue() -> str:
+    """Where the LM stack's unported families wait, for error messages."""
+    return (f"ROADMAP.md Queue 1, item {FAMILIES_QUEUE_ITEM} (the LM stack's other "
+            f"families)")
+
 
 def get_config(arch: str, *, reduced: bool = False) -> ModelConfig:
     """Load ``repro_torch.configs.<arch>`` and return its (full or smoke) config."""
@@ -250,8 +260,8 @@ def get_config(arch: str, *, reduced: bool = False) -> ModelConfig:
         raise ValueError(f"unknown arch {arch!r}; one of {ARCH_IDS}")
     if arch not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"{arch} is not ported yet: its family and config wait in ROADMAP.md "
-            f"Queue 1, item 7 (the LM stack's training half); ported: {PORTED_ARCHS}")
+            f"{arch} is not ported yet: its family and config wait in "
+            f"{families_queue()}; ported: {PORTED_ARCHS}")
     mod_name = "repro_torch.configs." + arch.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(mod_name)
     return mod.reduced_config() if reduced else mod.full_config()

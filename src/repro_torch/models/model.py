@@ -32,9 +32,12 @@ class Model:
     def forward(self, params, tokens, **kw) -> T.ForwardOut:
         return T.forward(self.cfg, params, tokens, **kw)
 
-    def loss(self, params, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        """Mean token cross-entropy over float32 logits, plus the aux loss."""
-        out = self.forward(params, tokens)
+    def loss(self, params, tokens: torch.Tensor, labels: torch.Tensor, *,
+             encoder_frames: torch.Tensor | None = None) -> torch.Tensor:
+        """Mean token cross-entropy over float32 logits, plus the aux loss.
+        ``encoder_frames`` (the encoder-decoder path) raises until that
+        family is ported, as ``forward`` does."""
+        out = self.forward(params, tokens, encoder_frames=encoder_frames)
         logp = torch.log_softmax(out.logits.to(torch.float32), dim=-1)
         ll = torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
         return -torch.mean(ll) + out.aux_loss

@@ -6,12 +6,22 @@ has them.  The port carries the dense family (command-r-plus's parallel
 block, granite's MQA with a GELU MLP, qwen1.5's QKV bias) and the VLM
 backbone that shares its blocks; the MoE, SSM, hybrid, encoder-decoder and
 local/global (gemma2) paths raise ``NotImplementedError`` and wait in
-``ROADMAP.md`` Queue 1.
+``ROADMAP.md`` Queue 1 (``config.families_queue``).
 
 The stacked layer params keep their leading layer axis, as the reference
 stacks them for ``lax.scan``, so the weight converter is a direct map; the
-scan becomes a loop over that axis.  Rematerialisation (``cfg.remat``)
-trades memory for recompute in training and means nothing here.
+scan becomes a loop over that axis.
+
+Rematerialisation (``cfg.remat``) applies when gradients are on: each block
+runs under ``torch.utils.checkpoint`` (non-reentrant), as the reference
+wraps its scan body in ``jax.checkpoint``.  ``"full"`` saves nothing and
+recomputes the block in the backward pass; ``"block"`` saves the outputs of
+the products without batch dimensions (the projections and the MLP, which
+``torch.einsum`` runs as ``bmm`` with a batch of 1, or ``mm`` / ``addmm``)
+and recomputes the rest, as ``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable`` does; ``"none"`` keeps every
+activation.  The recompute runs the same operations on the same inputs, so
+the loss and the gradients are the same bits under every setting.
 """
 
 from __future__ import annotations
@@ -21,9 +31,15 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.models import layers as L
-from repro_torch.models.config import Family, ModelConfig
+from repro_torch.models.config import Family, ModelConfig, families_queue
 from repro_torch.models.params import ParamDef, tree_map_defs
 
 _DENSE = (Family.DENSE, Family.VLM)
@@ -31,8 +47,8 @@ _DENSE = (Family.DENSE, Family.VLM)
 
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: it waits in ROADMAP.md Queue 1, item 7 (the LM "
-        f"stack's MoE, SSM, hybrid, encoder-decoder and local/global paths)")
+        f"{what} is not ported yet: it waits in {families_queue()}: the MoE, SSM, "
+        f"hybrid, encoder-decoder and local/global paths")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -150,6 +166,35 @@ def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+# -- rematerialisation -----------------------------------------------------------------
+
+_REMAT = ("none", "block", "full")
+#: products without batch dimensions: ``torch.einsum`` runs a projection as a
+#: ``bmm`` with a batch of 1, an attention product as a ``bmm`` over batch x heads
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dot_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op in _DOTS or (op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dot_policy)
+
+
+def _needs_grad(x: torch.Tensor, blocks: Any) -> bool:
+    """Whether autograd records this forward (remat matters only then)."""
+    while isinstance(blocks, dict):
+        blocks = next(iter(blocks.values()))
+    return x.requires_grad or blocks.requires_grad
+
+
+def _block_out(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    return _dense_block(cfg, p, x, positions=positions)[0]
+
+
 # -- full forward (train / eval) ----------------------------------------------------
 
 
@@ -183,8 +228,16 @@ def forward(
         positions = _default_positions(cfg, tokens)
     x = embed(cfg, params, tokens)
     blocks = params["blocks"]
+    remat = cfg.remat if torch.is_grad_enabled() and _needs_grad(x, blocks) else "none"
+    if remat not in _REMAT:
+        raise ValueError(f"remat {cfg.remat!r}: one of {_REMAT}")
     for i in range(n_stacked(blocks)):
-        x, _ = _dense_block(cfg, layer(blocks, i), x, positions=positions)
+        p = layer(blocks, i)
+        if remat == "none":
+            x, _ = _dense_block(cfg, p, x, positions=positions)
+        else:
+            x = checkpoint(_block_out, cfg, p, x, positions, use_reentrant=False,
+                           context_fn=_save_dots if remat == "block" else noop_context_fn)
     logits = unembed(cfg, params, x)
     return ForwardOut(logits=logits,
                       aux_loss=torch.zeros((), dtype=torch.float32, device=x.device))

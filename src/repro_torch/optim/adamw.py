@@ -24,6 +24,18 @@ from typing import Any, Iterator, NamedTuple
 import torch
 
 _QBLOCK = 128
+#: the update runs over flat spans of at most this many elements of a leaf, a
+#: multiple of every quantisation block (128 here, 256 in the gradient
+#: compression): every operation is elementwise or within a block, so the
+#: bits are those of one pass over the leaf, and the temporaries are one
+#: span's (a stacked full-width leaf holds 604 M elements, 2.4 GB a float32
+#: temporary)
+UPDATE_CHUNK = 1 << 24
+
+
+def spans(n: int) -> list[tuple[int, int]]:
+    """``[lo, hi)`` spans of a flat leaf of ``n`` elements, ``UPDATE_CHUNK`` at a time."""
+    return [(lo, min(n, lo + UPDATE_CHUNK)) for lo in range(0, n, UPDATE_CHUNK)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,11 +64,16 @@ def _quantize(x: torch.Tensor) -> _Q8:
 
 
 def _dequantize(q8: _Q8, shape) -> torch.Tensor:
-    blocks = q8.q.to(torch.float32) * q8.scale
     n = 1
     for d in shape:
         n *= d
-    return blocks.reshape(-1)[:n].reshape(shape)
+    return _dequantize_span(q8, 0, n).reshape(shape)
+
+
+def _dequantize_span(q8: _Q8, lo: int, hi: int) -> torch.Tensor:
+    """Flat elements ``[lo, hi)`` of a quantized leaf (``lo`` on a block edge)."""
+    b0, b1 = lo // _QBLOCK, -(-hi // _QBLOCK)
+    return (q8.q[b0:b1].to(torch.float32) * q8.scale[b0:b1]).reshape(-1)[: hi - lo]
 
 
 class AdamWState(NamedTuple):
@@ -139,13 +156,8 @@ def adamw_update(
     bc1 = 1.0 - torch.pow(b1, step_f)
     bc2 = 1.0 - torch.pow(b2, step_f)
 
-    def leaf_update(g, m, v, p):
+    def span_update(g, m_f, v_f, p):
         g = g.to(torch.float32)
-        if config.quantize_moments:
-            m_f = _dequantize(m, g.shape)
-            v_f = v.to(torch.float32)  # v is stored bf16 (see the module docstring)
-        else:
-            m_f, v_f = m, v
         m_f = b1 * m_f + (1 - b1) * g
         v_f = b2 * v_f + (1 - b2) * g * g
         m_hat = m_f / bc1
@@ -153,10 +165,35 @@ def adamw_update(
         upd = m_hat / (torch.sqrt(v_hat) + config.eps)
         if config.weight_decay:
             upd = upd + config.weight_decay * p.to(torch.float32)
-        new_p = (p.to(torch.float32) - lr * upd).to(p.dtype)
-        if config.quantize_moments:
-            return new_p, _quantize(m_f), v_f.to(torch.bfloat16)
-        return new_p, m_f, v_f
+        return (p.to(torch.float32) - lr * upd).to(p.dtype), m_f, v_f
+
+    def leaf_update(g, m, v, p):
+        quant = config.quantize_moments
+        new_p = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+        new_v = torch.empty(p.shape, dtype=v.dtype, device=p.device)
+        if quant:
+            n_blocks = -(-p.numel() // _QBLOCK)
+            new_m = _Q8(q=torch.empty((n_blocks, _QBLOCK), dtype=torch.int8, device=p.device),
+                        scale=torch.empty((n_blocks, 1), dtype=torch.float32, device=p.device))
+        else:
+            new_m = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        g_flat, v_flat, p_flat = g.reshape(-1), v.reshape(-1), p.reshape(-1)
+        for lo, hi in spans(p.numel()):
+            if quant:  # v is stored bf16 (see the module docstring)
+                m_f, v_f = _dequantize_span(m, lo, hi), v_flat[lo:hi].to(torch.float32)
+            else:
+                m_f, v_f = m.reshape(-1)[lo:hi], v_flat[lo:hi]
+            p_new, m_f, v_f = span_update(g_flat[lo:hi], m_f, v_f, p_flat[lo:hi])
+            new_p.view(-1)[lo:hi] = p_new
+            new_v.view(-1)[lo:hi] = v_f
+            if quant:
+                q8 = _quantize(m_f)
+                b0 = lo // _QBLOCK
+                new_m.q[b0: b0 + q8.q.shape[0]] = q8.q
+                new_m.scale[b0: b0 + q8.q.shape[0]] = q8.scale
+            else:
+                new_m.view(-1)[lo:hi] = m_f
+        return new_p, new_m, new_v
 
     out = list(map(leaf_update, _leaves(grads, grads), _leaves(grads, state.m),
                    _leaves(grads, state.v), _leaves(grads, params)))

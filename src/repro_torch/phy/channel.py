@@ -246,6 +246,16 @@ def per_ue_params(p: ChannelParams, n_ues: int) -> ChannelParams:
     return ChannelParams(*out)
 
 
+def broadcast_params_to_ues(params: ChannelParams, n_ues: int) -> ChannelParams:
+    """Give homogeneous ``(S, ...)`` params an explicit ``(S, U, ...)`` UE axis
+    (views; params already per UE pass through), so every leaf can be split
+    along the UEs."""
+    if params.noise_var.ndim == 2:
+        return params
+    return ChannelParams(*(x[:, None].expand((x.shape[0], n_ues) + tuple(x.shape[1:]))
+                           for x in params))
+
+
 # -- multi-cell coupling (the topology layer) -----------------------------------
 #
 # A campaign laid out as ``n_cells`` cells couples them through the channel: a

@@ -64,3 +64,65 @@ def mmse_equalize(
     x_hat = torch.complex(num.real / d, num.imag / d)
     sinr = den / torch.clamp(nv, min=1e-12)
     return x_hat, sinr
+
+
+def effective_noise_var(sinr: torch.Tensor) -> torch.Tensor:
+    """Per-RE effective noise variance for the LLR demapper (unit signal)."""
+    return torch.full((), 1.0, dtype=sinr.dtype, device=sinr.device) / torch.clamp(
+        sinr, min=1e-9)
+
+
+def mmse_irc_equalize(
+    cfg: SlotConfig,
+    rx_grid: torch.Tensor,
+    h_est_dmrs: torch.Tensor,
+    pilots: torch.Tensor,
+    noise_var,
+    *,
+    prb_per_subband: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """MMSE-IRC: interference-rejection combining (Aerial's UL combiner), one UE.
+
+    The interference-plus-noise covariance ``R`` is estimated per frequency
+    subband from the DMRS residuals ``e = rx_pilot - h_est * pilot``, what
+    the selected expert's estimate leaves unexplained at the pilots; the
+    combiner ``w = R^-1 h / (h^H R^-1 h)`` then nulls in-band interference
+    spatially.
+
+    ``rx_grid (n_ant, n_sc, n_sym)``, ``h_est_dmrs (n_ant, n_layers, n_sc,
+    n_dmrs_sym)``, ``pilots (n_dmrs_sym, n_pilot_sc)``, scalar thermal
+    ``noise_var`` (the diagonal loading) -> ``(x_hat, sinr)``: the layer-0
+    symbol estimates and the per-RE post-IRC SINR ``h^H R^-1 h``, both
+    ``(n_sc, n_sym)``.
+    """
+    n_ant, n_sc = cfg.n_ant, cfg.n_sc
+    dev = rx_grid.device
+    h_full = time_interpolate(cfg, h_est_dmrs)[:, 0]  # (ant, sc, sym)
+
+    # residuals at the pilot REs
+    pilot_sc = torch.as_tensor(cfg.pilot_sc_indices, device=dev)
+    dmrs_sym = torch.as_tensor(cfg.dmrs_symbols, device=dev)
+    rx_p = rx_grid[:, pilot_sc][:, :, dmrs_sym]  # (ant, n_pilot, n_dmrs)
+    h_p = h_full[:, pilot_sc][:, :, dmrs_sym]
+    e = rx_p - h_p * pilots.transpose(0, 1)[None]
+
+    # per-subband covariance, averaged over pilots x DMRS symbols
+    sb_pilots = prb_per_subband * 6  # comb-2: 6 pilots a PRB
+    n_sb = cfg.n_pilot_sc // sb_pilots
+    e_sb = e[:, : n_sb * sb_pilots].reshape(n_ant, n_sb, sb_pilots, -1)
+    r = torch.einsum("aspd,bspd->sab", e_sb, torch.conj(e_sb)) / (sb_pilots * cfg.n_dmrs_sym)
+    noise_var = torch.as_tensor(noise_var, dtype=torch.float32, device=dev)
+    eye = torch.eye(n_ant, dtype=r.dtype, device=dev)
+    r = r + (noise_var * 0.1 + 1e-6) * eye[None]
+
+    # every subcarrier's subband, then the combiner per RE
+    sc_to_sb = torch.clamp(torch.arange(n_sc, device=dev) // (12 * prb_per_subband),
+                           0, n_sb - 1)
+    h_t = h_full.movedim(0, -1)  # (sc, sym, ant)
+    r_sc = r[sc_to_sb]  # (sc, ant, ant)
+    rinv_h = torch.linalg.solve(r_sc[:, None], h_t[..., None])[..., 0]  # (sc, sym, ant)
+    hrh = torch.sum(torch.conj(h_t) * rinv_h, dim=-1).real
+    rx_t = rx_grid.movedim(0, -1)
+    num = torch.sum(torch.conj(rinv_h) * rx_t, dim=-1)  # (R^-1 h)^H y
+    d = torch.clamp(hrh, min=1e-9)
+    return torch.complex(num.real / d, num.imag / d), hrh

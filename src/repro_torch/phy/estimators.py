@@ -2,7 +2,9 @@
 
 ``WienerInterpolator.build`` runs the same numpy arithmetic as the
 reference, so ``W`` is identical before the final cast to complex64.  The
-interpolation itself is the ``mmse_interp`` kernel.
+interpolation itself is the ``mmse_interp`` kernel: ``mmse_estimate``
+(expert A, LS + Wiener) calls its wrapper, which launches the hand-written
+kernel on a CUDA tensor and runs the plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels.mmse_interp import mmse_interp, mmse_interp_ref
 from repro_torch.phy import dmrs as dmrs_mod
 from repro_torch.phy.nr import SlotConfig
 
@@ -56,6 +59,27 @@ class WienerInterpolator:
         w = r_fp @ np.linalg.inv(r_pp + noise_var * np.eye(len(p)))
         return cls(w=torch.as_tensor(np.ascontiguousarray(w.T).astype(np.complex64),
                                      device=device))
+
+
+def mmse_estimate(
+    cfg: SlotConfig,
+    rx_grid: torch.Tensor,
+    pilots: torch.Tensor,
+    interpolator: WienerInterpolator,
+    *,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Expert A: LS at the pilots + Wiener frequency interpolation.
+
+    ``rx_grid (..., n_ant, n_sc, n_sym)`` -> hat{H}_MMSE ``(..., n_ant, 1,
+    n_sc, n_dmrs_sym)``: estimates at the DMRS symbols, full band (paper
+    4.1).  ``use_kernel=False`` calls the plain ``mmse_interp_ref`` on any
+    device (the oracle).
+    """
+    h_ls = ls_estimate(cfg, rx_grid, pilots)  # (..., ant, dmrs_sym, pilot_sc)
+    interp = mmse_interp if use_kernel else mmse_interp_ref
+    h_full = interp(h_ls, interpolator.w)  # (..., ant, dmrs_sym, n_sc)
+    return h_full.movedim(-2, -1).unsqueeze(-3)
 
 
 def estimator_flops(cfg: SlotConfig) -> float:

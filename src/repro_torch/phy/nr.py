@@ -56,6 +56,16 @@ class SlotConfig:
         """Subcarrier indices carrying DMRS (comb-2 interleave)."""
         return np.arange(self.dmrs_comb_offset, self.n_sc, 2)
 
+    @property
+    def data_sc_indices(self) -> np.ndarray:
+        """Subcarrier indices carrying PUSCH data on DMRS symbols."""
+        return np.arange(1 - self.dmrs_comb_offset, self.n_sc, 2)
+
+    @property
+    def data_symbols(self) -> np.ndarray:
+        """OFDM symbol indices carrying only data."""
+        return np.asarray([s for s in range(N_SYM_PER_SLOT) if s not in self.dmrs_symbols])
+
     def n_data_re(self) -> int:
         """Resource elements available for PUSCH data in one slot/layer.
 
@@ -65,3 +75,6 @@ class SlotConfig:
         full = (N_SYM_PER_SLOT - self.n_dmrs_sym) * self.n_sc
         on_dmrs = self.n_dmrs_sym * (self.n_sc - self.n_pilot_sc)
         return full + on_dmrs
+
+
+DEFAULT_SLOT = SlotConfig()

@@ -350,7 +350,10 @@ def normalize_modes(modes, n_slots: int, n_ues: int,
     when it is ``n_ues``; with ``n_slots == n_ues`` that is ambiguous and
     rejected.
     """
-    m = torch.as_tensor(np.asarray(modes), dtype=torch.int32, device=device)
+    if isinstance(modes, torch.Tensor):  # a grid already on a device (any device)
+        m = modes.to(device=device, dtype=torch.int32)
+    else:
+        m = torch.as_tensor(np.asarray(modes), dtype=torch.int32, device=device)
     if m.ndim == 0:
         return torch.full((n_slots, n_ues), int(m), dtype=torch.int32, device=device)
     if m.ndim == 1:

@@ -45,7 +45,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Sequence
 
-from repro_torch.phy.channel import INDOOR_LOS, ChannelConfig
+import torch
+
+from repro_torch.phy.channel import (
+    INDOOR_LOS,
+    ChannelConfig,
+    channel_params_schedule,
+    channel_params_ue_schedule,
+)
 
 # Operating point chosen so link adaptation sits in the paper's regime
 # (median MCS ~19-20 good / ~11-12 poor, Fig. 10b) rather than saturating at
@@ -94,6 +101,17 @@ def good_poor_good_schedule(
         return POOR if slot in window else GOOD
 
     return schedule
+
+
+def condition_label(
+    slot: int,
+    *,
+    poor_start: int = POOR_WINDOW.start,
+    poor_end: int = POOR_WINDOW.end,
+) -> int:
+    """Supervisory label for policy training (paper 5.3): interference
+    present -> mode=0 (AI), otherwise mode=1 (MMSE)."""
+    return 0 if slot in PoorWindow(poor_start, poor_end) else 1
 
 
 def bursty_interference_schedule(
@@ -196,6 +214,25 @@ def get_scenario(name: str) -> Scenario:
 
 def scenario_names() -> tuple[str, ...]:
     return tuple(sorted(_SCENARIOS))
+
+
+def make_schedule(name: str, *, n_ues: int | None = None, **kwargs):
+    """Resolve a registered scenario to its slot schedule(s)."""
+    return get_scenario(name).schedule(n_ues=n_ues, **kwargs)
+
+
+def scenario_params(cfg, name: str, *, n_slots: int, n_ues: int | None = None,
+                    device: torch.device | str = "cpu", **kwargs):
+    """Registry lookup straight to ``ChannelParams`` on ``device``.
+
+    Returns ``(profile, params)`` ready for the batched engine: leaves are
+    ``(n_slots, ...)`` for homogeneous scenarios and ``(n_slots, n_ues, ...)``
+    for per-UE ones.
+    """
+    sched = make_schedule(name, n_ues=n_ues, **kwargs)
+    if isinstance(sched, (list, tuple)):
+        return channel_params_ue_schedule(cfg, sched, n_slots, device)
+    return channel_params_schedule(cfg, sched, n_slots, device)
 
 
 def _mixed_cell(

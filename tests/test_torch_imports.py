@@ -1,5 +1,6 @@
-"""The port stands alone: importing every module of ``repro_torch`` pulls in
-neither ``jax`` nor ``repro``, and ``chip_smoke.py`` names neither."""
+"""The port stands alone: importing every module of ``repro_torch`` or any
+script of ``examples_torch/`` pulls in neither ``jax`` nor ``repro``, and
+neither they nor ``chip_smoke.py`` name either."""
 
 import ast
 import subprocess
@@ -40,7 +41,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_no_source_names_jax_or_repro():
-    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
+             *sorted((ROOT / "examples_torch").glob("*.py"))]
+    assert len(files) > 60
     for f in files:
         assert not _imported_roots(f) & {"jax", "jaxlib", "repro"}, f
 
@@ -74,3 +77,37 @@ def test_training_and_lm_serving_modules_are_walked():
             "repro_torch.serving.engine", "repro_torch.launch.serve",
             "repro_torch.configs.granite_20b", "repro_torch.configs.command_r_plus_104b",
             "repro_torch.configs.qwen1_5_110b"} <= names
+
+
+def test_training_half_modules_are_walked():
+    """The token stream, the gradient compression, the train step and loop,
+    and the training launcher are among the modules the probe imports."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.data", "repro_torch.data.tokens", "repro_torch.distributed",
+            "repro_torch.distributed.compression", "repro_torch.train",
+            "repro_torch.train.step", "repro_torch.train.loop",
+            "repro_torch.launch.train"} <= names
+
+
+_EXAMPLES_PROBE = """
+import runpy, sys
+from pathlib import Path
+scripts = sorted(Path("examples_torch").glob("*.py"))
+for path in scripts:
+    runpy.run_path(str(path), run_name="probe")  # imports and definitions, no main()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(scripts), bad)
+assert not bad, bad
+"""
+
+
+def test_examples_import_without_jax_or_repro():
+    out = subprocess.run([sys.executable, "-c", _EXAMPLES_PROBE], cwd=ROOT, capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) == 4

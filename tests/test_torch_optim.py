@@ -141,3 +141,15 @@ def test_warmup_cosine(step):
     assert got.dtype == torch.float32 and got.ndim == 0
     np.testing.assert_allclose(float(got), float(r_warmup_cosine(step, **kw)),
                                rtol=SCHED_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["f32", "quantized"])
+def test_update_in_spans_is_one_pass(monkeypatch, quantize):
+    """The update over spans of 256 elements (leaves of 390, 36, 7 and 4
+    elements: spans that end inside a block) gives the bits of one pass."""
+    whole = _run(dict(learning_rate=1e-2, weight_decay=0.1, quantize_moments=quantize))
+    monkeypatch.setattr(tadamw, "UPDATE_CHUNK", 256)
+    spans = _run(dict(learning_rate=1e-2, weight_decay=0.1, quantize_moments=quantize))
+    for a, b in zip(tadamw.tree_leaves((whole[2], whole[3])),
+                    tadamw.tree_leaves((spans[2], spans[3]))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
