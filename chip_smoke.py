@@ -3,8 +3,10 @@ run the CONCURRENT and GATED closed-loop campaigns, a multi-cell campaign on
 one rank and on two ranks sharing the card, the campaign service, the host
 E3/dApp loop and the methodology's perturbation sweep at full width, train
 the AI expert, serve granite-20b at its published width through the
-ARCHES-switched decoder, run the public API's MMSE expert, train granite-20b
-at its published width, and print a JSON verdict.
+ARCHES-switched decoder, serve dbrx-132b and kimi-k2 (MoE) at their
+published widths and zamba2-7b (hybrid) and mamba2-130m (SSM) whole, run the
+public API's MMSE expert, train granite-20b at its published width, and
+print a JSON verdict.
 
 Usage (from the repository root, on a machine with an H100):
 
@@ -106,8 +108,8 @@ Phases, each of which raises on failure (exit code != 0):
    ``generate_switched`` under a dApp, the scalar and per-UE switch kernels
    launching on the bf16 logits, the selected rows the chosen expert's
    bits, the given cache untouched; tokens/s and ms a switched step by
-   mode and expert; bf16 against float32 weights on the card; the reduced
-   config on the card against the CPU;
+   mode and expert against the decode step's byte bound; bf16 against
+   float32 weights on the card;
 11d. api: ``mmse_estimate`` (the public API's expert A) on ``DEFAULT_SLOT``
    for 32 UEs, the launch counts zeroed just before it and read just after
    it: ``mmse_interp`` launches once, and the result is within ``MMSE_TOL``
@@ -127,6 +129,26 @@ Phases, each of which raises on failure (exit code != 0):
    bitwise; ``python -m repro_torch.launch.train --steps 3`` and
    ``python examples_torch/quickstart.py --n-ues 4`` as subprocesses on the
    card, exiting 0;
+11f. LM families (after the training phase, whose compressed-gradient
+   step needs nearly the whole card): dbrx-132b at its published width (bf16), ``MOE_LAYERS``
+   of its 40 layers, served as granite is (``generate``, switched steps at
+   modes 0, 1 and a vector, ``generate_switched`` under a dApp, the switch
+   kernels launching on its (8, 100,352) bf16 logits, the rows the chosen
+   expert's bits, the given cache untouched), ms a decode and a switched
+   step against the decode step's byte bound, tokens/s, the share of routed
+   token-slots the prefill's capacity drops, bf16 against float32 at
+   ``MOE_F32_LAYERS`` layer; kimi-k2-1t-a32b, ``KIMI_LAYERS`` of its 61
+   (the dense first layer and one MoE layer): a prefill,
+   ``KIMI_DECODE_STEPS`` decode steps and a switched step at a mode vector
+   on its (8, 163,840) logits, against the bound; zamba2-7b at full width
+   and depth and mamba2-130m whole, served as granite is (no
+   ``generate_switched``); both switch kernels held bitwise against their
+   plain versions on each family's experts' logits; each model's weights
+   freed before the next draw; then the reduced configs of granite, dbrx,
+   kimi-k2, mamba2, zamba2 and qwen2-vl (float32) card against CPU: prefill and 3
+   switched steps within ``LM_LOGIT_TOL``, the MoE expert assignment and
+   kept mask equal, one train step within ``LM_STEP_LOSS_RTOL`` /
+   ``LM_STEP_WEIGHT_ATOL``;
 12. reference: small CONCURRENT, GATED, host and perturbed campaigns on the
    card against the same campaigns run by the plain versions on the CPU;
 13. device alone: each kernel's and its yardstick's device time and
@@ -161,6 +183,7 @@ import os
 import subprocess
 import sys
 import time
+import typing
 from pathlib import Path
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -245,6 +268,20 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_SEQ, SERVE_WINDOW, SERVE_STEPS = 8, 128, 10
 #: the reduced config on the card against the CPU: the CPU tests' float32
 #: tolerance against the reference (tests/test_torch_lm.py)
 LM_LOGIT_TOL = dict(rtol=1e-5, atol=2e-6)
+#: the LM stack's other families at their published widths (bf16), served as
+#: granite is (SERVE_BATCH x SERVE_PROMPT, SERVE_MAX_SEQ, SERVE_WINDOW,
+#: SERVE_STEPS).  dbrx-132b: MOE_LAYERS of its 40 layers (40 need 263 GB of
+#: bf16 weights), its bf16-against-float32 check at MOE_F32_LAYERS (two draws
+#: of 4 layers need 86 GB).  kimi-k2-1t-a32b: KIMI_LAYERS of its 61, the dense
+#: first layer and one MoE layer (61 need 2 TB), KIMI_DECODE_STEPS decode
+#: steps.  zamba2-7b at full depth; mamba2-130m whole.  Nothing else is cut
+MOE_ARCH, MOE_LAYERS, MOE_F32_LAYERS = "dbrx-132b", 4, 1
+KIMI_ARCH, KIMI_LAYERS, KIMI_DECODE_STEPS = "kimi-k2-1t-a32b", 2, 4
+HYBRID_ARCH, SSM_ARCH = "zamba2-7b", "mamba2-130m"
+#: the reduced configs held card against CPU: the dense, MoE, SSM, hybrid and
+#: VLM families
+REDUCED_ARCHS = ("granite-20b", "dbrx-132b", "kimi-k2-1t-a32b", "mamba2-130m", "zamba2-7b",
+                 "qwen2-vl-72b")
 #: bf16 weights against float32 weights at full width on the card: the
 #: logits' relative L2 error (bf16 keeps 8 bits of mantissa, 2**-9 relative
 #: rounding a weight, through 4 layers of 6,144-wide sums)
@@ -2175,49 +2212,161 @@ def phase_serve_profile() -> None:
                 f"{e.key[:120]}")
 
 
-def phase_serve() -> dict[str, int]:
-    """granite-20b at its published width (d_model 6,144, 48 heads, 1 KV head,
-    head_dim 128, d_ff 24,576, vocab 49,152, bf16), ``SERVE_LAYERS`` layers:
-    the weight draw (time, peak memory); then, with the launch counts zeroed
-    just before and read just after, ``ServingEngine.generate`` for
-    ``SERVE_STEPS`` steps, ``SwitchedDecoder.step`` with mode 0, mode 1 and a
-    ``(SERVE_BATCH,)`` mode vector, and ``generate_switched`` under a dApp:
-    the scalar and the per-UE switch kernels must each launch on the bf16
-    logits, and the selected rows must be the chosen expert's logits,
-    bitwise.  Then the bf16 weights against float32 ones on the card, the
-    reduced config on the card against the CPU, and the call times."""
-    from repro_torch import random as jr
-    from repro_torch.core.dapp import DApp
-    from repro_torch.core.expert_bank import ExecutionMode
-    from repro_torch.device import resolve_device
-    from repro_torch.kernels import build
-    from repro_torch.models import Model, get_config
-    from repro_torch.optim.adamw import tree_leaves
-    from repro_torch.serving import ServingEngine, SwitchedDecodeConfig, SwitchedDecoder
+def _sum_counts(*counts: dict[str, int]) -> dict[str, int]:
+    """Launch counts of several runs, added kernel by kernel."""
+    out = collections.Counter()
+    for c in counts:
+        out.update(c)
+    return dict(out)
 
-    dev = resolve_device("cuda")
-    full = get_config(SERVE_ARCH)
-    cfg = full.with_(n_layers=SERVE_LAYERS)
+
+class recorded_routing:
+    """Within the block, every ``moe_ffn`` call appends its expert assignment,
+    its kept mask and its capacity to ``self.calls``: the FFN is wrapped in
+    the module the blocks call it through, and the routing recomputed with
+    the same operations (deterministic, so the same bits)."""
+
+    def __init__(self):
+        self.calls: list[tuple[torch.Tensor, torch.Tensor, int]] = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._orig = orig = moe.moe_ffn
+
+        def rec(cfg, p, x, **kw):
+            r = moe.route(cfg, p, x.reshape(-1, x.shape[-1]))
+            dp = moe.dispatch(cfg, r, **kw)
+            self.calls.append((r.topi, dp.keep, dp.cap))
+            return orig(cfg, p, x, **kw)
+
+        moe.moe_ffn = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.moe_ffn = self._orig
+        return False
+
+
+def _draw_family(label: str, cfg):
+    """``cfg``'s weights on the card from seed 0: the draw's time, its bytes
+    and its peak device memory."""
+    from repro_torch import random as jr
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import tree_leaves
+
     model = Model(cfg)
-    log(f"serve: {full.name} at its published width (d_model {cfg.d_model}, {cfg.n_heads} "
-        f"heads, {cfg.n_kv_heads} KV head, head_dim {cfg.resolved_head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}); cut: n_layers {full.n_layers} -> "
-        f"{SERVE_LAYERS} (the weight draw's time and the script's limit); "
-        f"{model.n_params() / 1e9:.3f} B params of the full model's "
-        f"{full.n_params() / 1e9:.3f} B")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    params = model.init(jr.PRNGKey(0, dev))
+    params = model.init(jr.PRNGKey(0, "cuda"))
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
     w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    log(f"serve: weight draw {draw_s:.2f} s, {w_bytes / 1e9:.3f} GB of bf16 weights, peak "
-        f"device memory of the draw {peak / 1e9:.3f} GB (threefry in chunks of "
-        f"2**24 elements)")
+    log(f"{label}: weight draw {draw_s:.2f} s, {w_bytes / 1e9:.3f} GB of {cfg.dtype} weights "
+        f"({model.n_params() / 1e9:.3f} B params), peak device memory of the draw "
+        f"{peak / 1e9:.3f} GB (threefry in chunks of 2**24 elements)")
+    return model, params
 
+
+def decode_bytes(model, params, cache) -> tuple[float, str]:
+    """The bytes one decode step must move, and what they are: every weight
+    read once (the reference's dispatch reads every expert's weights whatever
+    the batch; zamba2's shared block once at each call site), the embedding's
+    batch rows only (unless the head is the tied embedding), the cached K/V
+    up to the index read, the SSM and conv states read and written once."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = model.cfg
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    batch = next(v.shape[1] for k, v in cache.items() if k != "index")  # (L, B, ...)
+    weights = sum(nbytes(t) for t in tree_leaves(params))
+    emb = params["embed"]
+    if not cfg.tie_embeddings:
+        weights -= nbytes(emb) - batch * emb.shape[1] * emb.element_size()
+    parts = [f"weights {weights / 1e9:.3f} GB"]
+    if "shared_attn" in params:
+        sites = cfg.n_layers // cfg.attn_every
+        extra = (sites - 1) * sum(nbytes(t) for t in tree_leaves(params["shared_attn"]))
+        weights += extra
+        parts.append(f"the shared block at {sites} sites +{extra / 1e9:.3f} GB")
+    total = float(weights)
+    if "k" in cache:
+        k = cache["k"]
+        pos = int(cache["index"]) + 1
+        kv = 2 * k.shape[0] * k.shape[1] * pos * k.shape[3] * k.shape[4] * k.element_size()
+        total += kv
+        parts.append(f"K/V {kv / 1e9:.4f} GB")
+    if "ssm" in cache:
+        st = 2 * (nbytes(cache["ssm"]) + nbytes(cache["conv"]))
+        total += st
+        parts.append(f"states read and written {st / 1e9:.3f} GB")
+    return total, ", ".join(parts)
+
+
+def _hold_switches(label: str, la: torch.Tensor, lb: torch.Tensor) -> None:
+    """Both switch kernels on two experts' bf16 logits against their plain
+    versions, bitwise: the per-UE switch on a mode vector with its inputs
+    untouched, the scalar switch in place on modes 0 and 1.  These launches
+    are comparisons and fall outside every counted run."""
+    from repro_torch.kernels.switch_select import (
+        switch_select,
+        switch_select_batched_ref,
+        switch_select_ref,
+    )
+
+    kept = (la.clone(), lb.clone())
+    modes = (torch.arange(la.shape[0], device=la.device) % 2).to(torch.int32)
+    got = switch_select(modes, [la, lb])
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16),
+                       switch_select_batched_ref(modes, [la, lb]).view(torch.int16)):
+        raise AssertionError(f"{label}: per-UE switch differs from its plain version")
+    if not (torch.equal(la, kept[0]) and torch.equal(lb, kept[1])):
+        raise AssertionError(f"{label}: per-UE switch wrote into an expert's logits")
+    for mode in (0, 1):
+        des = la.clone()
+        out = switch_select(mode, [des, lb])
+        torch.cuda.synchronize()
+        want = switch_select_ref(mode, [la, lb])
+        if out.data_ptr() != des.data_ptr() or not torch.equal(out.view(torch.int16),
+                                                                want.view(torch.int16)):
+            raise AssertionError(f"{label}: scalar switch differs from its plain version, "
+                                 f"mode {mode}")
+    log(f"{label}: both switch kernels on the {tuple(la.shape)} {la.dtype} logits bitwise "
+        f"their plain versions (per-UE switch inputs untouched; scalar modes 0 and 1)")
+
+
+class Served(typing.NamedTuple):
+    launches: dict[str, int]
+    dec: object
+    tok: torch.Tensor
+    cache: dict
+    vec: torch.Tensor
+
+
+def _serve_family(label: str, model, params, *, switched_run: bool) -> Served:
+    """The serving path at ``SERVE_BATCH`` x ``SERVE_PROMPT`` (max_seq
+    ``SERVE_MAX_SEQ``, window ``SERVE_WINDOW``): with the launch counts
+    zeroed just before and read just after, ``ServingEngine.generate`` for
+    ``SERVE_STEPS`` steps, ``SwitchedDecoder.step`` at mode 0, mode 1 and a
+    ``(SERVE_BATCH,)`` mode vector and, with ``switched_run``,
+    ``generate_switched`` under a dApp: both switch kernels must launch on
+    the bf16 logits, the selected rows must be the chosen expert's logits,
+    bitwise, and the cache given to a switched step must stay as it was.
+    Then both switch kernels are held against their plain versions on the
+    two experts' logits."""
+    from repro_torch import random as jr
+    from repro_torch.core.dapp import DApp
+    from repro_torch.kernels import build
+    from repro_torch.serving import ServingEngine, SwitchedDecodeConfig, SwitchedDecoder
+
+    dev = torch.device("cuda")
+    cfg = model.cfg
     prompts = jr.randint(jr.PRNGKey(1, dev), (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab)
     eng = ServingEngine(model, params, max_seq=SERVE_MAX_SEQ)
     dec = SwitchedDecoder(model, SwitchedDecodeConfig(window=SERVE_WINDOW))
@@ -2235,99 +2384,364 @@ def phase_serve() -> dict[str, int]:
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     l0, _, k0 = dec.step(0, params, tok, cache)
-    l1, _, k1 = dec.step(1, params, tok, cache)
-    lv, new_cache, kv = dec.step(vec, params, tok, cache)
-    t0 = time.perf_counter()
-    switched = eng.generate_switched(prompts, SERVE_STEPS, decoder=dec, dapp=dapp)
-    torch.cuda.synchronize()
-    sw_s = time.perf_counter() - t0
+    l1, _, _ = dec.step(1, params, tok, cache)
+    lv, _, _ = dec.step(vec, params, tok, cache)
+    tokens = [("generate", res.tokens)]
+    if switched_run:
+        t0 = time.perf_counter()
+        switched = eng.generate_switched(prompts, SERVE_STEPS, decoder=dec, dapp=dapp)
+        torch.cuda.synchronize()
+        sw_s = time.perf_counter() - t0
+        tokens.append(("generate_switched", switched.tokens))
     launches = dict(build.launch_counts)
     if launches["switch_select"] == 0 or launches["switch_select_batched"] == 0:
-        raise AssertionError(f"serve: a switch kernel never launched: {launches}")
+        raise AssertionError(f"{label}: a switch kernel never launched: {launches}")
     outs = [e.fn(None, params, tok, cache) for e in dec.bank.experts]
     torch.cuda.synchronize()
     if not all(torch.equal(cache[k], kept[k]) for k in kept):
-        raise AssertionError("serve: a switched step wrote the cache it was given")
+        raise AssertionError(f"{label}: a switched step wrote the cache it was given")
     rows_ok = (torch.equal(l0, outs[0]) and torch.equal(l1, outs[1])
                and all(torch.equal(lv[b], outs[int(m)][b]) for b, m in enumerate(vec.tolist())))
     if not rows_ok:
-        raise AssertionError("serve: the selected logits are not the chosen expert's, bitwise")
-    for name, x in (("generate", res.tokens), ("generate_switched", switched.tokens)):
+        raise AssertionError(f"{label}: the selected logits are not the chosen expert's, "
+                             f"bitwise")
+    for name, x in tokens:
         if x.shape != (SERVE_BATCH, SERVE_STEPS) or not ((x >= 0) & (x < cfg.vocab)).all():
-            raise AssertionError(f"serve: {name} tokens {x.shape}")
+            raise AssertionError(f"{label}: {name} tokens {x.shape}")
     if l0.dtype is not torch.bfloat16 or not bool(torch.isfinite(lv.float()).all()):
-        raise AssertionError(f"serve: logits {l0.dtype}, finite {torch.isfinite(lv).all()}")
-    log(f"serve: generate {SERVE_BATCH} x {SERVE_STEPS} tokens (prompt {SERVE_PROMPT}, "
+        raise AssertionError(f"{label}: logits {l0.dtype}, finite {torch.isfinite(lv).all()}")
+    same = torch.equal(outs[0], outs[1])
+    log(f"{label}: generate {SERVE_BATCH} x {SERVE_STEPS} tokens (prompt {SERVE_PROMPT}, "
         f"max_seq {SERVE_MAX_SEQ}) in {gen_s:.3f} s = {SERVE_BATCH * SERVE_STEPS / gen_s:.1f} "
         f"tokens/s with the prefill; switched steps at modes 0, 1, {vec.tolist()}: the "
-        f"selected rows are the chosen expert's bits, the given cache untouched; "
-        f"KPMs mode 0 {k0}; generate_switched {SERVE_STEPS} steps in {sw_s:.3f} s, modes "
-        f"{switched.history.modes.tolist()}; launches {launches}")
+        f"selected rows are the chosen expert's bits, the given cache untouched; the two "
+        f"experts' logits {'the same bits' if same else 'differ'} (window {SERVE_WINDOW}); "
+        f"KPMs mode 0 {k0}"
+        + (f"; generate_switched {SERVE_STEPS} steps in {sw_s:.3f} s, modes "
+           f"{switched.history.modes.tolist()}" if switched_run else "")
+        + f"; launches {launches}")
+    _hold_switches(label, outs[0], outs[1])
+    return Served(launches=launches, dec=dec, tok=tok, cache=cache, vec=vec)
 
-    # call times: a plain decode step, the switched step (CONCURRENT: three decode
-    # steps, the switch and the KPMs) by mode, and SELECTED_ONLY by expert
+
+def _decode_times(label: str, model, params, served: Served, iters: int, **fns) -> None:
+    """A decode step's and ``fns``' call times, in turns, beside the decode
+    step's byte bound, and decode tokens/s."""
+    tok, cache = served.tok, served.cache
+    times, reading = turns_of(iters=iters,
+                              decode_step=lambda: model.decode_step(params, tok, cache), **fns)
+    n_bytes, what = decode_bytes(model, params, cache)
+    bms, by = bound_ms(n_bytes, 0.0)
+    ms = times["decode_step"]
+    log(f"{label}: ms a call, in turns: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f" ({reading}); decode bound {bms:.3f} ms by {by} ({n_bytes / 1e9:.3f} GB: {what}), "
+        f"the step at {bms / ms:.4f} of it; decode tokens/s at batch {SERVE_BATCH}: "
+        f"{SERVE_BATCH / ms * 1e3:.1f}")
+
+
+def _bf16_vs_f32(label: str, cfg) -> None:
+    """bf16 weights against float32 ones (the same draw) on the card, on the
+    prefill's last-position logits: relative L2 error within
+    ``LM_BF16_REL`` and the argmax equal on rows whose top-2 margin exceeds
+    twice the largest error.  In an MoE model a row whose last token routes
+    to other experts in the two precisions (top-k near a tie) takes another
+    FFN: the limits hold on the rows whose routing agrees, the others are
+    counted."""
+    from repro_torch import random as jr
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import tree_leaves
+
+    dev = torch.device("cuda")
+    model = Model(cfg)
+    prompts = jr.randint(jr.PRNGKey(1, dev), (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab)
+    p16 = model.init(jr.PRNGKey(0, dev))
+    p32 = model.init(jr.PRNGKey(0, dev), dtype=torch.float32)
+    if not all(torch.equal(a, b.to(torch.bfloat16)) for a, b in
+               zip(tree_leaves(p16), tree_leaves(p32))):
+        raise AssertionError(f"{label}: the bf16 draw is not the float32 draw rounded")
+    logits, routes = [], []
+    for p in (p16, p32):
+        with recorded_routing() as rec:
+            out = model.prefill(p, prompts, model.init_cache(
+                SERVE_BATCH, SERVE_PROMPT, dtype=torch.float32, device=dev))[0].float()
+        logits.append(out)
+        routes.append([torch.sort(topi.reshape(SERVE_BATCH, SERVE_PROMPT, -1)[:, -1]).values
+                       for topi, _, _ in rec.calls])
+    del p16, p32
+    torch.cuda.empty_cache()
+    l16, l32 = logits
+    same = torch.ones(SERVE_BATCH, dtype=torch.bool, device=dev)
+    for a, b in zip(*routes):
+        same &= (a == b).all(-1)
+    rel = torch.linalg.vector_norm(l16 - l32, dim=-1) / torch.linalg.vector_norm(l32, dim=-1)
+    err = (l16 - l32).abs().max(-1).values
+    top2 = torch.topk(l32, 2, dim=-1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > 2 * err) & same
+    agree = l16.argmax(-1) == l32.argmax(-1)
+    log(f"{label}: bf16 vs float32 weights at {cfg.n_layers} layers (prefill logits): "
+        f"{int(same.sum())} of {SERVE_BATCH} rows route alike; their relative L2 errors "
+        f"{[round(float(r), 5) for r in rel[same]]} (limit {LM_BF16_REL}), the others' "
+        f"{[round(float(r), 5) for r in rel[~same]]}; argmax agreement "
+        f"{float(agree.float().mean()):.3f} ({int(clear.sum())} rows with a top-2 margin over "
+        f"2 x their max |err|, all agreeing)")
+    if not (bool(same.any()) and bool((rel[same] <= LM_BF16_REL).all())
+            and bool(agree[clear].all())):
+        raise AssertionError(f"{label}: bf16 vs float32: relative {rel.tolist()}, routed "
+                             f"alike {same.tolist()}, argmax {agree.tolist()}")
+
+
+def phase_serve() -> dict[str, int]:
+    """granite-20b at its published width (d_model 6,144, 48 heads, 1 KV head,
+    head_dim 128, d_ff 24,576, vocab 49,152, bf16), ``SERVE_LAYERS`` layers:
+    the weight draw (time, peak memory); the serving path (``_serve_family``
+    with ``generate_switched``); the call times of a decode step and of the
+    switched step by mode (CONCURRENT) and by expert (SELECTED_ONLY); then
+    the bf16 weights against float32 ones on the card."""
+    from repro_torch.core.expert_bank import ExecutionMode
+    from repro_torch.device import resolve_device
+    from repro_torch.models import get_config
+    from repro_torch.serving import SwitchedDecodeConfig, SwitchedDecoder
+
+    resolve_device("cuda")
+    full = get_config(SERVE_ARCH)
+    cfg = full.with_(n_layers=SERVE_LAYERS)
+    log(f"serve: {full.name} at its published width (d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} KV head, head_dim {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}); cut: n_layers {full.n_layers} -> "
+        f"{SERVE_LAYERS} (the weight draw's time and the script's limit); "
+        f"{full.n_params() / 1e9:.3f} B params in the full model")
+    model, params = _draw_family("serve", cfg)
+    served = _serve_family("serve", model, params, switched_run=True)
+    dec, tok, cache, vec = served.dec, served.tok, served.cache, served.vec
     sel = SwitchedDecoder(model, SwitchedDecodeConfig(
         window=SERVE_WINDOW, execution_mode=ExecutionMode.SELECTED_ONLY))
-    times, reading = turns_of(
-        iters=10,
-        decode_step=lambda: model.decode_step(params, tok, cache),
+    _decode_times(
+        "serve", model, params, served, 10,
         concurrent_exact=lambda: dec.step(0, params, tok, cache),
         concurrent_windowed=lambda: dec.step(1, params, tok, cache),
         concurrent_vector=lambda: dec.step(vec, params, tok, cache),
         selected_exact=lambda: sel.step(0, params, tok, cache),
         selected_windowed=lambda: sel.step(1, params, tok, cache))
-    log(f"serve: ms a call, in turns: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
-        + f" ({reading}); decode tokens/s at batch {SERVE_BATCH}: "
-        f"{SERVE_BATCH / times['decode_step'] * 1e3:.1f} plain, "
-        f"{SERVE_BATCH / times['concurrent_exact'] * 1e3:.1f} switched")
-
-    # bf16 weights against float32 weights on the card: relative error and argmax
-    params32 = model.init(jr.PRNGKey(0, dev), dtype=torch.float32)
-    if not all(torch.equal(a, b.to(torch.bfloat16)) for a, b in
-               zip(tree_leaves(params), tree_leaves(params32))):
-        raise AssertionError("serve: the bf16 draw is not the float32 draw rounded")
-    cache32 = model.init_cache(SERVE_BATCH, SERVE_MAX_SEQ, dtype=torch.float32, device=dev)
-    l16 = model.prefill(params, prompts, cache32)[0].float()
-    l32 = model.prefill(params32, prompts, cache32)[0]
-    rel = float(torch.linalg.vector_norm(l16 - l32) / torch.linalg.vector_norm(l32))
-    err = float((l16 - l32).abs().max())
-    top2 = torch.topk(l32, 2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 2 * err  # rows whose argmax bf16 cannot flip
-    agree = l16.argmax(-1) == l32.argmax(-1)
-    del params32, cache32
-    torch.cuda.empty_cache()
-    if not rel <= LM_BF16_REL or not bool(agree[clear].all()):
-        raise AssertionError(f"serve: bf16 vs float32 logits: relative {rel}, argmax agree "
-                             f"{agree.tolist()} (clear {clear.tolist()})")
-    log(f"serve: bf16 vs float32 weights at full width (prefill logits): relative L2 error "
-        f"{rel:.4g} (limit {LM_BF16_REL}), max |err| {err:.4g}, argmax agreement "
-        f"{float(agree.float().mean()):.3f} ({int(clear.sum())} rows with a top-2 margin over "
-        f"2 x max |err|, all agreeing)")
-
-    # the reduced config on the card against the CPU (float32; plain switches there)
-    small = Model(get_config(SERVE_ARCH, reduced=True))
-    got = {}
-    for d in (torch.device("cpu"), dev):
-        p = small.init(jr.PRNGKey(0, d))
-        pr = jr.randint(jr.PRNGKey(1, d), (4, 12), 0, small.cfg.vocab)
-        sdec = SwitchedDecoder(small, SwitchedDecodeConfig(window=4))
-        logits, c = small.prefill(p, pr, small.init_cache(4, 32, dtype=torch.float32, device=d))
-        seq = [logits.cpu()]
-        t = pr[:, -1:]
-        for m in (0, 1, torch.tensor([0, 1, 1, 0], dtype=torch.int32)):
-            logits, c, _ = sdec.step(m, p, t, c)
-            t = torch.argmax(logits, -1)[:, None].to(torch.int32)
-            seq.append(logits.cpu())
-        got[d.type] = seq
-    worst = 0.0
-    for a, b in zip(got["cuda"], got["cpu"]):
-        torch.testing.assert_close(a, b, **LM_LOGIT_TOL)
-        worst = max(worst, float((a - b).abs().max()))
-    log(f"serve: reduced {SERVE_ARCH} (float32) card vs CPU: prefill and 3 switched steps "
-        f"within {LM_LOGIT_TOL}, max |diff| {worst:.3g}")
+    _bf16_vs_f32("serve", cfg)
     SERVED.update(model=model, dec=dec, params=params, tok=tok, cache=cache)
+    return served.launches
+
+
+def _prefill_drops(label: str, model, params) -> None:
+    """The share of routed token-slot pairs that the serving prefill's
+    capacity drops (``SERVE_BATCH`` x ``SERVE_PROMPT`` tokens)."""
+    from repro_torch import random as jr
+
+    dev = torch.device("cuda")
+    prompts = jr.randint(jr.PRNGKey(1, dev), (SERVE_BATCH, SERVE_PROMPT), 0, model.cfg.vocab)
+    with recorded_routing() as rec:
+        model.prefill(params, prompts, model.init_cache(
+            SERVE_BATCH, SERVE_MAX_SEQ, dtype=torch.float32, device=dev))
+    dropped = sum(int((~k).sum()) for _, k, _ in rec.calls)
+    routed = sum(k.numel() for _, k, _ in rec.calls)
+    log(f"{label}: the prefill's {prompts.numel()} tokens at capacity {rec.calls[0][2]} a "
+        f"layer drop {dropped} of {routed} routed token-slots ({dropped / routed:.4f}) over "
+        f"{len(rec.calls)} MoE layers")
+
+
+def phase_serve_moe() -> dict[str, int]:
+    """dbrx-132b at its published width (d_model 6,144, 48 heads, 8 KV heads,
+    16 experts top-4, d_ff_expert 10,752, vocab 100,352, bf16), ``MOE_LAYERS``
+    of its 40 layers: the serving path (``_serve_family`` with
+    ``generate_switched``), a decode step and a switched step against the
+    decode step's bound, the share of routed token-slots the prefill's
+    capacity drops; then bf16 against float32 at ``MOE_F32_LAYERS`` layer."""
+    from repro_torch.models import get_config
+
+    torch.cuda.empty_cache()  # the training phase's cached segments back to the driver
+    full = get_config(MOE_ARCH)
+    cfg = full.with_(n_layers=MOE_LAYERS)
+    label = "serve moe"
+    log(f"{label}: {full.name} at its published width (d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} KV heads, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+        f"d_ff_expert {cfg.moe.d_ff_expert}, vocab {cfg.vocab}, {cfg.dtype}); cut: n_layers "
+        f"{full.n_layers} -> {MOE_LAYERS} (40 layers need "
+        f"{full.n_params() * 2 / 1e9:.0f} GB of bf16 weights)")
+    model, params = _draw_family(label, cfg)
+    served = _serve_family(label, model, params, switched_run=True)
+    _decode_times(label, model, params, served, 5, switched_vector=lambda: served.dec.step(
+        served.vec, params, served.tok, served.cache))
+    _prefill_drops(label, model, params)
+    launches = served.launches
+    del model, params, served
+    torch.cuda.empty_cache()
+    _bf16_vs_f32(label, full.with_(n_layers=MOE_F32_LAYERS))
     return launches
+
+
+def phase_serve_kimi() -> dict[str, int]:
+    """kimi-k2-1t-a32b at its published width (d_model 7,168, 64 heads, 384
+    experts top-8 and the shared expert, d_ff_expert 2,048, the dense first
+    layer's d_ff 18,432, vocab 163,840, bf16), ``KIMI_LAYERS`` of its 61
+    layers (the dense layer and one MoE layer): one prefill (capacity 32 at
+    1,024 tokens), ``KIMI_DECODE_STEPS`` decode steps and one switched step
+    at a mode vector, with the launch counts zeroed just before and read just
+    after; each step's time against the decode step's byte bound."""
+    from repro_torch import random as jr
+    from repro_torch.kernels import build
+    from repro_torch.models import get_config
+    from repro_torch.serving import SwitchedDecodeConfig, SwitchedDecoder
+
+    full = get_config(KIMI_ARCH)
+    cfg = full.with_(n_layers=KIMI_LAYERS)
+    label = "serve kimi"
+    log(f"{label}: {full.name} at its published width (d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
+        f"{cfg.moe.n_shared_experts} shared, d_ff_expert {cfg.moe.d_ff_expert}, dense d_ff "
+        f"{cfg.moe.d_ff_dense}, vocab {cfg.vocab}, {cfg.dtype}); cut: n_layers "
+        f"{full.n_layers} -> {KIMI_LAYERS} (the dense first layer and one MoE layer; 61 "
+        f"layers need {full.n_params() * 2 / 1e12:.2f} TB of bf16 weights)")
+    model, params = _draw_family(label, cfg)
+    dev = torch.device("cuda")
+    prompts = jr.randint(jr.PRNGKey(1, dev), (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab)
+    dec = SwitchedDecoder(model, SwitchedDecodeConfig(window=SERVE_WINDOW))
+    vec = (torch.arange(SERVE_BATCH, device=dev) % 2).to(torch.int32)
+
+    def prefill():
+        return model.prefill(params, prompts, model.init_cache(
+            SERVE_BATCH, SERVE_MAX_SEQ, dtype=torch.float32, device=dev))
+
+    prefill()  # first calls outside the run
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    step_ms = []
+    for _ in range(KIMI_DECODE_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, tok, cache)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    kept = {k: v.clone() for k, v in cache.items()}
+    t0 = time.perf_counter()
+    lv, _, kpms = dec.step(vec, params, tok, cache)
+    torch.cuda.synchronize()
+    sw_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(build.launch_counts)
+    if launches["switch_select_batched"] == 0:
+        raise AssertionError(f"{label}: the per-UE switch never launched: {launches}")
+    outs = [e.fn(None, params, tok, cache) for e in dec.bank.experts]
+    torch.cuda.synchronize()
+    if not all(torch.equal(cache[k], kept[k]) for k in kept):
+        raise AssertionError(f"{label}: the switched step wrote the cache it was given")
+    if not all(torch.equal(lv[b], outs[int(m)][b]) for b, m in enumerate(vec.tolist())):
+        raise AssertionError(f"{label}: the selected logits are not the chosen expert's")
+    if lv.dtype is not torch.bfloat16 or not bool(torch.isfinite(lv.float()).all()):
+        raise AssertionError(f"{label}: logits {lv.dtype}, finite {torch.isfinite(lv).all()}")
+    n_bytes, what = decode_bytes(model, params, cache)
+    bms, by = bound_ms(n_bytes, 0.0)
+    best = min(step_ms)
+    log(f"{label}: prefill {SERVE_BATCH} x {SERVE_PROMPT} in {prefill_s * 1e3:.2f} ms; "
+        f"{KIMI_DECODE_STEPS} decode steps {[round(t, 3) for t in step_ms]} ms (host clock, "
+        f"synchronised), the best at {bms / best:.4f} of its bound {bms:.3f} ms by {by} "
+        f"({n_bytes / 1e9:.3f} GB: {what}), {SERVE_BATCH / best * 1e3:.1f} tokens/s; switched "
+        f"step at {vec.tolist()} {sw_ms:.3f} ms, the selected rows the chosen expert's bits, "
+        f"the given cache untouched, the experts' logits "
+        f"{'the same bits' if torch.equal(outs[0], outs[1]) else 'differ'}; KPMs {kpms}; "
+        f"launches {launches}")
+    _hold_switches(label, outs[0], outs[1])
+    _prefill_drops(label, model, params)
+    return launches
+
+
+def phase_serve_ssm() -> dict[str, int]:
+    """zamba2-7b at its published width and full depth (d_model 3,584, 81
+    mamba2 layers with 2 groups, one shared attention block after every 6,
+    so 13 call sites each with its own KV cache, bf16), then mamba2-130m
+    whole (bf16): each served with ``_serve_family`` (no
+    ``generate_switched``).  zamba2's windowed expert differs from the exact
+    one (window 64 against a context of 128); mamba2's two experts give the
+    same bits (no attention), as in the reference."""
+    from repro_torch.models import get_config
+
+    counts = []
+    for arch, expect_same in ((HYBRID_ARCH, False), (SSM_ARCH, True)):
+        cfg = get_config(arch)
+        label = f"serve {arch}"
+        s = cfg.ssm
+        log(f"{label}: {cfg.name} at its published width and depth ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, SSM state {s.d_state}, {s.n_heads(cfg.d_model)} heads of "
+            f"{s.head_dim}, {s.n_groups} groups, chunk {s.chunk}"
+            + (f", the shared block every {cfg.attn_every} layers" if cfg.attn_every else "")
+            + f", vocab {cfg.vocab}, {cfg.dtype}); no cut")
+        model, params = _draw_family(label, cfg)
+        served = _serve_family(label, model, params, switched_run=False)
+        _decode_times(label, model, params, served, 5, switched_vector=lambda: served.dec.step(
+            served.vec, params, served.tok, served.cache))
+        counts.append(served.launches)
+        del model, params, served
+        torch.cuda.empty_cache()
+    return _sum_counts(*counts)
+
+
+def phase_families_reduced() -> None:
+    """The reduced configs of the dense, MoE, SSM, hybrid and VLM families
+    (float32) on the card against the CPU: prefill and switched steps at modes 0, 1
+    and a vector within ``LM_LOGIT_TOL``, the MoE layers' expert assignment
+    and kept mask equal in that prefill, and one train step (loss, gradient
+    norm, weights) within ``LM_STEP_LOSS_RTOL`` / ``LM_STEP_WEIGHT_ATOL``."""
+    from repro_torch import random as jr
+    from repro_torch.data import TokenStream
+    from repro_torch.models import Model, get_config
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.serving import SwitchedDecodeConfig, SwitchedDecoder
+    from repro_torch.train import step as tstep
+
+    for arch in REDUCED_ARCHS:
+        model = Model(get_config(arch, reduced=True))
+        p0 = model.init(jr.PRNGKey(0))
+        prompts = jr.randint(jr.PRNGKey(1), (4, 8), 0, model.cfg.vocab)
+        batch = TokenStream(vocab=model.cfg.vocab, seq_len=8, global_batch=4).batch_at(0)
+        tc = tstep.TrainConfig(learning_rate=LM_TRAIN_LR)
+        dec = SwitchedDecoder(model, SwitchedDecodeConfig(window=4))
+        got = {}
+        for dev in (torch.device("cpu"), torch.device("cuda")):
+            p = tree_map(lambda t: t.to(dev), p0)
+            with recorded_routing() as rec:
+                logits, c = model.prefill(p, prompts.to(dev), model.init_cache(
+                    4, 16, dtype=torch.float32, device=dev))
+            seq, t = [logits.cpu()], prompts[:, -1:].to(dev)
+            for m in (0, 1, torch.tensor([0, 1, 1, 0], dtype=torch.int32)):
+                logits, c, _ = dec.step(m, p, t, c)
+                t = torch.argmax(logits, -1)[:, None].to(torch.int32)
+                seq.append(logits.cpu())
+            state = tstep.init_train_state(model, p, tc)
+            state, met = tstep.train_step(model, tc, state, batch)
+            got[dev.type] = (seq, [(a.cpu(), k.cpu()) for a, k, _ in rec.calls],
+                             float(met["loss"]), float(met["grad_norm"]),
+                             [w.cpu() for w in tree_leaves(state.params)])
+        (sc, rc, lc, gc, wc), (sg, rg, lg, gg, wg) = got["cpu"], got["cuda"]
+        worst = 0.0
+        for a, b in zip(sg, sc):
+            torch.testing.assert_close(a, b, **LM_LOGIT_TOL)
+            worst = max(worst, float((a - b).abs().max()))
+        if len(rc) != len(rg) or not all(torch.equal(a, b) and torch.equal(k, j)
+                                         for (a, k), (b, j) in zip(rg, rc)):
+            raise AssertionError(f"families: {arch}: the MoE routing or kept mask differs "
+                                 f"card vs CPU")
+        l_err, g_err = abs(lg - lc) / abs(lc), abs(gg - gc) / abs(gc)
+        w_err = max(float((a - b).abs().max()) for a, b in zip(wg, wc))
+        if not (l_err <= LM_STEP_LOSS_RTOL and g_err <= LM_STEP_LOSS_RTOL
+                and w_err <= LM_STEP_WEIGHT_ATOL):
+            raise AssertionError(f"families: {arch}: train step card vs CPU: loss {l_err}, "
+                                 f"grad norm {g_err}, weights {w_err}")
+        kept = sum(int(k.sum()) for _, k in rg)
+        log(f"families: reduced {arch} (float32) card vs CPU: prefill and 3 switched steps "
+            f"within {LM_LOGIT_TOL}, max |diff| {worst:.3g}; "
+            + (f"{len(rg)} MoE layers' assignment and kept mask equal ({kept} of "
+               f"{sum(k.numel() for _, k in rg)} pairs kept); " if rg else "")
+            + f"one train step: loss {lc:.6f}, rel {l_err:.3g}, grad norm rel {g_err:.3g}, "
+            f"weights max |diff| {w_err:.3g} (limits {LM_STEP_LOSS_RTOL}, "
+            f"{LM_STEP_WEIGHT_ATOL})")
 
 
 def phase_api() -> dict[str, int]:
@@ -2722,11 +3136,17 @@ def main() -> int:
     serve_launches = phase_serve()
     api_launches = phase_api()
     phase_lm_train()
+    # the other LM families, one model at a time (each frees its weights), after
+    # the training phase: its compressed-gradient step needs nearly the whole
+    # card, and the draws before it left 7.55 GiB of it in cached segments
+    lm_launches = _sum_counts(serve_launches, phase_serve_moe(), phase_serve_kimi(),
+                              phase_serve_ssm())
+    phase_families_reduced()
     for r in rows:
         counter = r.pop("counter", r["name"])
         source = {"gated_expert": gated_launches, "switch_gather_batched": unf_launches,
-                  "switch_select": host_launches, "switch_select_batched_bf16": serve_launches,
-                  "switch_select_bf16": serve_launches}.get(r["name"], launches)
+                  "switch_select": host_launches, "switch_select_batched_bf16": lm_launches,
+                  "switch_select_bf16": lm_launches}.get(r["name"], launches)
         r["launches"] = source[counter]
         r.pop("shape")
     log(f"kernels held against their plain versions: {[r['name'] for r in rows]}")

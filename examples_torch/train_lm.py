@@ -1,13 +1,11 @@
 """Example on the PyTorch/CUDA port: fault-tolerant LM training (the port of
 ``examples/train_lm.py``).
 
-The reference's default arch, ``mamba2-130m``, is not ported (its family
-waits in ``ROADMAP.md`` Queue 1), so ``--arch mamba2-130m`` raises
-``NotImplementedError`` naming that item, and the port's default is
-``granite-20b``'s reduced config.  ``--full`` takes the published config
-with ``remat="block"``, as the reference does; the published granite-20b
-does not fit one card (``python -m repro_torch.launch.train --full --layers
-4`` trains it at full width, 4 layers deep).  ``--inject-failure k``
+The default is ``mamba2-130m``'s reduced config, as in the reference;
+``--full`` takes the published config (about 129M parameters) with
+``remat="block"``, as the reference does.  ``--arch`` takes any config the
+port carries; the encoder-decoder and local/global configs raise
+``NotImplementedError`` naming ``ROADMAP.md`` Queue 1.  ``--inject-failure k``
 simulates a node failure before step ``k``: the loop restarts from the
 newest checkpoint and continues bitwise.
 
@@ -30,7 +28,7 @@ from repro_torch.train.step import TrainConfig, init_train_state, train_step
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-20b")
+    ap.add_argument("--arch", default="mamba2-130m")
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

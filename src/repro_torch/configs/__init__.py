@@ -1,1 +1,1 @@
-"""Data-only model configs of the side LM stack (the ported dense family)."""
+"""Data-only model configs of the side LM stack (the ported families)."""

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.telemetry import KPMRing, ring_init, ring_push, ring_window_mean
+from repro_torch.device import resolve_device
 from repro_torch.kernels.tree_infer import tree_infer, tree_infer_ref
 
 # -- device policy tables -----------------------------------------------------
@@ -66,8 +67,10 @@ class PerUEPolicy(NamedTuple):
 
 
 def per_ue_policy(tables: Sequence, assignment,
-                  device: torch.device | str = "cpu") -> PerUEPolicy:
-    """Build a validated ``PerUEPolicy`` from tables + per-UE assignment."""
+                  device: torch.device | str = "cuda") -> PerUEPolicy:
+    """Build a validated ``PerUEPolicy`` from tables + per-UE assignment, its
+    assignment on ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     tables = tuple(tables)
     if not tables:
         raise ValueError("per-UE policy needs at least one table")
@@ -83,8 +86,10 @@ DevicePolicy = DeviceTreePolicy | DeviceThresholdPolicy | PerUEPolicy
 
 
 def export_tree_tables(feature, threshold, leaf_values,
-                       device: torch.device | str = "cpu") -> DeviceTreePolicy:
-    """Level-order tree arrays -> a ``DeviceTreePolicy`` on ``device``."""
+                       device: torch.device | str = "cuda") -> DeviceTreePolicy:
+    """Level-order tree arrays -> a ``DeviceTreePolicy`` on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     return DeviceTreePolicy(
         feature=torch.as_tensor(np.asarray(feature, np.int32), device=device),
         threshold=torch.as_tensor(np.asarray(threshold, np.float32), device=device),
@@ -177,8 +182,11 @@ class DeviceSwitchState(NamedTuple):
 
 
 def init_device_switch(n_ues: int, n_features: int, cfg: SwitchConfig,
-                       device: torch.device | str = "cpu", *,
+                       device: torch.device | str = "cuda", *,
                        faults=None) -> DeviceSwitchState:
+    """The switch state of ``n_ues`` UEs at the default mode, on ``device``
+    (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     d = torch.full((n_ues,), cfg.default_mode, dtype=torch.int32, device=device)
     z = torch.zeros((4, n_ues), dtype=torch.int32, device=device)
     breaker_window = 1 if faults is None else faults.breaker_window
@@ -347,7 +355,7 @@ def host_replay_closed_loop(host_policy, features, cfg: SwitchConfig, *,
             raise ValueError(f"trips {trips.shape} vs features {(n_slots, n_ues)}")
 
     def fresh_ring():
-        return ring_init(1, cfg.window_slots, n_feat)
+        return ring_init(1, cfg.window_slots, n_feat, "cpu")
 
     rings = [fresh_ring() for _ in range(n_ues)]
     active = [cfg.default_mode] * n_ues

@@ -15,6 +15,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.tree_infer import tree_infer, tree_infer_ref
 
 # -- trainer -----------------------------------------------------------------
@@ -143,8 +144,9 @@ class DecisionTreePolicy:
         return tree_infer(x.to(torch.float32).contiguous(), *tables,
                           self.tree.depth).to(torch.int32)
 
-    def to_device(self, device: torch.device | str = "cpu"):
-        """Export to level-order device tables for in-loop inference."""
+    def to_device(self, device: torch.device | str = "cuda"):
+        """Export to level-order device tables for in-loop inference, on
+        ``device`` (the card unless the caller asks for the CPU)."""
         from repro_torch.core.closed_loop import export_tree_tables
 
         return export_tree_tables(self.tree.feature, self.tree.threshold,
@@ -171,8 +173,12 @@ class ThresholdPolicy:
             return int(self.mode_below)
         return int(prev_mode)
 
-    def to_device(self, device: torch.device | str = "cpu"):
+    def to_device(self, device: torch.device | str = "cuda"):
+        """The gate as device tensors on ``device`` (the card unless the
+        caller asks for the CPU)."""
         from repro_torch.core.closed_loop import DeviceThresholdPolicy
+
+        device = resolve_device(device)
 
         def t(v, dt):
             return torch.tensor(v, dtype=dt, device=device)

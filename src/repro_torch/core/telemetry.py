@@ -26,6 +26,8 @@ from typing import Mapping, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 AERIAL_CANDIDATE_KPMS: tuple[str, ...] = (
     "code_rate", "sinr", "qam_order", "mcs_index", "tb_size", "num_cbs",
     "pdu_length", "ndi", "rsrp",
@@ -150,7 +152,10 @@ class KPMRing(NamedTuple):
 
 
 def ring_init(n_ues: int, capacity: int, n_kpms: int,
-              device: torch.device | str = "cpu") -> KPMRing:
+              device: torch.device | str = "cuda") -> KPMRing:
+    """Empty KPM rings of ``n_ues`` UEs on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     z = torch.zeros(n_ues, dtype=torch.int64, device=device)
     return KPMRing(
         buf=torch.zeros((n_ues, capacity, n_kpms), dtype=torch.float32, device=device),

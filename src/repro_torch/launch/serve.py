@@ -3,11 +3,12 @@
 
     python -m repro_torch.launch.serve --arch granite-20b --steps 32
     python -m repro_torch.launch.serve --arch granite-20b --full --switched
-    python -m repro_torch.launch.serve --device cpu
+    python -m repro_torch.launch.serve --arch dbrx-132b --device cpu
 
 It runs on the card unless ``--device cpu`` is given.  ``--arch`` takes the
-configs the port carries (``PORTED_ARCHS``); ``--full`` is the published
-config (bf16 weights), the default the reduced smoke config.
+configs the port carries (``PORTED_ARCHS``: the dense, VLM, MoE, SSM and
+hybrid families); ``--full`` is the published config (bf16 weights), the
+default the reduced smoke config.
 """
 
 from __future__ import annotations

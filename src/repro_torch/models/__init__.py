@@ -1,4 +1,5 @@
-"""The side LM stack's model zoo: one config + facade (the dense family so far)."""
+"""The side LM stack's model zoo: one config + facade (the dense, VLM,
+MoE, SSM and hybrid families so far)."""
 
 from repro_torch.models.config import (
     ALL_SHAPES,

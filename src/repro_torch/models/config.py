@@ -4,9 +4,9 @@
 One dataclass describes every family (dense / MoE / SSM / hybrid / enc-dec /
 VLM backbone), with the reference's exact parameter counts; per-arch
 constructor modules live in ``repro_torch.configs.<id>`` and the registry
-here maps ``--arch <id>`` to them.  The port carries the three uniform dense
-configs so far (``PORTED_ARCHS``); ``get_config`` names the queue that holds
-the others.
+here maps ``--arch <id>`` to them.  The port carries the dense, VLM, MoE,
+SSM and hybrid configs so far (``PORTED_ARCHS``); ``get_config`` names the
+queue that holds the others.
 """
 
 from __future__ import annotations
@@ -238,11 +238,21 @@ ARCH_IDS: tuple[str, ...] = (
 )
 
 
-#: the configs ported so far: the uniform dense family
-PORTED_ARCHS: tuple[str, ...] = ("granite-20b", "command-r-plus-104b", "qwen1.5-110b")
+#: the configs ported so far: the uniform dense family, the VLM backbone, the
+#: MoE, SSM and hybrid families
+PORTED_ARCHS: tuple[str, ...] = (
+    "granite-20b",
+    "command-r-plus-104b",
+    "qwen1.5-110b",
+    "dbrx-132b",
+    "kimi-k2-1t-a32b",
+    "mamba2-130m",
+    "zamba2-7b",
+    "qwen2-vl-72b",
+)
 
 #: the items of ROADMAP.md Queue 1 that hold the LM stack's unported work
-FAMILIES_QUEUE_ITEM = 3  # the other families (MoE, SSM, hybrid, enc-dec, ...)
+FAMILIES_QUEUE_ITEM = 3  # the other families (enc-dec, local/global)
 SHARDED_TRAINING_QUEUE_ITEM = 4  # the sharded training half (meshes, specs)
 
 

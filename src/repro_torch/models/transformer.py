@@ -1,22 +1,27 @@
-"""Forward pass of the side LM stack (port of ``repro.models.transformer``),
-dense family.
+"""Forward pass of the side LM stack (port of ``repro.models.transformer``).
 
 One parameter-def tree and one set of apply functions, as the reference
 has them.  The port carries the dense family (command-r-plus's parallel
-block, granite's MQA with a GELU MLP, qwen1.5's QKV bias) and the VLM
-backbone that shares its blocks; the MoE, SSM, hybrid, encoder-decoder and
-local/global (gemma2) paths raise ``NotImplementedError`` and wait in
-``ROADMAP.md`` Queue 1 (``config.families_queue``).
+block, granite's MQA with a GELU MLP, qwen1.5's QKV bias), the VLM
+backbone that shares its blocks (qwen2-vl, M-RoPE), the MoE family (dbrx;
+kimi-k2 with its dense first layer and shared expert), the SSM family
+(mamba2) and the hybrid (zamba2: a mamba2 backbone and one shared
+attention block applied after every ``attn_every`` layers).  The
+encoder-decoder and local/global (gemma2) paths raise
+``NotImplementedError`` and wait in ``ROADMAP.md`` Queue 1
+(``config.families_queue``).
 
 The stacked layer params keep their leading layer axis, as the reference
 stacks them for ``lax.scan``, so the weight converter is a direct map; the
 scan becomes a loop over that axis.
 
 Rematerialisation (``cfg.remat``) applies when gradients are on: each block
-runs under ``torch.utils.checkpoint`` (non-reentrant), as the reference
-wraps its scan body in ``jax.checkpoint``.  ``"full"`` saves nothing and
-recomputes the block in the backward pass; ``"block"`` saves the outputs of
-the products without batch dimensions (the projections and the MLP, which
+the reference scans (dense, MoE and mamba blocks; not zamba2's shared
+block, which the reference applies outside its scans) runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its scan
+body in ``jax.checkpoint``.  ``"full"`` saves nothing and recomputes the
+block in the backward pass; ``"block"`` saves the outputs of the products
+without batch dimensions (the projections and the MLP, which
 ``torch.einsum`` runs as ``bmm`` with a batch of 1, or ``mm`` / ``addmm``)
 and recomputes the rest, as ``jax.checkpoint_policies.
 dots_with_no_batch_dims_saveable`` does; ``"none"`` keeps every
@@ -39,21 +44,24 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MoE
 from repro_torch.models.config import Family, ModelConfig, families_queue
 from repro_torch.models.params import ParamDef, tree_map_defs
 
 _DENSE = (Family.DENSE, Family.VLM)
+_PORTED = (*_DENSE, Family.MOE, Family.SSM, Family.HYBRID)
 
 
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: it waits in {families_queue()}: the MoE, SSM, "
-        f"hybrid, encoder-decoder and local/global paths")
+        f"{what} is not ported yet: it waits in {families_queue()}: the "
+        f"encoder-decoder and local/global paths")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for a family or layer pattern the port does not carry yet."""
-    if cfg.family not in _DENSE:
+    if cfg.family not in _PORTED:
         raise unported(f"the {cfg.family.value} family ({cfg.name})")
     if cfg.local_global_pattern:
         raise unported(f"the local/global layer pattern ({cfg.name})")
@@ -83,6 +91,27 @@ def _dense_block_defs(cfg: ModelConfig) -> dict[str, Any]:
     return d
 
 
+def _moe_block_defs(cfg: ModelConfig) -> dict[str, Any]:
+    return {
+        "attn": L.attention_defs(cfg),
+        "moe": MoE.moe_defs(cfg),
+        "norm_attn": L.norm_defs(cfg.d_model),
+        "norm_mlp": L.norm_defs(cfg.d_model),
+    }
+
+
+def _mamba_block_defs(cfg: ModelConfig) -> dict[str, Any]:
+    return {
+        "mixer": M.mamba_defs(cfg),
+        "norm": L.norm_defs(cfg.d_model),
+    }
+
+
+def dense_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of an MoE model's leading dense layers (their FF width)."""
+    return cfg.with_(d_ff=cfg.moe.d_ff_dense)
+
+
 def make_defs(cfg: ModelConfig) -> dict[str, Any]:
     check_ported(cfg)
     v, d = cfg.vocab, cfg.d_model
@@ -92,7 +121,17 @@ def make_defs(cfg: ModelConfig) -> dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v), ("embed", "vocab"), init="small")
-    defs["blocks"] = _stack(_dense_block_defs(cfg), cfg.n_layers)
+    if cfg.family in _DENSE:
+        defs["blocks"] = _stack(_dense_block_defs(cfg), cfg.n_layers)
+    elif cfg.family is Family.MOE:
+        k = cfg.moe.first_k_dense
+        if k:
+            defs["dense_blocks"] = _stack(_dense_block_defs(dense_cfg(cfg)), k)
+        defs["blocks"] = _stack(_moe_block_defs(cfg), cfg.n_layers - k)
+    else:  # SSM, or the hybrid's backbone and its one shared block
+        defs["blocks"] = _stack(_mamba_block_defs(cfg), cfg.n_layers)
+        if cfg.family is Family.HYBRID:
+            defs["shared_attn"] = _dense_block_defs(cfg)
     return defs
 
 
@@ -147,6 +186,23 @@ def _dense_block(
     return x + m, cache_out
 
 
+def _moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor, **kw):
+    """Attention (never windowed: the reference calls it with ``is_local``
+    left False) and the routed FFN; returns (x, K/V, aux loss)."""
+    h = L.apply_norm(cfg, x, p["norm_attn"])
+    a, cache_out = L.attention(cfg, p["attn"], h, **kw)
+    x = x + a
+    h = L.apply_norm(cfg, x, p["norm_mlp"])
+    m, aux = MoE.moe_ffn(cfg, p["moe"], h)
+    return x + m, cache_out, aux
+
+
+def _mamba_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, cache=None):
+    h = L.apply_norm(cfg, x, p["norm"])
+    y, new_cache = M.mamba_block(cfg, p["mixer"], h, cache=cache)
+    return x + y, new_cache
+
+
 # -- embedding / head --------------------------------------------------------------
 
 
@@ -191,8 +247,25 @@ def _needs_grad(x: torch.Tensor, blocks: Any) -> bool:
     return x.requires_grad or blocks.requires_grad
 
 
-def _block_out(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
+def _dense_out(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
     return _dense_block(cfg, p, x, positions=positions)[0]
+
+
+def _moe_out(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    y, _, aux = _moe_block(cfg, p, x, positions=positions)
+    return y, aux
+
+
+def _mamba_out(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    return _mamba_block_apply(cfg, p, x)[0]
+
+
+def _apply(remat: str, fn, *args):
+    """One scanned block, ``fn(*args)``, under the remat setting."""
+    if remat == "none":
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=_save_dots if remat == "block" else noop_context_fn)
 
 
 # -- full forward (train / eval) ----------------------------------------------------
@@ -219,8 +292,8 @@ def forward(
     positions: torch.Tensor | None = None,
     encoder_frames: torch.Tensor | None = None,
 ) -> ForwardOut:
-    """Full-sequence forward -> logits (B, S, V) + aux loss (0 for the dense
-    family)."""
+    """Full-sequence forward -> logits (B, S, V) + aux loss (the MoE layers'
+    load-balancing losses summed; 0 for the other families)."""
     check_ported(cfg)
     if encoder_frames is not None:
         raise unported("the encoder-decoder path")
@@ -231,13 +304,47 @@ def forward(
     remat = cfg.remat if torch.is_grad_enabled() and _needs_grad(x, blocks) else "none"
     if remat not in _REMAT:
         raise ValueError(f"remat {cfg.remat!r}: one of {_REMAT}")
-    for i in range(n_stacked(blocks)):
-        p = layer(blocks, i)
-        if remat == "none":
-            x, _ = _dense_block(cfg, p, x, positions=positions)
-        else:
-            x = checkpoint(_block_out, cfg, p, x, positions, use_reentrant=False,
-                           context_fn=_save_dots if remat == "block" else noop_context_fn)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in _DENSE:
+        for i in range(n_stacked(blocks)):
+            x = _apply(remat, _dense_out, cfg, layer(blocks, i), x, positions)
+    elif cfg.family is Family.MOE:
+        if cfg.moe.first_k_dense:
+            dcfg, dense = dense_cfg(cfg), params["dense_blocks"]
+            for i in range(n_stacked(dense)):
+                x = _apply(remat, _dense_out, dcfg, layer(dense, i), x, positions)
+        auxes = []
+        for i in range(n_stacked(blocks)):
+            x, aux = _apply(remat, _moe_out, cfg, layer(blocks, i), x, positions)
+            auxes.append(aux)
+        aux_total = aux_total + torch.sum(torch.stack(auxes))
+    elif cfg.family is Family.SSM:
+        for i in range(n_stacked(blocks)):
+            x = _apply(remat, _mamba_out, cfg, layer(blocks, i), x)
+    else:
+        x = _forward_hybrid(cfg, params, x, positions, remat)
     logits = unembed(cfg, params, x)
-    return ForwardOut(logits=logits,
-                      aux_loss=torch.zeros((), dtype=torch.float32, device=x.device))
+    return ForwardOut(logits=logits, aux_loss=aux_total)
+
+
+def hybrid_groups(cfg: ModelConfig) -> tuple[list[range], range]:
+    """zamba2's layer plan: ``G = n_layers // attn_every`` groups of mamba
+    layers, the shared block after each, then the remaining layers as a
+    tail (81 = 13 x 6 + 3 for zamba2-7b)."""
+    k = cfg.attn_every
+    n_groups = cfg.n_layers // k
+    return ([range(g * k, (g + 1) * k) for g in range(n_groups)],
+            range(n_groups * k, cfg.n_layers))
+
+
+def _forward_hybrid(cfg, params, x, positions, remat):
+    """zamba2: mamba backbone; one *shared* attention block every k layers."""
+    blocks = params["blocks"]
+    groups, tail = hybrid_groups(cfg)
+    for group in groups:
+        for i in group:
+            x = _apply(remat, _mamba_out, cfg, layer(blocks, i), x)
+        x, _ = _dense_block(cfg, params["shared_attn"], x, positions=positions)
+    for i in tail:
+        x = _apply(remat, _mamba_out, cfg, layer(blocks, i), x)
+    return x

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.mmse_interp import mmse_interp, mmse_interp_ref
 from repro_torch.phy import dmrs as dmrs_mod
 from repro_torch.phy.nr import SlotConfig
@@ -50,8 +51,11 @@ class WienerInterpolator:
         *,
         rms_delay_spread_s: float = 100e-9,
         noise_var: float = 1e-2,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "WienerInterpolator":
+        """The interpolator on ``device`` (the card unless the caller asks for
+        the CPU)."""
+        device = resolve_device(device)
         r = exponential_pdp_correlation(cfg, rms_delay_spread_s)
         p = cfg.pilot_sc_indices
         r_fp = r[:, p]

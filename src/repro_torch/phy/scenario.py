@@ -47,6 +47,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.phy.channel import (
     INDOOR_LOS,
     ChannelConfig,
@@ -222,13 +223,15 @@ def make_schedule(name: str, *, n_ues: int | None = None, **kwargs):
 
 
 def scenario_params(cfg, name: str, *, n_slots: int, n_ues: int | None = None,
-                    device: torch.device | str = "cpu", **kwargs):
-    """Registry lookup straight to ``ChannelParams`` on ``device``.
+                    device: torch.device | str = "cuda", **kwargs):
+    """Registry lookup straight to ``ChannelParams`` on ``device`` (the card
+    unless the caller asks for the CPU).
 
     Returns ``(profile, params)`` ready for the batched engine: leaves are
     ``(n_slots, ...)`` for homogeneous scenarios and ``(n_slots, n_ues, ...)``
     for per-UE ones.
     """
+    device = resolve_device(device)
     sched = make_schedule(name, n_ues=n_ues, **kwargs)
     if isinstance(sched, (list, tuple)):
         return channel_params_ue_schedule(cfg, sched, n_slots, device)

@@ -116,11 +116,12 @@ class SwitchedDecoder:
                                          cache)
         vals = torch.stack([kpms["entropy"], kpms["expert_kl"], kpms["expert_agree"],
                             cache["index"].to(torch.float32)]).cpu().tolist()
+        max_seq = cache["k"].shape[2] if "k" in cache else 1  # an SSM cache has no length
         host_kpms = {
             "entropy": vals[0],
             "expert_kl": vals[1],
             "expert_agree": vals[2],
-            "cache_occupancy": vals[3] / cache["k"].shape[2],
+            "cache_occupancy": vals[3] / max_seq,
             "exact_cost_bytes": self.bank.experts[0].bytes_hbm,
             "windowed_cost_bytes": self.bank.experts[1].bytes_hbm,
         }

@@ -136,7 +136,7 @@ def _slot(seed, n_prb=24):
 @pytest.mark.parametrize("use_kernel", [True, False], ids=["kernel", "plain"])
 def test_mmse_estimate(use_kernel):
     cfg_t, cfg_r, rx, pilots = _slot(0)
-    w_r, w_t = rest.WienerInterpolator.build(cfg_r), test_.WienerInterpolator.build(cfg_t)
+    w_r, w_t = rest.WienerInterpolator.build(cfg_r), test_.WienerInterpolator.build(cfg_t, device="cpu")
     np.testing.assert_array_equal(w_t.w.numpy(), np.asarray(w_r.w))
     want = np.asarray(rest.mmse_estimate(cfg_r, jnp.asarray(rx), jnp.asarray(pilots), w_r,
                                          use_kernel=use_kernel))
@@ -152,7 +152,7 @@ def test_mmse_estimate_batched_is_per_ue():
     """A leading UE axis gives each UE's single-slot estimate, bitwise."""
     cfg_t, _, rx0, pilots = _slot(1)
     rx1 = _slot(2)[2]
-    w = test_.WienerInterpolator.build(cfg_t)
+    w = test_.WienerInterpolator.build(cfg_t, device="cpu")
     p = torch.as_tensor(pilots)
     both = test_.mmse_estimate(cfg_t, torch.as_tensor(np.stack([rx0, rx1])), p, w)
     for u, rx in enumerate((rx0, rx1)):
@@ -221,7 +221,7 @@ def test_kpm_vector():
 def test_ring_matrix(n_push):
     cap, n_kpms, n_ues = 4, 3, 2
     vecs = np.random.default_rng(n_push).normal(size=(n_push, n_ues, n_kpms)).astype(np.float32)
-    ring = ttel.ring_init(n_ues, cap, n_kpms)
+    ring = ttel.ring_init(n_ues, cap, n_kpms, "cpu")
     for v in vecs:
         ring = ttel.ring_push(ring, torch.as_tensor(v))
     buf, valid = ttel.ring_matrix(ring)
@@ -245,3 +245,40 @@ def test_classification_metrics(case):
     }[case]
     assert tpolicy.classification_metrics(y_true, y_pred) == \
         rpolicy.classification_metrics(y_true, y_pred)
+
+
+def _tree():
+    return tpolicy.DecisionTreePolicy(
+        tpolicy.FittedTree(feature=np.array([0], np.int32),
+                           threshold=np.array([0.5], np.float32),
+                           leaf_values=np.array([0.0, 1.0], np.float32), depth=1,
+                           n_features=1, importances=np.zeros(1, np.float32)), ["sinr"])
+
+
+#: every tensor builder the package ``__init__``s export, called without
+#: ``device``; each takes the card by default, as ``repro`` builds on its
+#: default device
+DEFAULT_DEVICE_BUILDERS = {
+    "scenario_params": lambda: repro_torch.phy.scenario_params(
+        tnr.SlotConfig(n_prb=6), "good", n_slots=2),
+    "WienerInterpolator.build": lambda: repro_torch.phy.WienerInterpolator.build(
+        tnr.SlotConfig(n_prb=6)),
+    "per_ue_policy": lambda: repro_torch.core.per_ue_policy(
+        [_tree().to_device("cpu")], [0, 0]),
+    "export_tree_tables": lambda: repro_torch.core.export_tree_tables([0], [0.5], [0.0, 1.0]),
+    "init_device_switch": lambda: repro_torch.core.init_device_switch(
+        2, 1, repro_torch.core.SwitchConfig(feature_names=("sinr",))),
+    "ring_init": lambda: repro_torch.core.ring_init(2, 4, 3),
+    "DecisionTreePolicy.to_device": lambda: _tree().to_device(),
+    "ThresholdPolicy.to_device": lambda: repro_torch.core.ThresholdPolicy(
+        feature_idx=0, threshold=1.0).to_device(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_DEVICE_BUILDERS))
+def test_builders_default_to_the_card(name, monkeypatch):
+    """Without ``device`` each builder asks for CUDA: where there is none it
+    raises ``resolve_device``'s error, which names ``device='cpu'``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        DEFAULT_DEVICE_BUILDERS[name]()

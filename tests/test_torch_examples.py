@@ -47,11 +47,25 @@ def test_train_lm_with_a_failure(monkeypatch, capsys, tmp_path):
 
 
 def test_train_lm_refuses_the_unported_default(monkeypatch, capsys):
+    """A config still queued (the encoder-decoder whisper) names its item."""
     from repro_torch.models.config import FAMILIES_QUEUE_ITEM
 
     with pytest.raises(NotImplementedError, match=f"Queue 1, item {FAMILIES_QUEUE_ITEM}"):
         run_example(monkeypatch, capsys, "train_lm.py", "--device", "cpu",
-                    "--arch", "mamba2-130m")
+                    "--arch", "whisper-large-v3")
+
+
+@pytest.mark.parametrize("switched", [False, True], ids=["generate", "switched"])
+def test_serve_launcher_moe(capsys, switched):
+    """``python -m repro_torch.launch.serve --arch dbrx-132b`` on the reduced
+    config, plain and ARCHES-switched."""
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", "dbrx-132b", "--device", "cpu", "--steps", "4", "--batch", "2",
+                "--prompt-len", "8", "--max-seq", "32"] + (["--switched"] if switched else []))
+    out = capsys.readouterr().out
+    assert "dbrx-132b-smoke" in out and "on cpu" in out
+    assert ("switched decode:" in out) == switched and ("tokens in" in out) != switched
 
 
 def test_quickstart_closed_loop_host_streaming_faults(monkeypatch, capsys):

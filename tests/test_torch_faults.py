@@ -193,7 +193,7 @@ def test_breaker_unit_matches_reference():
     rcfg = rcl.SwitchConfig(feature_names=("snr",), window_slots=2, backend="ref")
     tcfg = tcl.SwitchConfig(feature_names=("snr",), window_slots=2)
     rs = rcl.init_device_switch(6, 1, rcfg, rfs)
-    ts = tcl.init_device_switch(6, 1, tcfg, faults=tfs)
+    ts = tcl.init_device_switch(6, 1, tcfg, "cpu", faults=tfs)
     trips = np.random.default_rng(2).random((30, 6)) < 0.4
     entered = 0
     for s in range(30):
@@ -211,9 +211,9 @@ def test_ttl_boundary_matches_reference():
     rcfg = rcl.SwitchConfig(feature_names=("snr",), window_slots=2, backend="ref", ttl_slots=3)
     tcfg = tcl.SwitchConfig(feature_names=("snr",), window_slots=2, ttl_slots=3)
     rpolicy = rpol.ThresholdPolicy(feature_idx=0, threshold=18.0).to_device()
-    tpolicy = tpol.ThresholdPolicy(feature_idx=0, threshold=18.0).to_device()
+    tpolicy = tpol.ThresholdPolicy(feature_idx=0, threshold=18.0).to_device("cpu")
     rs = rcl.init_device_switch(5, 1, rcfg, rfaults.FaultSpec())
-    ts = tcl.init_device_switch(5, 1, tcfg, faults=tfaults.FaultSpec())
+    ts = tcl.init_device_switch(5, 1, tcfg, "cpu", faults=tfaults.FaultSpec())
     rng = np.random.default_rng(4)
     heard = rng.random((40, 5)) < 0.5
     kpm = (10.0 + 15.0 * rng.random((40, 5, 1))).astype(np.float32)

@@ -79,6 +79,20 @@ def test_training_and_lm_serving_modules_are_walked():
             "repro_torch.configs.qwen1_5_110b"} <= names
 
 
+def test_moe_ssm_and_hybrid_modules_are_walked():
+    """The MoE FFN, the Mamba2 mixer and the configs of the MoE, SSM, hybrid
+    and VLM families are among the modules the probe imports without JAX."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.models.moe", "repro_torch.models.mamba2",
+            "repro_torch.configs.dbrx_132b", "repro_torch.configs.kimi_k2_1t_a32b",
+            "repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_7b",
+            "repro_torch.configs.qwen2_vl_72b"} <= names
+
+
 def test_training_half_modules_are_walked():
     """The token stream, the gradient compression, the train step and loop,
     and the training launcher are among the modules the probe imports."""

@@ -160,7 +160,7 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         get_config("gemma2-9b", reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        Model(get_config("granite-20b", reduced=True).with_(family=Family.MOE)).defs()
+        Model(get_config("granite-20b", reduced=True).with_(family=Family.ENC_DEC)).defs()
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         Model(get_config("granite-20b", reduced=True).with_(local_global_pattern=True)).defs()
     with pytest.raises(ValueError):

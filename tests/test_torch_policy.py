@@ -74,7 +74,7 @@ def test_threshold_policy_bitwise(rng):
 def test_kpm_ring_bitwise(window, rng):
     n_ues, cap = 3, window
     feats = rng.normal(100.0, 50.0, size=(11, n_ues, F)).astype(np.float32)
-    tr = ttel.ring_init(n_ues, cap, F)
+    tr = ttel.ring_init(n_ues, cap, F, "cpu")
     rr = jax.vmap(lambda _: rtel.ring_init(cap, F))(jnp.arange(n_ues))
     for s in range(feats.shape[0]):
         tr = ttel.ring_push(tr, torch.as_tensor(feats[s]))
@@ -119,7 +119,7 @@ def test_switch_register_and_host_replay_bitwise(kind, hyst, period, rng):
         extra_r, extra_t = {}, {}
     elif kind == "threshold":
         rpolicy, tpolicy = rpol.ThresholdPolicy(**thr), tpol.ThresholdPolicy(**thr)
-        rdev, tdev = rpolicy.to_device(), tpolicy.to_device()
+        rdev, tdev = rpolicy.to_device(), tpolicy.to_device("cpu")
         extra_r, extra_t = {}, {}
     else:
         rp = [rpol.DecisionTreePolicy(tree, ttel.SELECTED_KPMS), rpol.ThresholdPolicy(**thr)]
@@ -128,14 +128,14 @@ def test_switch_register_and_host_replay_bitwise(kind, hyst, period, rng):
         assign = [0, 1, 1, 0]
         rpolicy, tpolicy = rp, tp
         rdev = rcl.per_ue_policy([p.to_device() for p in rp], assign)
-        tdev = tcl.per_ue_policy([p.to_device() for p in tp], assign)
+        tdev = tcl.per_ue_policy([p.to_device("cpu") for p in tp], assign, "cpu")
         extra_r = extra_t = {"policy_idx": assign}
 
     kw = dict(window_slots=3, hysteresis_slots=hyst, period_slots=period, backend="ref")
     rcfg = rcl.SwitchConfig(feature_names=ttel.SELECTED_KPMS, **kw)
     tcfg = tcl.SwitchConfig(feature_names=ttel.SELECTED_KPMS, **kw)
     rs = rcl.init_device_switch(n_ues, F, rcfg)
-    ts = tcl.init_device_switch(n_ues, F, tcfg)
+    ts = tcl.init_device_switch(n_ues, F, tcfg, "cpu")
     t_active = []
     for s in range(n_slots):
         decide = s % period == 0

@@ -58,7 +58,7 @@ def test_policy_step_matches_reference(depth, hyst, period):
     rcfg = rcl.SwitchConfig(**kw, backend="ref")
     tcfg = tcl.SwitchConfig(**kw)
     rs = rcl.init_device_switch(n_ues, F, rcfg)
-    ts = tcl.init_device_switch(n_ues, F, tcfg)
+    ts = tcl.init_device_switch(n_ues, F, tcfg, "cpu")
     raws = []
     for s in range(n_slots):
         decide = s % period == 0
@@ -92,7 +92,7 @@ def test_policy_step_leaves_its_inputs_and_routes_by_backend(rng):
     pol = device_tree_policy(tree.feature, tree.threshold, tree.leaf_values)
     feats = _stream(rng, 3, 5)
     cfg = tcl.SwitchConfig(feature_names=ttel.SELECTED_KPMS, window_slots=WINDOW)
-    state = tcl.init_device_switch(5, F, cfg)
+    state = tcl.init_device_switch(5, F, cfg, "cpu")
     for s in range(3):
         before = [t.clone() for t in (*state.rings, *state[1:])]
         new, raw = policy_step(state, torch.as_tensor(feats[s]), pol, cfg)
@@ -147,7 +147,7 @@ def test_policy_step_ladder_matches_reference(case, period):
     rcfg = rcl.SwitchConfig(**kw, backend="ref")
     tcfg = tcl.SwitchConfig(**kw)
     rs = rcl.init_device_switch(n_ues, F, rcfg, rfs)
-    ts = tcl.init_device_switch(n_ues, F, tcfg, faults=tfs)
+    ts = tcl.init_device_switch(n_ues, F, tcfg, "cpu", faults=tfs)
 
     def draw(key):
         p = arm.get(key)

@@ -263,9 +263,9 @@ def test_gather_state_rows_and_spec_rules():
     from repro_torch.core import closed_loop as tcl
 
     cfg = tcl.SwitchConfig(feature_names=("snr",), window_slots=2)
-    state = tcl.init_device_switch(3, 1, cfg)
+    state = tcl.init_device_switch(3, 1, cfg, "cpu")
     state = state._replace(streak=torch.tensor([5, 6, 7], dtype=torch.int32))
-    cold = tcl.init_device_switch(3, 1, cfg)
+    cold = tcl.init_device_switch(3, 1, cfg, "cpu")
     assert tstream.gather_state_rows(state, np.arange(3), cold) is state
     moved = tstream.gather_state_rows(state, np.array([2, -1, 0]), cold)
     assert moved.streak.tolist() == [7, 0, 5]
