@@ -4,9 +4,10 @@ one rank and on two ranks sharing the card, the campaign service, the host
 E3/dApp loop and the methodology's perturbation sweep at full width, train
 the AI expert, serve granite-20b at its published width through the
 ARCHES-switched decoder, serve dbrx-132b and kimi-k2 (MoE) at their
-published widths and zamba2-7b (hybrid) and mamba2-130m (SSM) whole, run the
-public API's MMSE expert, train granite-20b at its published width, and
-print a JSON verdict.
+published widths and zamba2-7b (hybrid), mamba2-130m (SSM), whisper-large-v3
+(encoder-decoder) and gemma2-9b (local/global) whole, run the public API's
+MMSE expert, train granite-20b at its published width, plan dry-run cells of
+the sharded training half, and print a JSON verdict.
 
 Usage (from the repository root, on a machine with an H100):
 
@@ -102,20 +103,12 @@ Phases, each of which raises on failure (exit code != 0):
    ``TRAIN_LOSS_RTOL`` and ``TRAIN_WEIGHT_ATOL`` and themselves on the card
    bitwise (deterministic algorithms), no kernel launches, the trained weights through the fused
    ``gated_expert`` kernel match their plain folded form; ms a step;
-11c. serve: granite-20b at its published width (bf16), 4 of its 52
-   layers: the weight draw's time and peak memory; ``generate`` 16 steps,
-   ``SwitchedDecoder.step`` at modes 0, 1 and an (8,) vector and
-   ``generate_switched`` under a dApp, the scalar and per-UE switch kernels
-   launching on the bf16 logits, the selected rows the chosen expert's
-   bits, the given cache untouched; tokens/s and ms a switched step by
-   mode and expert against the decode step's byte bound; bf16 against
-   float32 weights on the card;
-11d. api: ``mmse_estimate`` (the public API's expert A) on ``DEFAULT_SLOT``
+11c. api: ``mmse_estimate`` (the public API's expert A) on ``DEFAULT_SLOT``
    for 32 UEs, the launch counts zeroed just before it and read just after
    it: ``mmse_interp`` launches once, and the result is within ``MMSE_TOL``
    of ``use_kernel=False``; MMSE-IRC on one UE's slot within
    ``IRC_X_ATOL`` / ``IRC_SINR_RTOL`` of the CPU;
-11e. LM training: granite-20b at its published width (bf16, remat
+11d. LM training: granite-20b at its published width (bf16, remat
    "block"), ``LM_TRAIN_LAYERS`` of its 52 layers, ``TokenStream`` at 4,096
    tokens, global batch 8 in 4 microbatches, ``LM_TRAIN_STEPS`` steps: the
    draw's time, ms a step, tokens/s, the step against 8 N D at the bf16
@@ -128,7 +121,20 @@ Phases, each of which raises on failure (exit code != 0):
    killed by ``FailureInjector`` and resumed equal to the uninterrupted run
    bitwise; ``python -m repro_torch.launch.train --steps 3`` and
    ``python examples_torch/quickstart.py --n-ues 4`` as subprocesses on the
-   card, exiting 0;
+   card, exiting 0; beside it, on the host only, the dry-run planner
+   (``python -m repro_torch.launch.dryrun``) on ``DRYRUN_CELLS``, each record
+   status ``ok``, the calibrated FLOP count of ``DRYRUN_CALIBRATE`` equal to
+   the direct one, and ``launch/train.py --mesh single`` printing its plan
+   and then raising the rank-count ``ValueError``;
+11e. serve (after the training phase, as every LM serving phase):
+   granite-20b at its published width (bf16), 4 of its 52
+   layers: the weight draw's time and peak memory; ``generate`` 16 steps,
+   ``SwitchedDecoder.step`` at modes 0, 1 and an (8,) vector and
+   ``generate_switched`` under a dApp, the scalar and per-UE switch kernels
+   launching on the bf16 logits, the selected rows the chosen expert's
+   bits, the given cache untouched; tokens/s and ms a switched step by
+   mode and expert against the decode step's byte bound; bf16 against
+   float32 weights on the card;
 11f. LM families (after the training phase, whose compressed-gradient
    step needs nearly the whole card): dbrx-132b at its published width (bf16), ``MOE_LAYERS``
    of its 40 layers, served as granite is (``generate``, switched steps at
@@ -144,11 +150,19 @@ Phases, each of which raises on failure (exit code != 0):
    and depth and mamba2-130m whole, served as granite is (no
    ``generate_switched``); both switch kernels held bitwise against their
    plain versions on each family's experts' logits; each model's weights
-   freed before the next draw; then the reduced configs of granite, dbrx,
-   kimi-k2, mamba2, zamba2 and qwen2-vl (float32) card against CPU: prefill and 3
-   switched steps within ``LM_LOGIT_TOL``, the MoE expert assignment and
-   kept mask equal, one train step within ``LM_STEP_LOSS_RTOL`` /
-   ``LM_STEP_WEIGHT_ATOL``;
+   freed before the next draw; whisper-large-v3 at full width and depth over
+   ``WHISPER_FRAMES`` stub frames (the encoder timed against its bound,
+   served as granite is with ``generate_switched``, the switch kernels on its
+   (8, 51,866) bf16 logits, the windowed expert the exact one's bits);
+   gemma2-9b at full width and depth (``generate``, a decode step against its
+   bound, a ``LONG_PREFILL``-token prefill on the chunked path with the window
+   on the local layers and the softcap on all, decode steps past the window,
+   ``SwitchedDecoder`` refusing it, bf16 against float32 at 2 layers); then the
+   reduced configs of granite, dbrx, kimi-k2, mamba2, zamba2, qwen2-vl,
+   whisper and gemma2 (float32) card against CPU: prefill and 3 switched
+   steps (gemma2: decode steps) within ``LM_LOGIT_TOL``, the MoE expert
+   assignment and kept mask equal, one train step within
+   ``LM_STEP_LOSS_RTOL`` / ``LM_STEP_WEIGHT_ATOL``;
 12. reference: small CONCURRENT, GATED, host and perturbed campaigns on the
    card against the same campaigns run by the plain versions on the CPU;
 13. device alone: each kernel's and its yardstick's device time and
@@ -278,10 +292,26 @@ LM_LOGIT_TOL = dict(rtol=1e-5, atol=2e-6)
 MOE_ARCH, MOE_LAYERS, MOE_F32_LAYERS = "dbrx-132b", 4, 1
 KIMI_ARCH, KIMI_LAYERS, KIMI_DECODE_STEPS = "kimi-k2-1t-a32b", 2, 4
 HYBRID_ARCH, SSM_ARCH = "zamba2-7b", "mamba2-130m"
-#: the reduced configs held card against CPU: the dense, MoE, SSM, hybrid and
-#: VLM families
+#: the encoder-decoder and local/global families at their published widths and
+#: depths (bf16), served as granite is.  whisper-large-v3: WHISPER_FRAMES seeded
+#: stub frame embeddings a sequence (the published encoder_seq; the reference's
+#: frontend is a stub); its encoder timed alone over ENCODER_ITERS calls.
+#: gemma2-9b: beside the serving path one prefill of LONG_PREFILL tokens at
+#: batch 1 (past 2,048 query positions: the chunked path; past the 4,096 window:
+#: the local layers' window binds), then LONG_DECODE_STEPS decode steps past
+#: the window.  Nothing is cut
+WHISPER_ARCH, WHISPER_FRAMES, ENCODER_ITERS = "whisper-large-v3", 1500, 5
+GEMMA2_ARCH, LONG_PREFILL, LONG_DECODE_STEPS = "gemma2-9b", 4608, 2
+#: the reduced configs held card against CPU: the dense, MoE, SSM, hybrid, VLM,
+#: encoder-decoder and local/global families
 REDUCED_ARCHS = ("granite-20b", "dbrx-132b", "kimi-k2-1t-a32b", "mamba2-130m", "zamba2-7b",
-                 "qwen2-vl-72b")
+                 "qwen2-vl-72b", "whisper-large-v3", "gemma2-9b")
+#: the dry-run planner's cells run on the card's machine (each a subprocess of
+#: ``python -m repro_torch.launch.dryrun``), and the cell whose calibrated FLOP
+#: count is held against its direct count (equal up to float rounding)
+DRYRUN_CELLS = (("gemma2-9b", "train_4k", "single"), ("whisper-large-v3", "prefill_32k", "multi"),
+                ("kimi-k2-1t-a32b", "decode_32k", "single"))
+DRYRUN_CALIBRATE, DRYRUN_CALIB_RTOL = ("gemma2-9b", "decode_32k", "single"), 1e-12
 #: bf16 weights against float32 weights at full width on the card: the
 #: logits' relative L2 error (bf16 keeps 8 bits of mantissa, 2**-9 relative
 #: rounding a weight, through 4 layers of 6,144-wide sums)
@@ -2275,10 +2305,12 @@ def _draw_family(label: str, cfg):
 
 def decode_bytes(model, params, cache) -> tuple[float, str]:
     """The bytes one decode step must move, and what they are: every weight
-    read once (the reference's dispatch reads every expert's weights whatever
-    the batch; zamba2's shared block once at each call site), the embedding's
-    batch rows only (unless the head is the tied embedding), the cached K/V
-    up to the index read, the SSM and conv states read and written once."""
+    the step reads once (the reference's dispatch reads every expert's weights
+    whatever the batch; zamba2's shared block once at each call site; not
+    whisper's encoder, nor its cross ``wk`` / ``wv``, whose products the
+    cache holds), the embedding's batch rows only (unless the head is the tied
+    embedding), the cached K/V up to the index and every cached cross K/V
+    read, the SSM and conv states read and written once."""
     from repro_torch.optim.adamw import tree_leaves
 
     cfg = model.cfg
@@ -2288,7 +2320,14 @@ def decode_bytes(model, params, cache) -> tuple[float, str]:
     emb = params["embed"]
     if not cfg.tie_embeddings:
         weights -= nbytes(emb) - batch * emb.shape[1] * emb.element_size()
-    parts = [f"weights {weights / 1e9:.3f} GB"]
+    parts = []
+    if "encoder" in params:
+        cross = params["blocks"]["cross_attn"]
+        unread = sum(nbytes(t) for t in tree_leaves(params["encoder"]))
+        unread += nbytes(cross["wk"]) + nbytes(cross["wv"])
+        weights -= unread
+        parts.append(f"less the encoder and the cross wk/wv {unread / 1e9:.3f} GB")
+    parts.insert(0, f"weights {weights / 1e9:.3f} GB")
     if "shared_attn" in params:
         sites = cfg.n_layers // cfg.attn_every
         extra = (sites - 1) * sum(nbytes(t) for t in tree_leaves(params["shared_attn"]))
@@ -2301,6 +2340,10 @@ def decode_bytes(model, params, cache) -> tuple[float, str]:
         kv = 2 * k.shape[0] * k.shape[1] * pos * k.shape[3] * k.shape[4] * k.element_size()
         total += kv
         parts.append(f"K/V {kv / 1e9:.4f} GB")
+    if "cross_k" in cache:
+        ckv = nbytes(cache["cross_k"]) + nbytes(cache["cross_v"])
+        total += ckv
+        parts.append(f"cross K/V {ckv / 1e9:.3f} GB")
     if "ssm" in cache:
         st = 2 * (nbytes(cache["ssm"]) + nbytes(cache["conv"]))
         total += st
@@ -2347,9 +2390,23 @@ class Served(typing.NamedTuple):
     tok: torch.Tensor
     cache: dict
     vec: torch.Tensor
+    same: bool  # the two experts' logits the same bits
 
 
-def _serve_family(label: str, model, params, *, switched_run: bool) -> Served:
+def stub_frames(cfg, batch: int, n_frames: int, device) -> torch.Tensor | None:
+    """Seeded stub frame embeddings ``(batch, n_frames, d_model)`` in the param
+    dtype for the encoder-decoder family (the reference's frontend is a
+    stub); ``None`` for the other families."""
+    from repro_torch import random as jr
+
+    if cfg.family.value != "enc_dec":
+        return None
+    return jr.normal(jr.PRNGKey(5, device), (batch, n_frames, cfg.d_model)).to(
+        cfg.param_dtype())
+
+
+def _serve_family(label: str, model, params, *, switched_run: bool,
+                  frames: torch.Tensor | None = None) -> Served:
     """The serving path at ``SERVE_BATCH`` x ``SERVE_PROMPT`` (max_seq
     ``SERVE_MAX_SEQ``, window ``SERVE_WINDOW``): with the launch counts
     zeroed just before and read just after, ``ServingEngine.generate`` for
@@ -2359,7 +2416,8 @@ def _serve_family(label: str, model, params, *, switched_run: bool) -> Served:
     the bf16 logits, the selected rows must be the chosen expert's logits,
     bitwise, and the cache given to a switched step must stay as it was.
     Then both switch kernels are held against their plain versions on the
-    two experts' logits."""
+    two experts' logits.  ``frames``: the encoder-decoder family's, given to
+    every prefill."""
     from repro_torch import random as jr
     from repro_torch.core.dapp import DApp
     from repro_torch.kernels import build
@@ -2371,16 +2429,16 @@ def _serve_family(label: str, model, params, *, switched_run: bool) -> Served:
     eng = ServingEngine(model, params, max_seq=SERVE_MAX_SEQ)
     dec = SwitchedDecoder(model, SwitchedDecodeConfig(window=SERVE_WINDOW))
     dapp = DApp(lambda x: 0 if x[0] > 1e-4 else 1, ["expert_kl"], window_slots=1)
-    eng.generate(prompts, 2)  # first calls (cuBLAS handles, allocator) outside the run
+    eng.generate(prompts, 2, encoder_frames=frames)  # first calls outside the run
     _, cache = model.prefill(params, prompts, model.init_cache(
-        SERVE_BATCH, SERVE_MAX_SEQ, dtype=torch.float32, device=dev))
+        SERVE_BATCH, SERVE_MAX_SEQ, dtype=torch.float32, device=dev), encoder_frames=frames)
     kept = {k: v.clone() for k, v in cache.items()}
     tok = prompts[:, -1:]
     vec = (torch.arange(SERVE_BATCH, device=dev) % 2).to(torch.int32)
     torch.cuda.synchronize()
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    res = eng.generate(prompts, SERVE_STEPS)
+    res = eng.generate(prompts, SERVE_STEPS, encoder_frames=frames)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     l0, _, k0 = dec.step(0, params, tok, cache)
@@ -2389,7 +2447,8 @@ def _serve_family(label: str, model, params, *, switched_run: bool) -> Served:
     tokens = [("generate", res.tokens)]
     if switched_run:
         t0 = time.perf_counter()
-        switched = eng.generate_switched(prompts, SERVE_STEPS, decoder=dec, dapp=dapp)
+        switched = eng.generate_switched(prompts, SERVE_STEPS, decoder=dec, dapp=dapp,
+                                         encoder_frames=frames)
         torch.cuda.synchronize()
         sw_s = time.perf_counter() - t0
         tokens.append(("generate_switched", switched.tokens))
@@ -2421,13 +2480,12 @@ def _serve_family(label: str, model, params, *, switched_run: bool) -> Served:
            f"{switched.history.modes.tolist()}" if switched_run else "")
         + f"; launches {launches}")
     _hold_switches(label, outs[0], outs[1])
-    return Served(launches=launches, dec=dec, tok=tok, cache=cache, vec=vec)
+    return Served(launches=launches, dec=dec, tok=tok, cache=cache, vec=vec, same=same)
 
 
-def _decode_times(label: str, model, params, served: Served, iters: int, **fns) -> None:
-    """A decode step's and ``fns``' call times, in turns, beside the decode
-    step's byte bound, and decode tokens/s."""
-    tok, cache = served.tok, served.cache
+def _decode_times(label: str, model, params, tok, cache, iters: int, **fns) -> None:
+    """A decode step's (of ``tok`` on ``cache``) and ``fns``' call times, in
+    turns, beside the decode step's byte bound, and decode tokens/s."""
     times, reading = turns_of(iters=iters,
                               decode_step=lambda: model.decode_step(params, tok, cache), **fns)
     n_bytes, what = decode_bytes(model, params, cache)
@@ -2516,7 +2574,7 @@ def phase_serve() -> dict[str, int]:
     sel = SwitchedDecoder(model, SwitchedDecodeConfig(
         window=SERVE_WINDOW, execution_mode=ExecutionMode.SELECTED_ONLY))
     _decode_times(
-        "serve", model, params, served, 10,
+        "serve", model, params, tok, cache, 10,
         concurrent_exact=lambda: dec.step(0, params, tok, cache),
         concurrent_windowed=lambda: dec.step(1, params, tok, cache),
         concurrent_vector=lambda: dec.step(vec, params, tok, cache),
@@ -2564,8 +2622,9 @@ def phase_serve_moe() -> dict[str, int]:
         f"{full.n_params() * 2 / 1e9:.0f} GB of bf16 weights)")
     model, params = _draw_family(label, cfg)
     served = _serve_family(label, model, params, switched_run=True)
-    _decode_times(label, model, params, served, 5, switched_vector=lambda: served.dec.step(
-        served.vec, params, served.tok, served.cache))
+    _decode_times(label, model, params, served.tok, served.cache, 5,
+                  switched_vector=lambda: served.dec.step(
+                      served.vec, params, served.tok, served.cache))
     _prefill_drops(label, model, params)
     launches = served.launches
     del model, params, served
@@ -2675,20 +2734,258 @@ def phase_serve_ssm() -> dict[str, int]:
             + f", vocab {cfg.vocab}, {cfg.dtype}); no cut")
         model, params = _draw_family(label, cfg)
         served = _serve_family(label, model, params, switched_run=False)
-        _decode_times(label, model, params, served, 5, switched_vector=lambda: served.dec.step(
-            served.vec, params, served.tok, served.cache))
+        _decode_times(label, model, params, served.tok, served.cache, 5,
+                      switched_vector=lambda: served.dec.step(
+                          served.vec, params, served.tok, served.cache))
         counts.append(served.launches)
         del model, params, served
         torch.cuda.empty_cache()
     return _sum_counts(*counts)
 
 
+def _encoder_flops(cfg, batch: int, n_frames: int) -> float:
+    """The encoder's products: per layer the q, k, v and o projections, the
+    scores and the values over every frame, the MLP's two; 2 per
+    multiply-add."""
+    d, hd, h, kv = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    tokens = batch * n_frames
+    layer = (2 * tokens * d * (2 * h + 2 * kv) * hd + 2 * 2 * batch * h * n_frames ** 2 * hd
+             + 2 * 2 * tokens * d * cfg.d_ff)
+    return float(cfg.n_encoder_layers * layer)
+
+
+def phase_serve_whisper() -> dict[str, int]:
+    """whisper-large-v3 at its published width and depth (32 encoder and 32
+    decoder layers, d_model 1,280, 20 heads, vocab 51,866, bf16) over
+    ``WHISPER_FRAMES`` seeded stub frames a sequence: the encoder's time for
+    ``SERVE_BATCH`` x ``WHISPER_FRAMES`` frames against its bound at the bf16
+    peak; the serving path (``_serve_family`` with the frames and
+    ``generate_switched``): both switch kernels on its (8, 51,866) bf16
+    logits, the selected rows the chosen expert's bits, and the windowed
+    expert the exact expert's bits (its decode body never windows, as in the
+    reference); a decode and a switched step against the decode step's
+    bound."""
+    from repro_torch.models import get_config
+    from repro_torch.models.transformer import encode
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config(WHISPER_ARCH)
+    label = "serve whisper"
+    log(f"{label}: {cfg.name} at its published width and depth ({cfg.n_encoder_layers} "
+        f"encoder and {cfg.n_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.norm_kind}, {cfg.mlp_kind}, "
+        f"{cfg.dtype}), {WHISPER_FRAMES} stub frames a sequence; no cut")
+    model, params = _draw_family(label, cfg)
+    dev = torch.device("cuda")
+    frames = stub_frames(cfg, SERVE_BATCH, WHISPER_FRAMES, dev)
+    with torch.no_grad():
+        memory = encode(cfg, params, frames)
+        enc_ms = time_ms(lambda: encode(cfg, params, frames), iters=ENCODER_ITERS, warmup=1)
+    if tuple(memory.shape) != (SERVE_BATCH, WHISPER_FRAMES, cfg.d_model) or not bool(
+            torch.isfinite(memory.float()).all()):
+        raise AssertionError(f"{label}: encoder output {tuple(memory.shape)}, finite "
+                             f"{bool(torch.isfinite(memory.float()).all())}")
+    flops = _encoder_flops(cfg, SERVE_BATCH, WHISPER_FRAMES)
+    # the encoder's weights read once, the frames read and its output written
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params["encoder"]))
+    bms, by = bound_ms(n_bytes + 2 * frames.numel() * frames.element_size(), flops,
+                       PEAK_BF16_FLOPS)
+    log(f"{label}: encoder over {SERVE_BATCH} x {WHISPER_FRAMES} frames {enc_ms:.3f} ms "
+        f"(mean of {ENCODER_ITERS}, CUDA events); bound {bms:.3f} ms by {by} "
+        f"({flops / 1e12:.3f} TFLOP at the bf16 peak), the encoder at {bms / enc_ms:.4f} of it")
+    del memory
+    served = _serve_family(label, model, params, switched_run=True, frames=frames)
+    if not served.same:
+        raise AssertionError(f"{label}: the windowed expert differs from the exact one; the "
+                             f"reference's decode body never windows")
+    _decode_times(label, model, params, served.tok, served.cache, 5,
+                  switched_vector=lambda: served.dec.step(
+                      served.vec, params, served.tok, served.cache))
+    launches = served.launches
+    del model, params, served, frames
+    torch.cuda.empty_cache()
+    return launches
+
+
+class chunked_calls:
+    """Within the block, every ``chunked_attention`` call appends its
+    ``(window, softcap)``: the function is wrapped in the module the
+    attention calls it through."""
+
+    def __init__(self):
+        self.calls: list[tuple] = []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self._orig = orig = layers.chunked_attention
+
+        def rec(*args, **kw):
+            self.calls.append((kw.get("window"), kw.get("softcap")))
+            return orig(*args, **kw)
+
+        layers.chunked_attention = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.chunked_attention = self._orig
+        return False
+
+
+def phase_serve_gemma2() -> None:
+    """gemma2-9b at its published width and depth (42 layers alternating local
+    (window 4,096) and global, d_model 3,584, 16 heads, 8 KV heads, head_dim
+    256, GeGLU d_ff 14,336, the attention softcap 50 and the logits' 30, the
+    tied head over vocab 256,000, bf16): the weight draw (time, peak memory);
+    ``generate`` ``SERVE_BATCH`` x ``SERVE_STEPS`` and a decode step against
+    its bound; one prefill of ``LONG_PREFILL`` tokens at batch 1 on the
+    chunked path (the window on the 21 local layers only, the softcap on all
+    42), then ``LONG_DECODE_STEPS`` decode steps past the window, with finite
+    logits; ``SwitchedDecoder`` refuses the local/global pattern on the card
+    as in the reference; bf16 against float32 weights at 2 layers (a local
+    and a global one)."""
+    from repro_torch import random as jr
+    from repro_torch.models import get_config
+    from repro_torch.serving import ServingEngine, SwitchedDecoder
+
+    full = get_config(GEMMA2_ARCH)
+    cfg = full
+    label = "serve gemma2"
+    log(f"{label}: {cfg.name} at its published width and depth ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, window {cfg.sliding_window} on the local "
+        f"layers, softcaps {cfg.attn_softcap} / {cfg.logit_softcap}, vocab {cfg.vocab}, tied "
+        f"head, {cfg.dtype}); no cut")
+    model, params = _draw_family(label, cfg)
+    dev = torch.device("cuda")
+    prompts = jr.randint(jr.PRNGKey(1, dev), (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab)
+    eng = ServingEngine(model, params, max_seq=SERVE_MAX_SEQ)
+    eng.generate(prompts, 2)  # first calls outside the run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, SERVE_STEPS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if res.tokens.shape != (SERVE_BATCH, SERVE_STEPS) or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise AssertionError(f"{label}: generate tokens {res.tokens.shape}")
+    logits, cache = model.prefill(params, prompts, model.init_cache(
+        SERVE_BATCH, SERVE_MAX_SEQ, dtype=torch.float32, device=dev))
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    log(f"{label}: generate {SERVE_BATCH} x {SERVE_STEPS} tokens (prompt {SERVE_PROMPT}, "
+        f"max_seq {SERVE_MAX_SEQ}) in {gen_s:.3f} s = {SERVE_BATCH * SERVE_STEPS / gen_s:.1f} "
+        f"tokens/s with the prefill")
+    _decode_times(label, model, params, tok, cache, 5)
+    del cache
+    try:
+        SwitchedDecoder(model)
+    except ValueError as e:
+        log(f"{label}: SwitchedDecoder refuses it on the card, as in the reference: {e}")
+    else:
+        raise AssertionError(f"{label}: SwitchedDecoder took the local/global pattern")
+    torch.cuda.empty_cache()
+    # the long prefill: past 2,048 query positions (chunked) and past the window
+    long = jr.randint(jr.PRNGKey(2, dev), (1, LONG_PREFILL), 0, cfg.vocab)
+    lcache = model.init_cache(1, LONG_PREFILL + LONG_DECODE_STEPS, dtype=torch.float32,
+                              device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with chunked_calls() as spy:
+        logits, lcache = model.prefill(params, long, lcache)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    local = cfg.n_layers // 2
+    want = [(cfg.sliding_window, cfg.attn_softcap), (None, cfg.attn_softcap)] * local
+    if spy.calls != want:
+        raise AssertionError(f"{label}: the long prefill's chunked calls {spy.calls[:4]}..., "
+                             f"{len(spy.calls)} of them")
+    steps_ms, finite = [], bool(torch.isfinite(logits.float()).all())
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    for _ in range(LONG_DECODE_STEPS):
+        t0 = time.perf_counter()
+        logits, lcache = model.decode_step(params, tok, lcache)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        finite &= bool(torch.isfinite(logits.float()).all())
+    if not finite or int(lcache["index"]) != LONG_PREFILL + LONG_DECODE_STEPS:
+        raise AssertionError(f"{label}: long prefill logits finite {finite}, index "
+                             f"{int(lcache['index'])}")
+    log(f"{label}: prefill of 1 x {LONG_PREFILL} tokens {pre_s * 1e3:.2f} ms (host clock, "
+        f"synchronised) = {LONG_PREFILL / pre_s:.1f} tokens/s, on the chunked path: "
+        f"{len(spy.calls)} calls, window {cfg.sliding_window} on the {local} local layers "
+        f"only, softcap {cfg.attn_softcap} on all; then {LONG_DECODE_STEPS} decode steps past "
+        f"the window {[round(t, 3) for t in steps_ms]} ms; logits finite")
+    del model, params, lcache, logits
+    torch.cuda.empty_cache()
+    _bf16_vs_f32(label, full.with_(n_layers=2))
+
+
+def _dryrun_start() -> list:
+    """The planner's subprocesses, started together: each ``DRYRUN_CELLS``
+    cell, the calibrated and the direct plan of ``DRYRUN_CALIBRATE``, and
+    ``launch/train.py --mesh single``.  They use the host only (``meta``
+    tensors), one thread each."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmds = [("plan", c, ["-m", "repro_torch.launch.dryrun", "--arch", c[0], "--shape", c[1],
+                         "--mesh", c[2]]) for c in DRYRUN_CELLS]
+    a, sh, m = DRYRUN_CALIBRATE
+    cell = ["--arch", a, "--shape", sh, "--mesh", m]
+    cmds += [("direct", DRYRUN_CALIBRATE, ["-m", "repro_torch.launch.dryrun", *cell]),
+             ("calibrated", DRYRUN_CALIBRATE, ["-m", "repro_torch.launch.dryrun",
+                                                "--calibrate", *cell]),
+             ("launcher", None, ["-m", "repro_torch.launch.train", "--mesh", "single"])]
+    return [(kind, c, time.perf_counter(), subprocess.Popen(
+        [sys.executable, *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for kind, c, args in cmds]
+
+
+def phase_dryrun(procs: list) -> None:
+    """The dry-run planner on the card's machine: each cell's record has
+    status ``ok`` and is printed; the calibrated FLOP count equals the direct
+    one within ``DRYRUN_CALIB_RTOL``; the training launcher with ``--mesh
+    single`` prints its plan and then raises the rank-count ``ValueError``."""
+    records = {}
+    for kind, cell, t0, proc in procs:
+        out, err = proc.communicate(timeout=900)
+        wall = time.perf_counter() - t0
+        if kind == "launcher":
+            if proc.returncode == 0 or "ValueError: the mesh" not in err or \
+                    "needs 256 ranks; the default process group has 1" not in err or \
+                    "plan on the single mesh" not in out:
+                raise AssertionError(f"dryrun: the launcher's --mesh single: rc "
+                                     f"{proc.returncode}, {out[-400:]} {err[-400:]}")
+            log(f"dryrun: launch/train.py --mesh single printed its plan ("
+                f"{out.count('PartitionSpec')} placements) and raised "
+                f"{err.strip().splitlines()[-1]}")
+            continue
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun: {kind} {cell}: rc {proc.returncode}: {err[-800:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun: {kind} {cell}: {rec}")
+        records[(kind, cell)] = rec
+        log(f"dryrun: {kind} {' x '.join(cell)} ({wall:.1f} s wall): {json.dumps(rec)}")
+    direct = records[("direct", DRYRUN_CALIBRATE)]["flops_per_device"]
+    calib = records[("calibrated", DRYRUN_CALIBRATE)]["flops_per_device"]
+    if abs(calib - direct) > DRYRUN_CALIB_RTOL * abs(direct):
+        raise AssertionError(f"dryrun: calibrated FLOPs {calib} against direct {direct}")
+    log(f"dryrun: {' x '.join(DRYRUN_CALIBRATE)}: calibrated FLOPs a device {calib:.6e} = "
+        f"direct {direct:.6e} (relative {abs(calib - direct) / direct:.2e})")
+
+
 def phase_families_reduced() -> None:
-    """The reduced configs of the dense, MoE, SSM, hybrid and VLM families
-    (float32) on the card against the CPU: prefill and switched steps at modes 0, 1
-    and a vector within ``LM_LOGIT_TOL``, the MoE layers' expert assignment
-    and kept mask equal in that prefill, and one train step (loss, gradient
-    norm, weights) within ``LM_STEP_LOSS_RTOL`` / ``LM_STEP_WEIGHT_ATOL``."""
+    """The reduced configs of the dense, MoE, SSM, hybrid, VLM,
+    encoder-decoder and local/global families (float32) on the card against
+    the CPU: prefill and switched steps at modes 0, 1 and a vector (gemma2,
+    which has no switched decoder: 3 decode steps) within ``LM_LOGIT_TOL``,
+    the MoE layers' expert assignment and kept mask equal in that prefill,
+    and one train step (loss, gradient norm, weights) within
+    ``LM_STEP_LOSS_RTOL`` / ``LM_STEP_WEIGHT_ATOL``.  whisper gets 8 seeded
+    stub frames; gemma2's prompt and batch run 12 tokens, past its reduced
+    window of 8."""
     from repro_torch import random as jr
     from repro_torch.data import TokenStream
     from repro_torch.models import Model, get_config
@@ -2698,20 +2995,29 @@ def phase_families_reduced() -> None:
 
     for arch in REDUCED_ARCHS:
         model = Model(get_config(arch, reduced=True))
+        lg = model.cfg.local_global_pattern
+        n = 12 if lg else 8
         p0 = model.init(jr.PRNGKey(0))
-        prompts = jr.randint(jr.PRNGKey(1), (4, 8), 0, model.cfg.vocab)
-        batch = TokenStream(vocab=model.cfg.vocab, seq_len=8, global_batch=4).batch_at(0)
+        prompts = jr.randint(jr.PRNGKey(1), (4, n), 0, model.cfg.vocab)
+        batch = TokenStream(vocab=model.cfg.vocab, seq_len=n, global_batch=4).batch_at(0)
+        frames = stub_frames(model.cfg, 4, 8, "cpu")
+        if frames is not None:
+            batch["encoder_frames"] = frames
         tc = tstep.TrainConfig(learning_rate=LM_TRAIN_LR)
-        dec = SwitchedDecoder(model, SwitchedDecodeConfig(window=4))
+        dec = None if lg else SwitchedDecoder(model, SwitchedDecodeConfig(window=4))
         got = {}
         for dev in (torch.device("cpu"), torch.device("cuda")):
             p = tree_map(lambda t: t.to(dev), p0)
             with recorded_routing() as rec:
                 logits, c = model.prefill(p, prompts.to(dev), model.init_cache(
-                    4, 16, dtype=torch.float32, device=dev))
+                    4, 16, dtype=torch.float32, device=dev),
+                    encoder_frames=None if frames is None else frames.to(dev))
             seq, t = [logits.cpu()], prompts[:, -1:].to(dev)
             for m in (0, 1, torch.tensor([0, 1, 1, 0], dtype=torch.int32)):
-                logits, c, _ = dec.step(m, p, t, c)
+                if dec is None:
+                    logits, c = model.decode_step(p, t, c)
+                else:
+                    logits, c, _ = dec.step(m, p, t, c)
                 t = torch.argmax(logits, -1)[:, None].to(torch.int32)
                 seq.append(logits.cpu())
             state = tstep.init_train_state(model, p, tc)
@@ -2735,8 +3041,9 @@ def phase_families_reduced() -> None:
             raise AssertionError(f"families: {arch}: train step card vs CPU: loss {l_err}, "
                                  f"grad norm {g_err}, weights {w_err}")
         kept = sum(int(k.sum()) for _, k in rg)
-        log(f"families: reduced {arch} (float32) card vs CPU: prefill and 3 switched steps "
-            f"within {LM_LOGIT_TOL}, max |diff| {worst:.3g}; "
+        log(f"families: reduced {arch} (float32) card vs CPU: prefill and 3 "
+            f"{'decode' if dec is None else 'switched'} steps within {LM_LOGIT_TOL}, max "
+            f"|diff| {worst:.3g}; "
             + (f"{len(rg)} MoE layers' assignment and kept mask equal ({kept} of "
                f"{sum(k.numel() for _, k in rg)} pairs kept); " if rg else "")
             + f"one train step: loss {lc:.6f}, rel {l_err:.3g}, grad norm rel {g_err:.3g}, "
@@ -3133,14 +3440,20 @@ def main() -> int:
     host, host_launches = phase_host()
     phase_sweep(host)
     phase_train()
-    serve_launches = phase_serve()
     api_launches = phase_api()
+    # the planner's subprocesses use the host only: they run beside the
+    # device-bound LM training phase
+    dryrun = _dryrun_start()
     phase_lm_train()
-    # the other LM families, one model at a time (each frees its weights), after
-    # the training phase: its compressed-gradient step needs nearly the whole
-    # card, and the draws before it left 7.55 GiB of it in cached segments
-    lm_launches = _sum_counts(serve_launches, phase_serve_moe(), phase_serve_kimi(),
-                              phase_serve_ssm())
+    phase_dryrun(dryrun)
+    # every LM serving phase, one model at a time, after the training phase:
+    # its compressed-gradient step needs nearly the whole card (72.6 GB on an
+    # H100 80GB), and what a serving phase keeps or leaves in cached segments
+    # before it has run it out of memory (7.55 GiB of cached segments; or
+    # granite's 4.5 GB kept for the serve profile, with 7.44 GiB of fragments)
+    lm_launches = _sum_counts(phase_serve(), phase_serve_moe(), phase_serve_kimi(),
+                              phase_serve_ssm(), phase_serve_whisper())
+    phase_serve_gemma2()
     phase_families_reduced()
     for r in rows:
         counter = r.pop("counter", r["name"])

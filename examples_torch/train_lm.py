@@ -3,9 +3,10 @@
 
 The default is ``mamba2-130m``'s reduced config, as in the reference;
 ``--full`` takes the published config (about 129M parameters) with
-``remat="block"``, as the reference does.  ``--arch`` takes any config the
-port carries; the encoder-decoder and local/global configs raise
-``NotImplementedError`` naming ``ROADMAP.md`` Queue 1.  ``--inject-failure k``
+``remat="block"``, as the reference does.  ``--arch`` takes any of the ten
+configs; whisper-large-v3 fails as in the reference: the token stream
+yields no encoder frames, and the encoder-decoder forward asserts them.
+``--inject-failure k``
 simulates a node failure before step ``k``: the loop restarts from the
 newest checkpoint and continues bitwise.
 

@@ -4,7 +4,8 @@
 
 Draws the arch's published config (bf16 weights from seed 0, its depth cut
 to ``--layers`` where given), prefills ``chip_smoke.py``'s serving batch (8
-prompts of 128 tokens, a float32 cache of 1,024 positions) and then, under
+prompts of 128 tokens, a float32 cache of 1,024 positions; whisper with its
+1,500 stub frames) and then, under
 ``torch.use_deterministic_algorithms(True)`` as the script runs:
 
 - ms a decode step on the host clock (synchronised), the mean of 5 after 3
@@ -51,8 +52,10 @@ def profile_decode(arch: str, layers: int | None) -> None:
     model = Model(cfg)
     params = model.init(jr.PRNGKey(0, dev))
     prompts = jr.randint(jr.PRNGKey(1, dev), (cs.SERVE_BATCH, cs.SERVE_PROMPT), 0, cfg.vocab)
+    frames = cs.stub_frames(cfg, cs.SERVE_BATCH, cs.WHISPER_FRAMES, dev)
     _, cache = model.prefill(params, prompts, model.init_cache(
-        cs.SERVE_BATCH, cs.SERVE_MAX_SEQ, dtype=torch.float32, device=dev))
+        cs.SERVE_BATCH, cs.SERVE_MAX_SEQ, dtype=torch.float32, device=dev),
+        encoder_frames=frames)
     tok = prompts[:, -1:]
     for _ in range(3):
         model.decode_step(params, tok, cache)
@@ -93,7 +96,7 @@ def profile_decode(arch: str, layers: int | None) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", action="append",
-                    help="an arch id of repro_torch.models.config.PORTED_ARCHS (repeatable)")
+                    help="an arch id of repro_torch.models.config.ARCH_IDS (repeatable)")
     ap.add_argument("--layers", type=int, action="append",
                     help="depth cut, one per --arch in order (0: the published depth)")
     args = ap.parse_args(argv)

@@ -1,1 +1,1 @@
-"""Data-only model configs of the side LM stack (the ported families)."""
+"""Data-only model configs of the side LM stack, one module per arch (all ten)."""

@@ -1,8 +1,10 @@
 """ARCHES core of the port: the paper's contribution as composable PyTorch modules.
 
-The names mirror ``repro.core``'s, apart from the reference's JAX mesh
-factories: ``CellTopology.build`` over a process group stands in for them
-(``repro_torch.core.topology``).
+The names mirror ``repro.core``'s, apart from the reference's JAX UE mesh
+factory ``make_ue_mesh``: ``CellTopology.build`` over a process group
+stands in for it (``repro_torch.core.topology``).  The training meshes
+(``make_production_mesh``, ``make_cpu_mesh``) are descriptors whose
+``device_mesh()`` builds a ``DeviceMesh`` over a group of that many ranks.
 """
 
 from repro_torch.core.closed_loop import (
@@ -71,6 +73,8 @@ from repro_torch.core.switch import (
 from repro_torch.core.topology import (
     CellTopology,
     TopologySpec,
+    make_cpu_mesh,
+    make_production_mesh,
     per_shard_capacity,
     run_closed_loop_sharded,
     run_perturbed_sharded,

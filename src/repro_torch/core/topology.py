@@ -92,6 +92,57 @@ def make_ue_shards(n_shards: int | None = None, *, n_ues: int | None = None) -> 
     return n
 
 
+# -- the training meshes ----------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """A named device mesh as a descriptor: its axis names and sizes.  The
+    sharding rules read only ``shape``; ``device_mesh()`` builds the
+    ``torch.distributed`` ``DeviceMesh`` when the process group has exactly
+    ``size`` ranks."""
+
+    axis_names: tuple[str, ...]
+    dims: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.dims))
+
+    def device_mesh(self, device_type: str = "cuda"):
+        """``init_device_mesh`` over the default group, one rank a device.
+        Raises ``ValueError`` naming both counts when the group (1 process
+        without one) has another number of ranks, as ``jax.make_mesh`` raises
+        on a host with too few devices."""
+        world, _ = _world()
+        if world != self.size:
+            raise ValueError(f"the mesh {self.shape} needs {self.size} ranks; the default "
+                             f"process group has {world}")
+        from torch.distributed.device_mesh import init_device_mesh
+
+        return init_device_mesh(device_type, self.dims, mesh_dim_names=self.axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
+    """The reference's production training meshes:
+
+      single-pod: (16, 16)    = 256 devices, axes ("data", "model")
+      multi-pod:  (2, 16, 16) = 512 devices, axes ("pod", "data", "model")
+    """
+    if multi_pod:
+        return MeshSpec(("pod", "data", "model"), (2, 16, 16))
+    return MeshSpec(("data", "model"), (16, 16))
+
+
+def make_cpu_mesh(n_data: int = 1, n_model: int = 1) -> MeshSpec:
+    """A small ("data", "model") mesh for tests."""
+    return MeshSpec(("data", "model"), (n_data, n_model))
+
+
 # -- declarative topology -------------------------------------------------------
 
 

@@ -3,12 +3,13 @@
 
     python -m repro_torch.launch.serve --arch granite-20b --steps 32
     python -m repro_torch.launch.serve --arch granite-20b --full --switched
-    python -m repro_torch.launch.serve --arch dbrx-132b --device cpu
+    python -m repro_torch.launch.serve --arch whisper-large-v3 --device cpu
 
-It runs on the card unless ``--device cpu`` is given.  ``--arch`` takes the
-configs the port carries (``PORTED_ARCHS``: the dense, VLM, MoE, SSM and
-hybrid families); ``--full`` is the published config (bf16 weights), the
-default the reduced smoke config.
+It runs on the card unless ``--device cpu`` is given.  ``--arch`` takes all
+ten configs; ``--full`` is the published config (bf16 weights), the default
+the reduced smoke config.  The encoder-decoder family (whisper) gets zero
+frames, (batch, 8, d_model) in the param dtype, as the reference's launcher
+gives it.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.device import resolve_device
-from repro_torch.models.config import PORTED_ARCHS, get_config
+from repro_torch.models.config import ARCH_IDS, Family, get_config
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.switched import SwitchedDecodeConfig, SwitchedDecoder
@@ -33,7 +34,7 @@ def _sync(dev: torch.device) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=PORTED_ARCHS, default="granite-20b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="granite-20b")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -52,11 +53,14 @@ def main(argv=None) -> None:
     print(f"[serve] {cfg.name}: {model.n_params() / 1e6:.1f}M params on {dev}")
 
     prompts = jr.randint(jr.PRNGKey(1, dev), (args.batch, args.prompt_len), 0, cfg.vocab)
+    frames = None
+    if cfg.family is Family.ENC_DEC:
+        frames = torch.zeros((args.batch, 8, cfg.d_model), dtype=cfg.param_dtype(), device=dev)
     if not args.switched:
         eng = ServingEngine(model, params, max_seq=args.max_seq)
         _sync(dev)
         t0 = time.perf_counter()
-        res = eng.generate(prompts, args.steps)
+        res = eng.generate(prompts, args.steps, encoder_frames=frames)
         dt = time.perf_counter() - t0
         print(f"[serve] {args.batch}x{args.steps} tokens in {dt:.1f}s "
               f"({args.batch * args.steps / dt:.1f} tok/s)")
@@ -65,7 +69,7 @@ def main(argv=None) -> None:
 
     dec = SwitchedDecoder(model, SwitchedDecodeConfig(window=args.window))
     cache = model.init_cache(args.batch, args.max_seq, device=dev)
-    _, cache = model.prefill(params, prompts, cache)
+    _, cache = model.prefill(params, prompts, cache, encoder_frames=frames)
     tok = prompts[:, -1:]
     _sync(dev)
     t0 = time.perf_counter()

@@ -9,9 +9,16 @@ flags: ``--full`` is the published config (bf16 weights) and the default the
 reduced smoke config; ``--layers`` cuts the depth and changes nothing else.
 The weights come from ``repro_torch.random.PRNGKey(0)``, so they are the
 reference's.  The token stream's host slice follows the default
-``torch.distributed`` group when one is initialised.  ``--mesh none`` is
-the only mesh: the sharded meshes (``single``, ``multi``) wait for the
-sharded training half in ``ROADMAP.md`` Queue 1.
+``torch.distributed`` group when one is initialised.
+
+``--mesh single|multi`` plans the step on the production mesh (16 x 16, or
+2 x 16 x 16): it prints the train state's and the batch's placements, by
+the logical-axis rules of ``distributed/sharding.py``, and the bytes a
+device holds, then builds the ``DeviceMesh``, which raises ``ValueError``
+unless the process group has 256 (512) ranks, as the reference's launcher
+raises on any host short of a pod.  The port writes no train step sharded
+over that many ranks: no machine it runs on has them (``ROADMAP.md``
+Queue 3, "Deviations held by test").
 """
 
 from __future__ import annotations
@@ -21,14 +28,48 @@ import functools
 import os
 import tempfile
 
+import torch
+
 from repro_torch import random as jr
 from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
-from repro_torch.models.config import ARCH_IDS, SHARDED_TRAINING_QUEUE_ITEM, get_config
+from repro_torch.core.topology import make_production_mesh
+from repro_torch.distributed.sharding import make_rules, placements
+from repro_torch.launch import specs as S
+from repro_torch.models.config import ARCH_IDS, get_config
 from repro_torch.models.model import Model
 from repro_torch.train.loop import LoopReport, run_training
 from repro_torch.train.step import TrainConfig, init_train_state, train_step
+
+
+def plan_mesh(model: Model, tc: TrainConfig, mesh_kind: str, batch: int, seq: int):
+    """Print the train state's and the batch's placements on the production
+    mesh and the bytes a device holds of each; returns the mesh."""
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+    rules = make_rules()
+    state = S.train_state_abstract(model, tc)
+    state_ps = S.train_state_pspecs(model, state, mesh, rules)
+    tokens = torch.empty((batch, seq), dtype=torch.int32, device="meta")
+    batch_abs = {"tokens": tokens, "labels": tokens}
+    batch_ps = S.batch_pspecs(batch_abs, mesh, rules)
+    print(f"[train] plan on the {mesh_kind} mesh {mesh.shape} ({mesh.size} devices):")
+    for path, (t, ps) in _named(state.params, state_ps.params):
+        print(f"[train]   params.{path} {tuple(t.shape)}: {ps} -> {placements(ps, mesh)}")
+    for k, ps in batch_ps.items():
+        print(f"[train]   batch.{k} {(batch, seq)}: {ps} -> {placements(ps, mesh)}")
+    total = sum(t.numel() * t.element_size() for t, _ in S.placed(state, state_ps))
+    print(f"[train] train state {S.per_device_bytes(state, state_ps, mesh):,} B a device of "
+          f"{total:,} B; batch {S.per_device_bytes(batch_abs, batch_ps, mesh):,} B a device")
+    return mesh
+
+
+def _named(tensors, specs, prefix: str = ""):
+    for k, v in tensors.items():
+        if isinstance(v, dict):
+            yield from _named(v, specs[k], f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", (v, specs[k])
 
 
 def main(argv=None) -> LoopReport:
@@ -52,11 +93,6 @@ def main(argv=None) -> LoopReport:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} is not ported yet: the sharded meshes wait in ROADMAP.md "
-            f"Queue 1, item {SHARDED_TRAINING_QUEUE_ITEM} (the sharded training half)")
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=not args.full)
     if args.layers is not None:
         cfg = cfg.with_(n_layers=args.layers)
@@ -65,7 +101,14 @@ def main(argv=None) -> LoopReport:
                      quantize_moments=args.quantize_moments,
                      compress_grads=args.compress_grads)
     print(f"[train] {cfg.name}: {model.n_params() / 1e6:.1f}M params, "
-          f"{cfg.n_layers} layers, {cfg.dtype}, remat {cfg.remat}, on {dev}")
+          f"{cfg.n_layers} layers, {cfg.dtype}, remat {cfg.remat}")
+    if args.mesh != "none":
+        mesh = plan_mesh(model, tc, args.mesh, args.batch, args.seq)
+        mesh.device_mesh()  # raises unless the process group has mesh.size ranks
+        raise NotImplementedError(f"the port has no train step sharded over {mesh.size} ranks "
+                                  f"(ROADMAP.md Queue 3)")
+    dev = resolve_device(args.device)
+    print(f"[train] on {dev}")
 
     stream = TokenStream(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
     ckpt = CheckpointManager(args.ckpt_dir, save_every=args.save_every, keep=3)

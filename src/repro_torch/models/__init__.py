@@ -1,5 +1,5 @@
-"""The side LM stack's model zoo: one config + facade (the dense, VLM,
-MoE, SSM and hybrid families so far)."""
+"""The side LM stack's model zoo: 10 architectures behind one config +
+facade."""
 
 from repro_torch.models.config import (
     ALL_SHAPES,
@@ -11,7 +11,6 @@ from repro_torch.models.config import (
     Family,
     ModelConfig,
     MoEConfig,
-    PORTED_ARCHS,
     SSMConfig,
     ShapeCell,
     get_config,
@@ -29,7 +28,6 @@ __all__ = [
     "Family",
     "ModelConfig",
     "MoEConfig",
-    "PORTED_ARCHS",
     "SSMConfig",
     "ShapeCell",
     "get_config",

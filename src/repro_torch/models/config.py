@@ -4,9 +4,7 @@
 One dataclass describes every family (dense / MoE / SSM / hybrid / enc-dec /
 VLM backbone), with the reference's exact parameter counts; per-arch
 constructor modules live in ``repro_torch.configs.<id>`` and the registry
-here maps ``--arch <id>`` to them.  The port carries the dense, VLM, MoE,
-SSM and hybrid configs so far (``PORTED_ARCHS``); ``get_config`` names the
-queue that holds the others.
+here maps ``--arch <id>`` to them, every one of the reference's ten.
 """
 
 from __future__ import annotations
@@ -238,40 +236,12 @@ ARCH_IDS: tuple[str, ...] = (
 )
 
 
-#: the configs ported so far: the uniform dense family, the VLM backbone, the
-#: MoE, SSM and hybrid families
-PORTED_ARCHS: tuple[str, ...] = (
-    "granite-20b",
-    "command-r-plus-104b",
-    "qwen1.5-110b",
-    "dbrx-132b",
-    "kimi-k2-1t-a32b",
-    "mamba2-130m",
-    "zamba2-7b",
-    "qwen2-vl-72b",
-)
-
-#: the items of ROADMAP.md Queue 1 that hold the LM stack's unported work
-FAMILIES_QUEUE_ITEM = 3  # the other families (enc-dec, local/global)
-SHARDED_TRAINING_QUEUE_ITEM = 4  # the sharded training half (meshes, specs)
-
-
-def families_queue() -> str:
-    """Where the LM stack's unported families wait, for error messages."""
-    return (f"ROADMAP.md Queue 1, item {FAMILIES_QUEUE_ITEM} (the LM stack's other "
-            f"families)")
-
-
 def get_config(arch: str, *, reduced: bool = False) -> ModelConfig:
     """Load ``repro_torch.configs.<arch>`` and return its (full or smoke) config."""
     import importlib
 
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; one of {ARCH_IDS}")
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: its family and config wait in "
-            f"{families_queue()}; ported: {PORTED_ARCHS}")
     mod_name = "repro_torch.configs." + arch.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(mod_name)
     return mod.reduced_config() if reduced else mod.full_config()

@@ -10,13 +10,19 @@ a 0-d int32 ``index`` on the cache's device:
                  sequence length
   hybrid         the ssm caches plus one shared-attention KV cache for each
                  of the G call sites of the shared block (G, B, S_max, KV, hd)
+  enc_dec        the decoder's self K/V plus the cross K/V of the encoder's
+                 output (L, B, S_enc, KV, hd); ``prefill`` replaces the cross
+                 leaves with the frames' own length, as the reference does
 
 ``prefill`` consumes the prompt and returns the last position's logits only.
 ``decode_step`` inserts the new token's K/V into a new cache at ``index``
 (out of place, as ``dynamic_update_slice``) and attends to
-``kv_pos <= index``, within the window for a windowed config; the SSM
-leaves are the recurrence's new states.  The cache it was given is left as
-it was.
+``kv_pos <= index``, within the window for a windowed config or a local
+gemma2 layer; the SSM leaves are the recurrence's new states.  whisper's
+decoder attends to every cached frame, and its self attention never
+windows: the reference's decode body calls the attention with ``is_local``
+left False, so a windowed copy of its config decodes the same bits.  The
+cache it was given is left as it was.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.config import Family, ModelConfig
 from repro_torch.models.transformer import (
@@ -33,28 +40,34 @@ from repro_torch.models.transformer import (
     _dense_block,
     _mamba_block_apply,
     _moe_block,
-    check_ported,
     dense_cfg,
     embed,
+    enc_dec_cfg,
+    encode,
     hybrid_groups,
     layer,
+    local_layer,
     n_stacked,
+    need_frames,
+    sinusoid,
     unembed,
 )
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                device: torch.device | str = "cuda") -> dict[str, Any]:
-    check_ported(cfg)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     c: dict[str, Any] = {"index": torch.zeros((), dtype=torch.int32, device=device)}
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    if cfg.family in (*_DENSE, Family.MOE):
+    if cfg.family in (*_DENSE, Family.MOE, Family.ENC_DEC):
         c["k"] = zeros(cfg.n_layers, batch, max_seq, kv, hd)
         c["v"] = zeros(cfg.n_layers, batch, max_seq, kv, hd)
+        if cfg.family is Family.ENC_DEC:
+            c["cross_k"] = zeros(cfg.n_layers, batch, cfg.encoder_seq, kv, hd)
+            c["cross_v"] = zeros(cfg.n_layers, batch, cfg.encoder_seq, kv, hd)
     else:
         s = cfg.ssm
         d_in = s.d_inner(cfg.d_model)
@@ -87,10 +100,10 @@ def _put_states(cache: dict[str, Any], states: list) -> None:
     cache["ssm"] = torch.stack([c.ssm for c in states]).to(cache["ssm"].dtype)
 
 
-def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            cache: dict[str, Any]) -> tuple[torch.Tensor, dict[str, Any]]:
-    """Consume the prompt; returns (last-token logits (B, V), filled cache)."""
-    check_ported(cfg)
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict[str, Any], *,
+            encoder_frames: torch.Tensor | None = None) -> tuple[torch.Tensor, dict[str, Any]]:
+    """Consume the prompt; returns (last-token logits (B, V), filled cache).
+    The encoder-decoder family needs ``encoder_frames`` (B, S_enc, D)."""
     b, s = tokens.shape
     positions = _positions(cfg, torch.arange(s, device=tokens.device)[None].expand(b, s))
     x = embed(cfg, params, tokens)
@@ -98,8 +111,10 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     blocks = params["blocks"]
     ks, vs, states = [], [], []
     if cfg.family in _DENSE:
+        lg = cfg.local_global_pattern
         for i in range(n_stacked(blocks)):
-            x, (k, v) = _dense_block(cfg, layer(blocks, i), x, positions=positions)
+            x, (k, v) = _dense_block(cfg, layer(blocks, i), x, positions=positions,
+                                     is_local=local_layer(i) if lg else None)
             ks.append(k)
             vs.append(v)
     elif cfg.family is Family.MOE:
@@ -117,7 +132,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         for i in range(n_stacked(blocks)):
             x, c = _mamba_block_apply(cfg, layer(blocks, i), x)
             states.append(c)
-    else:
+    elif cfg.family is Family.HYBRID:
         groups, tail = hybrid_groups(cfg)
         for group in groups:
             for i in group:
@@ -129,6 +144,20 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         for i in tail:
             x, c = _mamba_block_apply(cfg, layer(blocks, i), x)
             states.append(c)
+    else:  # encoder-decoder: the cross K/V of the frames replace the cache's
+        memory = encode(cfg, params, need_frames(encoder_frames))
+        dcfg = enc_dec_cfg(cfg)
+        x = x + sinusoid(s, cfg.d_model, x.dtype, x.device)[None]
+        cks, cvs = [], []
+        for i in range(n_stacked(blocks)):
+            p = layer(blocks, i)
+            x, (k, v) = _dense_block(dcfg, p, x, positions=positions, cross_memory=memory)
+            ks.append(k)
+            vs.append(v)
+            cks.append(L.einsum("bsd,dhk->bshk", memory, p["cross_attn"]["wk"]))
+            cvs.append(L.einsum("bsd,dhk->bshk", memory, p["cross_attn"]["wv"]))
+        cache["cross_k"] = torch.stack(cks).to(cache["cross_k"].dtype)
+        cache["cross_v"] = torch.stack(cvs).to(cache["cross_v"].dtype)
     if states:
         _put_states(cache, states)
     if ks:
@@ -141,7 +170,6 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 cache: dict[str, Any]) -> tuple[torch.Tensor, dict[str, Any]]:
     """One new token per sequence. tokens (B, 1) -> (logits (B, V), new cache)."""
-    check_ported(cfg)
     b = tokens.shape[0]
     idx = cache["index"]
     positions = _positions(cfg, idx.reshape(1, 1).expand(b, 1).to(torch.int32))
@@ -150,9 +178,9 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     new_cache = dict(cache)
     ks, vs, states = [], [], []
 
-    def attend(block_fn, bcfg, p, x, j):
+    def attend(block_fn, bcfg, p, x, j, **kw):
         out = block_fn(bcfg, p, x, positions=positions,
-                       kv_cache=(cache["k"][j], cache["v"][j]), cache_index=idx)
+                       kv_cache=(cache["k"][j], cache["v"][j]), cache_index=idx, **kw)
         ks.append(out[1][0])
         vs.append(out[1][1])
         return out[0]
@@ -165,8 +193,10 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         return x
 
     if cfg.family in _DENSE:
+        lg = cfg.local_global_pattern
         for i in range(n_stacked(blocks)):
-            x = attend(_dense_block, cfg, layer(blocks, i), x, i)
+            x = attend(_dense_block, cfg, layer(blocks, i), x, i,
+                       is_local=local_layer(i) if lg else None)
     elif cfg.family is Family.MOE:
         off = cfg.moe.first_k_dense
         if off:
@@ -178,7 +208,7 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     elif cfg.family is Family.SSM:
         for i in range(n_stacked(blocks)):
             x = recur(x, i)
-    else:
+    elif cfg.family is Family.HYBRID:
         groups, tail = hybrid_groups(cfg)
         for gi, group in enumerate(groups):
             for i in group:
@@ -186,6 +216,8 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             x = attend(_dense_block, cfg, params["shared_attn"], x, gi)
         for i in tail:
             x = recur(x, i)
+    else:  # encoder-decoder
+        x = _decode_enc_dec(cfg, blocks, x, positions, cache, ks, vs)
     if states:
         _put_states(new_cache, states)
     if ks:
@@ -194,3 +226,34 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     new_cache["index"] = idx + 1
     logits = unembed(cfg, params, x)[:, 0]
     return logits, new_cache
+
+
+def _decode_enc_dec(cfg: ModelConfig, blocks: dict, x: torch.Tensor, positions: torch.Tensor,
+                    cache: dict[str, Any], ks: list, vs: list) -> torch.Tensor:
+    """whisper's decoder for one token, as the reference's decode body: the
+    position row ``sinusoid(S_max)[index]`` with the index clamped to
+    ``S_max - 1`` (``dynamic_slice_in_dim`` clamps it), self attention over
+    the cache (never windowed), cross attention with no mask over every
+    cached frame, the MLP."""
+    dcfg = enc_dec_cfg(cfg)
+    idx = cache["index"]
+    max_seq = cache["k"].shape[2]
+    row = torch.clamp(idx, 0, max_seq - 1).reshape(1).to(torch.int64)
+    x = x + sinusoid(max_seq, cfg.d_model, x.dtype, x.device).index_select(0, row)[None]
+    for i in range(n_stacked(blocks)):
+        p = layer(blocks, i)
+        h = L.apply_norm(dcfg, x, p["norm_attn"])
+        a, (k, v) = L.attention(dcfg, p["attn"], h, positions=positions,
+                                kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx)
+        ks.append(k)
+        vs.append(v)
+        x = x + a
+        h = L.apply_norm(dcfg, x, p["norm_cross"])
+        q = L.einsum("bsd,dhk->bshk", h, p["cross_attn"]["wq"])
+        kh = L._expand_kv(cache["cross_k"][i], dcfg.n_heads)
+        vh = L._expand_kv(cache["cross_v"][i], dcfg.n_heads)
+        out = L.dot_attention(q, kh, vh, None)
+        x = x + L.einsum("bshk,hkd->bsd", out.to(x.dtype), p["cross_attn"]["wo"])
+        h = L.apply_norm(dcfg, x, p["norm_mlp"])
+        x = x + L.mlp(dcfg, p["mlp"], h)
+    return x

@@ -10,7 +10,7 @@ import torch
 from repro_torch.models import decode as D
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import count_params, materialize
+from repro_torch.models.params import abstract, count_params, materialize, pspecs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +25,13 @@ class Model:
         """Weights from ``key`` on its device, drawn as the reference draws them."""
         return materialize(key, self.defs(), dtype=dtype or self.cfg.param_dtype())
 
+    def abstract_params(self, dtype: torch.dtype | None = None):
+        """The params as ``meta`` tensors (shapes and dtype, no storage)."""
+        return abstract(self.defs(), dtype=dtype or self.cfg.param_dtype())
+
+    def param_pspecs(self, mesh, rules):
+        return pspecs(self.defs(), mesh, rules)
+
     def n_params(self) -> int:
         return count_params(self.defs())
 
@@ -35,8 +42,7 @@ class Model:
     def loss(self, params, tokens: torch.Tensor, labels: torch.Tensor, *,
              encoder_frames: torch.Tensor | None = None) -> torch.Tensor:
         """Mean token cross-entropy over float32 logits, plus the aux loss.
-        ``encoder_frames`` (the encoder-decoder path) raises until that
-        family is ported, as ``forward`` does."""
+        The encoder-decoder family takes ``encoder_frames``."""
         out = self.forward(params, tokens, encoder_frames=encoder_frames)
         logp = torch.log_softmax(out.logits.to(torch.float32), dim=-1)
         ll = torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
@@ -49,8 +55,8 @@ class Model:
         for the CPU)."""
         return D.init_cache(self.cfg, batch, max_seq, dtype, device)
 
-    def prefill(self, params, tokens, cache):
-        return D.prefill(self.cfg, params, tokens, cache)
+    def prefill(self, params, tokens, cache, *, encoder_frames=None):
+        return D.prefill(self.cfg, params, tokens, cache, encoder_frames=encoder_frames)
 
     def decode_step(self, params, tokens, cache):
         return D.decode_step(self.cfg, params, tokens, cache)

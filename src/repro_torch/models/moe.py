@@ -12,9 +12,12 @@ whatever the batch.  Over-capacity pairs are dropped: their token keeps
 only the other experts' share, the shared expert and the residual.
 
 Each op has a form that is deterministic on the card under
-``torch.use_deterministic_algorithms(True)``: the expert counts are a
-``bincount`` without weights, the two scatter-adds are ``index_add`` into a
-zero buffer (every dropped pair lands on its expert's slot 0 with a zero
+``torch.use_deterministic_algorithms(True)`` and runs on ``meta`` tensors
+(the planner's): the expert counts are a comparison of the assignment with
+``arange(E)`` summed in int64 (``expert_counts``: integer sums, so
+``bincount``'s bits; ``bincount`` has no meta kernel and syncs with the
+host on the card), the two scatter-adds are ``index_add`` into a zero
+buffer (every dropped pair lands on its expert's slot 0 with a zero
 row, so those collisions add nothing), the gathers are ``index_select``
 (whose backward is an ``index_add``), and the integer prefix sum of the
 counts is an integer ``cumsum``.  ``torch.topk`` (sorted) and
@@ -77,6 +80,13 @@ class Dispatch(NamedTuple):
     cap: int
 
 
+def expert_counts(topi: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Token-slot pairs given to each expert, ``(E,)`` int64, from the
+    assignment ``topi``: ``bincount(topi.reshape(-1), minlength=E)``."""
+    experts = torch.arange(n_experts, device=topi.device)
+    return (topi.reshape(-1, 1) == experts).sum(0, dtype=torch.int64)
+
+
 def route(cfg: ModelConfig, p: dict, xf: torch.Tensor) -> Routing:
     """Router softmax and top-k of ``xf (N, D)``, as the reference routes."""
     logits = einsum("nd,de->ne", xf, p["router"]).to(torch.float32)
@@ -99,7 +109,7 @@ def dispatch(cfg: ModelConfig, r: Routing, *,
     se = e_flat.index_select(0, order)
     st = tok.index_select(0, order)
     sw = w_flat.index_select(0, order)
-    counts = torch.bincount(e_flat, minlength=e)
+    counts = expert_counts(e_flat, e)
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(n * k, device=dev) - starts.index_select(0, se)
     cap = expert_capacity(n, e, k, capacity_factor)
@@ -124,7 +134,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
     # Switch-style load-balancing auxiliary loss; a 0-d divisor keeps the
     # division a true one on every device, as the reference's
-    counts = torch.bincount(r.topi.reshape(-1), minlength=e).to(torch.float32)
+    counts = expert_counts(r.topi, e).to(torch.float32)
     onehot_frac = counts / torch.full((), n * k, dtype=torch.float32, device=x.device)
     frac_probs = torch.mean(r.probs, dim=0)
     aux = e * torch.sum(onehot_frac * frac_probs) * m.aux_loss_coef

@@ -1,21 +1,25 @@
 """Parameter definition trees (port of ``repro.models.params``): one source
 of truth for shapes, logical axes and initialization.
 
-Every model module builds a nested dict of ``ParamDef`` leaves, and
-``materialize`` draws real weights from it.  The reference's ``abstract``,
-``pspecs`` and ``shardings`` serve its sharded training and dry-run and wait
-for that half of the stack.
+Every model module builds a nested dict of ``ParamDef`` leaves; from that
+one tree come (a) real weights (``materialize``), (b) tensors on the
+``meta`` device with the shapes and dtype and no storage (``abstract``),
+the planner's stand-in for the reference's ``ShapeDtypeStruct`` trees, and
+(c) the partition specs and placements of every leaf on a mesh
+(``pspecs``, ``shardings``), structurally consistent by construction.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch.distributed.sharding import PartitionSpec, ShardingRules, placements
+from repro_torch.distributed.sharding import spec as _spec
 
 #: elements drawn at once by ``materialize``: the threefry draw holds a few
 #: int64 temporaries of a chunk's size, so a 300M-element leaf would need
@@ -88,6 +92,43 @@ def materialize(key: torch.Tensor, defs: Any, dtype: torch.dtype = torch.float32
         return _normal(keys[i], d.shape, float(s), dtype)
 
     return tree_map_defs(init_one, defs)
+
+
+def abstract(defs: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
+    """The params as ``meta`` tensors: shapes and dtype, no storage."""
+    return tree_map_defs(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"), defs)
+
+
+def pspecs(defs: Any, mesh: Any, rules: ShardingRules) -> Any:
+    """PartitionSpec tree matching the params tree."""
+    return tree_map_defs(lambda d: _spec(d.shape, d.axes, mesh, rules), defs)
+
+
+class NamedSharding(NamedTuple):
+    """A leaf's layout on a mesh: its spec, its ``torch.distributed.tensor``
+    placements (one per mesh dimension) and the ``DeviceMesh`` they apply
+    to, or ``None`` where the process group cannot build one."""
+
+    mesh: Any
+    spec: PartitionSpec
+    placements: tuple
+    device_mesh: Any
+
+
+def shardings(defs: Any, mesh: Any, rules: ShardingRules) -> Any:
+    """``NamedSharding`` tree matching the params tree; the ``DeviceMesh``
+    comes from ``mesh.device_mesh()`` when the default process group has
+    ``mesh.size`` ranks."""
+    try:
+        device_mesh = mesh.device_mesh()
+    except ValueError:
+        device_mesh = None
+
+    def one(d: ParamDef) -> NamedSharding:
+        s = _spec(d.shape, d.axes, mesh, rules)
+        return NamedSharding(mesh, s, placements(s, mesh), device_mesh)
+
+    return tree_map_defs(one, defs)
 
 
 def count_params(defs: Any) -> int:

@@ -1,22 +1,25 @@
 """Forward pass of the side LM stack (port of ``repro.models.transformer``).
 
 One parameter-def tree and one set of apply functions, as the reference
-has them.  The port carries the dense family (command-r-plus's parallel
-block, granite's MQA with a GELU MLP, qwen1.5's QKV bias), the VLM
-backbone that shares its blocks (qwen2-vl, M-RoPE), the MoE family (dbrx;
-kimi-k2 with its dense first layer and shared expert), the SSM family
-(mamba2) and the hybrid (zamba2: a mamba2 backbone and one shared
-attention block applied after every ``attn_every`` layers).  The
-encoder-decoder and local/global (gemma2) paths raise
-``NotImplementedError`` and wait in ``ROADMAP.md`` Queue 1
-(``config.families_queue``).
+has them, for every family: the dense family (command-r-plus's parallel
+block, granite's MQA with a GELU MLP, qwen1.5's QKV bias, gemma2's
+alternating local/global layers with softcaps and post-block norms), the
+VLM backbone that shares its blocks (qwen2-vl, M-RoPE), the MoE family
+(dbrx; kimi-k2 with its dense first layer and shared expert), the SSM
+family (mamba2), the hybrid (zamba2: a mamba2 backbone and one shared
+attention block applied after every ``attn_every`` layers) and the
+encoder-decoder (whisper: an encoder over precomputed frame embeddings, the
+stub frontend, and a decoder with cross attention).
 
 The stacked layer params keep their leading layer axis, as the reference
 stacks them for ``lax.scan``, so the weight converter is a direct map; the
-scan becomes a loop over that axis.
+scan becomes a loop over that axis.  gemma2's layer ``2i`` is local
+(windowed) and ``2i + 1`` global, as the reference's scan over pairs runs
+them.
 
 Rematerialisation (``cfg.remat``) applies when gradients are on: each block
-the reference scans (dense, MoE and mamba blocks; not zamba2's shared
+the reference scans (dense, MoE and mamba blocks, whisper's encoder and
+decoder blocks, each of gemma2's two layers of a pair; not zamba2's shared
 block, which the reference applies outside its scans) runs under
 ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its scan
 body in ``jax.checkpoint``.  ``"full"`` saves nothing and recomputes the
@@ -26,7 +29,8 @@ without batch dimensions (the projections and the MLP, which
 and recomputes the rest, as ``jax.checkpoint_policies.
 dots_with_no_batch_dims_saveable`` does; ``"none"`` keeps every
 activation.  The recompute runs the same operations on the same inputs, so
-the loss and the gradients are the same bits under every setting.
+the loss and the gradients are the same bits under every setting (the
+reference remats gemma2's pair as one body, which gives the same values).
 """
 
 from __future__ import annotations
@@ -43,28 +47,14 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from repro_torch.device import cached_const
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
-from repro_torch.models.config import Family, ModelConfig, families_queue
+from repro_torch.models.config import Family, ModelConfig
 from repro_torch.models.params import ParamDef, tree_map_defs
 
 _DENSE = (Family.DENSE, Family.VLM)
-_PORTED = (*_DENSE, Family.MOE, Family.SSM, Family.HYBRID)
-
-
-def unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it waits in {families_queue()}: the "
-        f"encoder-decoder and local/global paths")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a family or layer pattern the port does not carry yet."""
-    if cfg.family not in _PORTED:
-        raise unported(f"the {cfg.family.value} family ({cfg.name})")
-    if cfg.local_global_pattern:
-        raise unported(f"the local/global layer pattern ({cfg.name})")
 
 
 # -- parameter definition tree ---------------------------------------------------
@@ -76,7 +66,7 @@ def _stack(defs: Any, n: int) -> Any:
         lambda d: ParamDef((n, *d.shape), ("layers", *d.axes), d.init, d.scale), defs)
 
 
-def _dense_block_defs(cfg: ModelConfig) -> dict[str, Any]:
+def _dense_block_defs(cfg: ModelConfig, *, cross: bool = False) -> dict[str, Any]:
     d = {
         "attn": L.attention_defs(cfg),
         "mlp": L.mlp_defs(cfg),
@@ -88,6 +78,9 @@ def _dense_block_defs(cfg: ModelConfig) -> dict[str, Any]:
         d["post_norm_mlp"] = L.norm_defs(cfg.d_model)
     if cfg.parallel_block:  # command-r: one shared input norm
         d.pop("norm_mlp")
+    if cross:  # whisper decoder
+        d["cross_attn"] = L.attention_defs(cfg, cross=True)
+        d["norm_cross"] = L.norm_defs(cfg.d_model)
     return d
 
 
@@ -113,7 +106,6 @@ def dense_cfg(cfg: ModelConfig) -> ModelConfig:
 
 
 def make_defs(cfg: ModelConfig) -> dict[str, Any]:
-    check_ported(cfg)
     v, d = cfg.vocab, cfg.d_model
     defs: dict[str, Any] = {
         "embed": ParamDef((v, d), ("vocab", "embed"), init="small"),
@@ -128,6 +120,12 @@ def make_defs(cfg: ModelConfig) -> dict[str, Any]:
         if k:
             defs["dense_blocks"] = _stack(_dense_block_defs(dense_cfg(cfg)), k)
         defs["blocks"] = _stack(_moe_block_defs(cfg), cfg.n_layers - k)
+    elif cfg.family is Family.ENC_DEC:
+        defs["encoder"] = {
+            "blocks": _stack(_dense_block_defs(cfg), cfg.n_encoder_layers),
+            "final_norm": L.norm_defs(d),
+        }
+        defs["blocks"] = _stack(_dense_block_defs(cfg, cross=True), cfg.n_layers)
     else:  # SSM, or the hybrid's backbone and its one shared block
         defs["blocks"] = _stack(_mamba_block_defs(cfg), cfg.n_layers)
         if cfg.family is Family.HYBRID:
@@ -160,9 +158,12 @@ def _dense_block(
     is_local: bool | None = None,
     kv_cache=None,
     cache_index=None,
+    cross_memory: torch.Tensor | None = None,
     causal: bool = True,
 ):
-    """Pre-norm residual block covering every dense variant."""
+    """Pre-norm residual block covering every dense variant; whisper's decoder
+    block adds non-causal cross attention over ``cross_memory`` after the
+    self-attention residual."""
     if is_local is None:
         # uniform-window configs (no local/global alternation) window everywhere
         is_local = cfg.sliding_window is not None and not cfg.local_global_pattern
@@ -179,6 +180,11 @@ def _dense_block(
     if cfg.post_block_norm:
         a = L.apply_norm(cfg, a, p["post_norm_attn"])
     x = x + a
+    if "cross_attn" in p:  # whisper decoder
+        h = L.apply_norm(cfg, x, p["norm_cross"])
+        c, _ = L.attention(cfg, p["cross_attn"], h, positions=positions,
+                           cross_memory=cross_memory, causal=False)
+        x = x + c
     h = L.apply_norm(cfg, x, p["norm_mlp"])
     m = L.mlp(cfg, p["mlp"], h)
     if cfg.post_block_norm:
@@ -209,7 +215,11 @@ def _mamba_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, cache=None):
 def embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     x = F.embedding(tokens.to(torch.int64), params["embed"])
     if cfg.family is Family.ENC_DEC or cfg.name.startswith("gemma"):
-        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+        # sqrt(d_model) rounded once to the activation dtype, as the reference's
+        # ``jnp.asarray(np.sqrt(d), x.dtype)``; built once a device, so a decode
+        # step makes no host-to-device copy (a synchronisation)
+        x = x * cached_const(("embed_scale", cfg.d_model, x.dtype), x.device,
+                             lambda: torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype))
     return x
 
 
@@ -247,8 +257,11 @@ def _needs_grad(x: torch.Tensor, blocks: Any) -> bool:
     return x.requires_grad or blocks.requires_grad
 
 
-def _dense_out(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
-    return _dense_block(cfg, p, x, positions=positions)[0]
+def _dense_out(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+               is_local: bool | None = None, cross_memory: torch.Tensor | None = None,
+               causal: bool = True):
+    return _dense_block(cfg, p, x, positions=positions, is_local=is_local,
+                        cross_memory=cross_memory, causal=causal)[0]
 
 
 def _moe_out(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
@@ -284,6 +297,54 @@ def _default_positions(cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return pos
 
 
+def sinusoid(n_pos: int, d: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """``layers.sinusoidal_positions(n_pos, d)`` on ``device``, cast to
+    ``dtype`` (the float32 table is built once per device)."""
+    table = cached_const(("sinusoid", n_pos, d), device,
+                         lambda: L.sinusoidal_positions(n_pos, d))
+    return table.to(dtype)
+
+
+def local_layer(i: int) -> bool:
+    """gemma2: layer ``2i`` of the stack is local (windowed), ``2i + 1`` global."""
+    return i % 2 == 0
+
+
+def enc_dec_cfg(cfg: ModelConfig) -> ModelConfig:
+    """whisper's encoder and decoder blocks: absolute sinusoidal positions, no RoPE."""
+    return cfg.with_(rope_theta=0.0)
+
+
+def _remat_of(cfg: ModelConfig, x: torch.Tensor, blocks: Any) -> str:
+    remat = cfg.remat if torch.is_grad_enabled() and _needs_grad(x, blocks) else "none"
+    if remat not in _REMAT:
+        raise ValueError(f"remat {cfg.remat!r}: one of {_REMAT}")
+    return remat
+
+
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """whisper's encoder over precomputed frame embeddings (the stub
+    frontend): the sinusoidal table in the frames' dtype, the encoder blocks
+    non-causal, then the encoder's final norm."""
+    b, s, _ = frames.shape
+    x = frames + sinusoid(s, cfg.d_model, frames.dtype, frames.device)[None]
+    ecfg = enc_dec_cfg(cfg)
+    positions = torch.arange(s, device=frames.device)[None].expand(b, s)
+    blocks = params["encoder"]["blocks"]
+    remat = _remat_of(cfg, x, blocks)
+    for i in range(n_stacked(blocks)):
+        x = _apply(remat, _dense_out, ecfg, layer(blocks, i), x, positions, None, None, False)
+    return L.apply_norm(cfg, x, params["encoder"]["final_norm"])
+
+
+def need_frames(encoder_frames: torch.Tensor | None) -> torch.Tensor:
+    """The encoder-decoder family's frames; the reference asserts them, and
+    this raises the same error type."""
+    if encoder_frames is None:
+        raise AssertionError("enc_dec needs encoder_frames")
+    return encoder_frames
+
+
 def forward(
     cfg: ModelConfig,
     params: dict,
@@ -293,21 +354,22 @@ def forward(
     encoder_frames: torch.Tensor | None = None,
 ) -> ForwardOut:
     """Full-sequence forward -> logits (B, S, V) + aux loss (the MoE layers'
-    load-balancing losses summed; 0 for the other families)."""
-    check_ported(cfg)
-    if encoder_frames is not None:
-        raise unported("the encoder-decoder path")
+    load-balancing losses summed; 0 for the other families).  The
+    encoder-decoder family needs ``encoder_frames`` (B, S_enc, D); the
+    others ignore them, as the reference does."""
     if positions is None:
         positions = _default_positions(cfg, tokens)
     x = embed(cfg, params, tokens)
     blocks = params["blocks"]
-    remat = cfg.remat if torch.is_grad_enabled() and _needs_grad(x, blocks) else "none"
-    if remat not in _REMAT:
-        raise ValueError(f"remat {cfg.remat!r}: one of {_REMAT}")
+    remat = _remat_of(cfg, x, blocks)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in _DENSE:
+        lg = cfg.local_global_pattern
+        if lg and cfg.n_layers % 2:
+            raise ValueError(f"local/global pairs need an even n_layers, not {cfg.n_layers}")
         for i in range(n_stacked(blocks)):
-            x = _apply(remat, _dense_out, cfg, layer(blocks, i), x, positions)
+            x = _apply(remat, _dense_out, cfg, layer(blocks, i), x, positions,
+                       local_layer(i) if lg else None)
     elif cfg.family is Family.MOE:
         if cfg.moe.first_k_dense:
             dcfg, dense = dense_cfg(cfg), params["dense_blocks"]
@@ -321,8 +383,14 @@ def forward(
     elif cfg.family is Family.SSM:
         for i in range(n_stacked(blocks)):
             x = _apply(remat, _mamba_out, cfg, layer(blocks, i), x)
-    else:
+    elif cfg.family is Family.HYBRID:
         x = _forward_hybrid(cfg, params, x, positions, remat)
+    else:  # encoder-decoder
+        memory = encode(cfg, params, need_frames(encoder_frames))
+        dcfg = enc_dec_cfg(cfg)
+        x = x + sinusoid(tokens.shape[1], cfg.d_model, x.dtype, x.device)[None]
+        for i in range(n_stacked(blocks)):
+            x = _apply(remat, _dense_out, dcfg, layer(blocks, i), x, positions, None, memory)
     logits = unembed(cfg, params, x)
     return ForwardOut(logits=logits, aux_loss=aux_total)
 

@@ -7,7 +7,10 @@ accelerator, control in the dApp).  ``generate`` runs greedy decoding (or
 a caller's sampler); ``generate_switched`` runs the full ARCHES control
 loop (E3 telemetry -> dApp policy -> slot-boundary switching with its
 fail-safe) over the port's ``ArchesRuntime``.  Both run on the params'
-device, with a float32 KV cache as the reference's engine keeps it.
+device, with a float32 KV cache as the reference's engine keeps it.  The
+encoder-decoder family (whisper) takes ``encoder_frames`` (B, S_enc, D) to
+its prefill; the reference's ``generate_switched`` takes none, so it
+cannot serve whisper, and the port's takes them as ``generate`` does.
 """
 
 from __future__ import annotations
@@ -41,16 +44,17 @@ class ServingEngine:
         self.params = params
         self.max_seq = max_seq
 
-    def _prefill(self, prompts: torch.Tensor):
+    def _prefill(self, prompts: torch.Tensor, encoder_frames: torch.Tensor | None):
         cache = self.model.init_cache(prompts.shape[0], self.max_seq, dtype=torch.float32,
                                       device=prompts.device)
-        return self.model.prefill(self.params, prompts, cache)
+        return self.model.prefill(self.params, prompts, cache, encoder_frames=encoder_frames)
 
     def generate(self, prompts: torch.Tensor, n_steps: int, *,
+                 encoder_frames: torch.Tensor | None = None,
                  sample: Callable[[torch.Tensor], torch.Tensor] | None = None
                  ) -> GenerationResult:
         """Greedy (or custom-sampler) generation, no switching."""
-        logits, cache = self._prefill(prompts)
+        logits, cache = self._prefill(prompts, encoder_frames)
         pick = sample or _greedy
         toks = pick(logits)[:, None].to(torch.int32)
         out = [toks]
@@ -62,9 +66,10 @@ class ServingEngine:
 
     def generate_switched(self, prompts: torch.Tensor, n_steps: int, *,
                           decoder: SwitchedDecoder, dapp: DApp, default_mode: int = 1,
-                          ttl_slots: int = 16) -> GenerationResult:
+                          ttl_slots: int = 16, encoder_frames: torch.Tensor | None = None
+                          ) -> GenerationResult:
         """ARCHES-switched generation: the full dApp control loop per decode slot."""
-        logits, cache = self._prefill(prompts)
+        logits, cache = self._prefill(prompts, encoder_frames)
         first = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
 
         agent = E3Agent()

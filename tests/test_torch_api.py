@@ -33,9 +33,10 @@ from repro_torch.phy import scenario as tsc
 
 torch.set_num_threads(1)
 
-#: the reference's JAX mesh factories: ``CellTopology.build`` over a process
-#: group is their counterpart in the port (``core/topology.py``)
-MESH_FACTORIES = {"make_cpu_mesh", "make_production_mesh", "make_ue_mesh"}
+#: the reference's JAX mesh factory that has no counterpart of the same name:
+#: ``CellTopology.build`` over a process group stands in for the UE mesh
+#: (``core/topology.py``); the training meshes are ported as descriptors
+MESH_FACTORIES = {"make_ue_mesh"}
 #: LS + Wiener at n_prb 24: 144 complex products a subcarrier summed in
 #: another order (the plain Gauss form against XLA's einsum, or the Pallas
 #: kernel in interpret mode); outputs are O(1)

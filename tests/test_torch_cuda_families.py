@@ -1,5 +1,7 @@
-"""The LM stack's MoE, SSM, hybrid and VLM families on the card, against the
-same reduced configs on the CPU, under deterministic algorithms.
+"""The LM stack's MoE, SSM, hybrid, VLM, encoder-decoder and local/global
+families on the card, against the same reduced configs on the CPU, under
+deterministic algorithms; the MoE expert counts (no ``bincount``) on the
+card.
 
 Marked ``cuda``: each skips where there is no NVIDIA GPU.  This file imports
 no JAX, so it runs on the card's machine as it is:
@@ -137,3 +139,105 @@ def test_cuda_remat_same_bits(cuda, arch):
         runs[remat] = [loss, *tree_leaves(grads)]
     for remat in ("block", "full"):
         assert all(torch.equal(a, b) for a, b in zip(runs["none"], runs[remat])), remat
+
+
+def _frames(cfg, batch: int, n_frames: int = 8) -> torch.Tensor | None:
+    """Seeded stub frame embeddings for the encoder-decoder family."""
+    if cfg.family.value != "enc_dec":
+        return None
+    return jr.normal(jr.PRNGKey(5), (batch, n_frames, cfg.d_model))
+
+
+def _moved(x, dev):
+    return None if x is None else x.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "gemma2-9b"])
+def test_cuda_enc_dec_and_local_global_match_cpu(cuda, arch):
+    """The reduced whisper (8 stub frames) and gemma2 (a 12-token prompt and
+    steps past its window of 8): prefill and 4 decode steps, logits and every
+    cache leaf, card against CPU; whisper's switched steps at modes 0, 1 and a
+    vector launch both switch kernels, its windowed expert the exact expert's
+    bits; gemma2's switched decoder is refused as in the reference."""
+    model = Model(get_config(arch, reduced=True))
+    params = model.init(jr.PRNGKey(0))
+    prompts = jr.randint(jr.PRNGKey(1), (4, 12), 0, model.cfg.vocab)
+    frames = _frames(model.cfg, 4)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = _on(params, dev)
+        logits, cache = model.prefill(p, prompts.to(dev), model.init_cache(
+            4, 20, dtype=torch.float32, device=dev), encoder_frames=_moved(frames, dev))
+        seq, tok = [logits.cpu()], prompts[:, -1:].to(dev)
+        for _ in range(4):
+            logits, cache = model.decode_step(p, tok, cache)
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            seq.append(logits.cpu())
+        out[dev.type] = (seq, {k: v.cpu() for k, v in cache.items()}, p, cache, tok)
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(a, b, **LM_LOGIT_TOL)
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, **LM_LOGIT_TOL)
+    if model.cfg.local_global_pattern:
+        with pytest.raises(ValueError, match="uniform attention pattern"):
+            SwitchedDecoder(model)
+        return
+    _, _, p, cache, tok = out["cuda"]
+    dec = SwitchedDecoder(model, SwitchedDecodeConfig(window=4))
+    before = dict(build.launch_counts)
+    for mode in (0, 1, torch.tensor([0, 1, 1, 0], dtype=torch.int32)):
+        dec.step(mode, p, tok, cache)
+    torch.cuda.synchronize()
+    assert build.launch_counts["switch_select"] >= before["switch_select"] + 2
+    assert build.launch_counts["switch_select_batched"] == before["switch_select_batched"] + 1
+    outs = [e.fn(None, p, tok, cache) for e in dec.bank.experts]
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "gemma2-9b"])
+def test_cuda_enc_dec_and_local_global_train_step_matches_cpu(cuda, arch):
+    """One AdamW step (whisper's frames in the batch), card against CPU."""
+    model = Model(get_config(arch, reduced=True))
+    params = model.init(jr.PRNGKey(0))
+    batch = TokenStream(vocab=model.cfg.vocab, seq_len=12, global_batch=4).batch_at(0)
+    frames = _frames(model.cfg, 4)
+    if frames is not None:
+        batch["encoder_frames"] = frames
+    tc = tstep.TrainConfig(learning_rate=LR)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        state = tstep.init_train_state(model, _on(params, dev), tc)
+        state, m = tstep.train_step(model, tc, state, batch)
+        out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                         [t.cpu() for t in tree_leaves(state.params)])
+    (lc, gc, wc), (lg, gg, wg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= LOSS_RTOL * abs(lc) and abs(gg - gc) <= LOSS_RTOL * abs(gc)
+    diff = torch.cat([(a - b).abs().ravel() for a, b in zip(wg, wc)])
+    assert float(diff.max()) <= 2 * LR
+    assert float((diff > WEIGHT_ATOL).float().mean()) <= WEIGHT_OUTLIERS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_cuda_moe_counts_are_bincounts(cuda, arch, capacity_factor, monkeypatch):
+    """On the card the expert counts equal ``bincount``'s, and ``moe_ffn``'s
+    output, aux loss and kept mask are the bits the ``bincount`` form gives;
+    the kept mask and assignment equal the CPU's."""
+    cfg = get_config(arch, reduced=True)
+    p = _on(layer(Model(cfg).init(jr.PRNGKey(2))["blocks"]["moe"], 0), cuda)
+    x = jr.normal(jr.PRNGKey(3), (2, 16, cfg.d_model))
+    r = tmoe.route(cfg, p, x.to(cuda).reshape(-1, cfg.d_model))
+    counts = tmoe.expert_counts(r.topi, cfg.moe.n_experts)
+    assert torch.equal(counts, torch.bincount(r.topi.reshape(-1), minlength=cfg.moe.n_experts))
+    keep = tmoe.dispatch(cfg, r, capacity_factor=capacity_factor).keep
+    got = tmoe.moe_ffn(cfg, p, x.to(cuda), capacity_factor=capacity_factor)
+    r_cpu = tmoe.route(cfg, _on(p, torch.device("cpu")), x.reshape(-1, cfg.d_model))
+    assert torch.equal(r.topi.cpu(), r_cpu.topi)
+    assert torch.equal(keep.cpu(), tmoe.dispatch(cfg, r_cpu, capacity_factor=capacity_factor).keep)
+    monkeypatch.setattr(tmoe, "expert_counts",
+                        lambda t, e: torch.bincount(t.reshape(-1), minlength=e))
+    want = tmoe.moe_ffn(cfg, p, x.to(cuda), capacity_factor=capacity_factor)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

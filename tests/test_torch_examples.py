@@ -46,13 +46,32 @@ def test_train_lm_with_a_failure(monkeypatch, capsys, tmp_path):
     assert "done: 6 steps" in out and "restarts 1" in out
 
 
-def test_train_lm_refuses_the_unported_default(monkeypatch, capsys):
-    """A config still queued (the encoder-decoder whisper) names its item."""
-    from repro_torch.models.config import FAMILIES_QUEUE_ITEM
+def test_train_lm_whisper_fails_as_the_reference(monkeypatch, capsys, tmp_path):
+    """``--arch whisper-large-v3`` fails in both examples with one error type:
+    the token stream yields no encoder frames, and the encoder-decoder
+    forward asserts them."""
+    ref = Path(__file__).resolve().parents[1] / "examples" / "train_lm.py"
+    monkeypatch.setattr(sys, "argv", ["train_lm.py", "--arch", "whisper-large-v3", "--steps", "1",
+                                      "--ckpt-dir", str(tmp_path / "ref")])
+    with pytest.raises(Exception) as ref_err:
+        runpy.run_path(str(ref), run_name="__main__")
+    assert type(ref_err.value) is AssertionError
+    with pytest.raises(AssertionError, match="encoder_frames"):
+        run_example(monkeypatch, capsys, "train_lm.py", "--device", "cpu", "--arch",
+                    "whisper-large-v3", "--steps", "1", "--ckpt-dir", str(tmp_path / "port"))
 
-    with pytest.raises(NotImplementedError, match=f"Queue 1, item {FAMILIES_QUEUE_ITEM}"):
-        run_example(monkeypatch, capsys, "train_lm.py", "--device", "cpu",
-                    "--arch", "whisper-large-v3")
+
+@pytest.mark.parametrize("switched", [False, True], ids=["generate", "switched"])
+def test_serve_launcher_whisper(capsys, switched):
+    """``python -m repro_torch.launch.serve --arch whisper-large-v3`` on the
+    reduced config with the launcher's zero frames, plain and ARCHES-switched."""
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", "whisper-large-v3", "--device", "cpu", "--steps", "4", "--batch", "2",
+                "--prompt-len", "8", "--max-seq", "32"] + (["--switched"] if switched else []))
+    out = capsys.readouterr().out
+    assert "whisper-large-v3-smoke" in out and "on cpu" in out
+    assert ("switched decode:" in out) == switched and ("tokens in" in out) != switched
 
 
 @pytest.mark.parametrize("switched", [False, True], ids=["generate", "switched"])

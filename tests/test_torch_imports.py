@@ -107,6 +107,20 @@ def test_training_half_modules_are_walked():
             "repro_torch.launch.train"} <= names
 
 
+def test_families_and_sharded_training_modules_are_walked():
+    """The encoder-decoder and local/global configs and the sharded training
+    half (the sharding rules, the mesh shim, the planner's specs and the
+    dry-run) are among the modules the probe imports without JAX."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.configs.whisper_large_v3", "repro_torch.configs.gemma2_9b",
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.launch.dryrun"} <= names
+
+
 _EXAMPLES_PROBE = """
 import runpy, sys
 from pathlib import Path

@@ -2,6 +2,8 @@
 configs (granite-20b's MQA + GELU MLP, command-r-plus's parallel block with
 layernorm, qwen1.5's QKV bias) with ``repro``'s weights converted."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +15,7 @@ from repro.models.config import get_config as r_get_config
 from repro.models.model import Model as RModel
 from repro_torch import random as jr
 from repro_torch.convert import lm_params_from_reference
-from repro_torch.models import Family, Model, get_config
+from repro_torch.models import ARCH_IDS, Model, get_config
 from repro_torch.models import layers as tL
 from repro_torch.models import params as tparams
 
@@ -155,14 +157,23 @@ def test_chunked_attention(causal, window):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
-def test_unported_families_raise():
-    """The families and configs of the LM stack's training half name the queue."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        get_config("gemma2-9b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        Model(get_config("granite-20b", reduced=True).with_(family=Family.ENC_DEC)).defs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        Model(get_config("granite-20b", reduced=True).with_(local_global_pattern=True)).defs()
+def _fields(cfg) -> dict:
+    """A config's fields, nested dataclasses as dicts and enums as their values."""
+    return {k: getattr(v, "value", v) for k, v in dataclasses.asdict(cfg).items()}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_mirrors_the_reference(arch):
+    """Each of the ten archs' full and reduced configs equals ``repro``'s field
+    for field, with the same parameter counts."""
+    for reduced in (False, True):
+        want, got = r_get_config(arch, reduced=reduced), get_config(arch, reduced=reduced)
+        assert _fields(got) == _fields(want)
+        assert (got.n_params(), got.n_active_params()) == (want.n_params(),
+                                                           want.n_active_params())
+
+
+def test_unknown_arch_raises():
     with pytest.raises(ValueError):
         get_config("no-such-arch")
 
