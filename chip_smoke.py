@@ -125,7 +125,17 @@ Phases, each of which raises on failure (exit code != 0):
    (``python -m repro_torch.launch.dryrun``) on ``DRYRUN_CELLS``, each record
    status ``ok``, the calibrated FLOP count of ``DRYRUN_CALIBRATE`` equal to
    the direct one, and ``launch/train.py --mesh single`` printing its plan
-   and then raising the rank-count ``ValueError``;
+   and then raising the rank-count ``ValueError``; each record carries the
+   collective, temp, accessed and peak bytes (``DRYRUN_FIELDS``), and the
+   calibration's collective bytes equal the direct plan's too;
+11d'. the sharded step: granite-20b at its published width, 4 of 52 layers,
+   bf16, on 2 ranks sharing the card over gloo, the mesh (data 1, model 2):
+   one sharded ``train_step`` on 8 x 512 tokens, a sharded ``prefill`` and
+   ``decode_step``, each rank's shards of the loss, the gradient norm, the
+   new weights and the logits held against the same steps on one rank
+   without DTensor (``SHARDED_*`` tolerances); the collective bytes each rank
+   counted equal to the fake-group plan of the same steps on the same mesh;
+   ms a step and peak memory a rank;
 11e. serve (after the training phase, as every LM serving phase):
    granite-20b at its published width (bf16), 4 of its 52
    layers: the weight draw's time and peak memory; ``generate`` 16 steps,
@@ -312,6 +322,26 @@ REDUCED_ARCHS = ("granite-20b", "dbrx-132b", "kimi-k2-1t-a32b", "mamba2-130m", "
 DRYRUN_CELLS = (("gemma2-9b", "train_4k", "single"), ("whisper-large-v3", "prefill_32k", "multi"),
                 ("kimi-k2-1t-a32b", "decode_32k", "single"))
 DRYRUN_CALIBRATE, DRYRUN_CALIB_RTOL = ("gemma2-9b", "decode_32k", "single"), 1e-12
+#: the record's fields a compiled program gives the reference, which the
+#: sharded step on a fake group gives the port
+DRYRUN_FIELDS = ("temp_bytes_per_device", "bytes_accessed_per_device", "peak_hbm_per_device",
+                 "collective_bytes_per_device", "collective_bytes_total")
+#: the sharded step on the card: granite-20b at its published width, bf16,
+#: remat "block", SHARDED_LAYERS of its 52 layers (as the training phase),
+#: on SHARDED_RANKS ranks sharing the card over gloo, the mesh (data 1, model
+#: 2); one train step on SHARDED_BATCH x SHARDED_SEQ tokens at LM_TRAIN_LR,
+#: then a prefill of those tokens into a cache of SHARDED_SEQ and a decode step
+SHARDED_LAYERS, SHARDED_RANKS, SHARDED_BATCH, SHARDED_SEQ = 4, 2, 8, 512
+SHARDED_MESH = (("data", "model"), (1, 2))
+#: sharded against one rank on the same weights and batch, bf16: a product
+#: split over the model axis sums its two halves' bf16 partial outputs in
+#: float32 after rounding each, where one rank rounds the whole sum once
+#: (2**-9 relative a product), through 4 layers and the head; the loss is a
+#: float32 mean over 4,096 tokens, the gradient norm a sum over 2.1 B
+#: squares of bf16 gradients.  A new weight: within 2 lr of one rank's (a
+#: first AdamW step moves it lr times the sign of its gradient) plus one bf16
+#: spacing of its value (the update rounded to bf16 on either side of a tie)
+SHARDED_LOSS_RTOL, SHARDED_GNORM_RTOL, SHARDED_LOGIT_REL = 5e-3, 5e-2, 2e-2
 #: bf16 weights against float32 weights at full width on the card: the
 #: logits' relative L2 error (bf16 keeps 8 bits of mantissa, 2**-9 relative
 #: rounding a weight, through 4 layers of 6,144-wide sums)
@@ -2966,6 +2996,12 @@ def phase_dryrun(procs: list) -> None:
         rec = json.loads(out.strip().splitlines()[-1])
         if rec["status"] != "ok":
             raise AssertionError(f"dryrun: {kind} {cell}: {rec}")
+        # the calibration extrapolates FLOPs, accessed and collective bytes,
+        # as the reference's does
+        fields = DRYRUN_FIELDS if kind != "calibrated" else DRYRUN_FIELDS[1::2] + DRYRUN_FIELDS[4:]
+        missing = [f for f in fields if rec.get(f) is None]
+        if missing:
+            raise AssertionError(f"dryrun: {kind} {cell}: no {missing}")
         records[(kind, cell)] = rec
         log(f"dryrun: {kind} {' x '.join(cell)} ({wall:.1f} s wall): {json.dumps(rec)}")
     direct = records[("direct", DRYRUN_CALIBRATE)]["flops_per_device"]
@@ -2974,6 +3010,216 @@ def phase_dryrun(procs: list) -> None:
         raise AssertionError(f"dryrun: calibrated FLOPs {calib} against direct {direct}")
     log(f"dryrun: {' x '.join(DRYRUN_CALIBRATE)}: calibrated FLOPs a device {calib:.6e} = "
         f"direct {direct:.6e} (relative {abs(calib - direct) / direct:.2e})")
+    coll = {k: records[(k, DRYRUN_CALIBRATE)]["collective_bytes_per_device"]
+            for k in ("direct", "calibrated")}
+    for kind, want in coll["direct"].items():
+        if abs(coll["calibrated"][kind] - want) > DRYRUN_CALIB_RTOL * abs(want):
+            raise AssertionError(f"dryrun: calibrated {kind} bytes {coll['calibrated'][kind]} "
+                                 f"against direct {want}")
+    log(f"dryrun: {' x '.join(DRYRUN_CALIBRATE)}: calibrated collective bytes a device "
+        f"{coll['calibrated']} = direct")
+
+
+def _sharded_cfg():
+    from repro_torch.models import get_config
+
+    return get_config(SERVE_ARCH).with_(n_layers=SHARDED_LAYERS)
+
+
+def _sharded_batch(cfg):
+    from repro_torch.data import TokenStream
+
+    # the global batch on every rank (the step keeps a rank's rows)
+    return TokenStream(vocab=cfg.vocab, seq_len=SHARDED_SEQ, global_batch=SHARDED_BATCH,
+                       host_index=0, n_hosts=1).batch_at(0)
+
+
+def _sharded_steps(model, tc, state, batch, cache):
+    """The train step, then a prefill of the batch's tokens and a decode step
+    on the weights the train step started from."""
+    from repro_torch.train import step as tstep
+
+    new, met = tstep.train_step(model, tc, state, batch)
+    toks = torch.as_tensor(batch["tokens"], device=cache["index"].device)
+    logits_p, cache = model.prefill(state.params, toks, cache)
+    logits_d, _ = model.decode_step(state.params, toks[:, -1:], cache)
+    return new, met, logits_p, logits_d
+
+
+def _shard_of(want: torch.Tensor, got) -> torch.Tensor:
+    """The slice of the whole tensor ``want`` that DTensor ``got`` holds here."""
+    from torch.distributed.tensor import Shard
+
+    out = want
+    mesh = got.device_mesh
+    for i, p in enumerate(got.placements):
+        if isinstance(p, Shard):
+            n = got.shape[p.dim] // mesh.size(i)
+            out = out.narrow(p.dim, mesh.get_local_rank(i) * n, n)
+    return out
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def _sharded_rank(rank, ref_path: str):
+    """One rank of the sharded step: its shards of every result held against
+    the one-rank run's whole tensors (``ref_path``), its collectives counted,
+    a second train step timed, its peak memory."""
+    torch.use_deterministic_algorithms(True)
+    from repro_torch import random as jr
+    from repro_torch.core.topology import MeshSpec
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.accounting import StepAccount
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as tstep
+
+    dev = resolve_device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _sharded_cfg()
+    model, tc = Model(cfg), tstep.TrainConfig(learning_rate=LM_TRAIN_LR)
+    mesh, rules = MeshSpec(*SHARDED_MESH), S.make_rules()
+    device_mesh = mesh.device_mesh("cuda")
+    with S.mesh_context(mesh, rules):
+        params = model.init(jr.PRNGKey(0, dev))
+        params = S.distribute(params, model.param_pspecs(mesh, rules), device_mesh)
+        state = tstep.init_train_state(model, params, tc)
+        state = S.distribute(state, SP.train_state_pspecs(model, state, mesh, rules),
+                             device_mesh)
+        cache = model.init_cache(SHARDED_BATCH, SHARDED_SEQ, device=dev)
+        cache = S.distribute(cache, SP.cache_pspecs(cache, mesh, rules), device_mesh)
+        batch = _sharded_batch(cfg)
+        counts = {}
+        acct = StepAccount()
+        with acct:
+            new, met = tstep.train_step(model, tc, state, batch)
+        counts["train"] = dict(acct.collectives)
+        tokens = S.distribute({"tokens": torch.as_tensor(batch["tokens"], device=dev)},
+                              SP.batch_pspecs(batch, mesh, rules), device_mesh)["tokens"]
+        acct = StepAccount()
+        with acct:
+            logits_p, filled = model.prefill(state.params, tokens, cache)
+        counts["prefill"] = dict(acct.collectives)
+        acct = StepAccount()
+        with acct:
+            logits_d, _ = model.decode_step(state.params, tokens[:, -1:], filled)
+        counts["decode"] = dict(acct.collectives)
+        ref = torch.load(ref_path, mmap=True)
+        errs = {"loss": abs(float(met["loss"]) - ref["loss"]) / abs(ref["loss"]),
+                "grad_norm": abs(float(met["grad_norm"]) - ref["grad_norm"]) / ref["grad_norm"],
+                "logits_prefill": _rel_l2(S.local_value(logits_p).float().cpu(),
+                                          _shard_of(ref["logits_prefill"], logits_p).float()),
+                "logits_decode": _rel_l2(S.local_value(logits_d).float().cpu(),
+                                         _shard_of(ref["logits_decode"], logits_d).float())}
+        worst, moved, n = 0.0, 0, 0
+        for i, (p0, p1) in enumerate(zip(tree_leaves(state.params), tree_leaves(new.params))):
+            want = _shard_of(ref["params"][i], p1).float()
+            got = S.local_value(p1).float().cpu()
+            start = _shard_of(ref["params0"][i], p0).float()
+            # 2 lr plus one bf16 spacing of the weight (2**-7 of its value at most)
+            slack = 2 * LM_TRAIN_LR + torch.abs(want) * 2.0 ** -7
+            worst = max(worst, float(torch.max(torch.abs(got - want) / slack)))
+            moved += int(torch.count_nonzero(want != start))
+            n += want.numel()
+        errs["params"] = worst
+        del new, filled, logits_p, logits_d
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tstep.train_step(model, tc, state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    return {"errs": errs, "counts": counts, "step_ms": step_ms, "moved": moved, "n": n,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_sharded_step() -> None:
+    """The sharded step on the card: the one-rank steps first (their results
+    written for the ranks), then ``SHARDED_RANKS`` ranks sharing the card over
+    gloo run them sharded on ``SHARDED_MESH``; the fake-group plan of the same
+    steps on the same mesh counts the same collective bytes as each rank."""
+    import tempfile
+
+    from repro_torch import random as jr
+    from repro_torch.core.topology import MeshSpec, spawn_ranks
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as tstep
+
+    dev = resolve_device("cuda")
+    cfg = _sharded_cfg()
+    model, tc = Model(cfg), tstep.TrainConfig(learning_rate=LM_TRAIN_LR)
+    params = model.init(jr.PRNGKey(0, dev))
+    state = tstep.init_train_state(model, params, tc)
+    cache = model.init_cache(SHARDED_BATCH, SHARDED_SEQ, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    new, met, logits_p, logits_d = _sharded_steps(model, tc, state, _sharded_batch(cfg), cache)
+    if not (torch.isfinite(logits_p).all() and torch.isfinite(logits_d).all()
+            and torch.isfinite(met["loss"])):
+        raise AssertionError("sharded: the one-rank steps are not finite")
+    ref = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+           "logits_prefill": logits_p.cpu(), "logits_decode": logits_d.cpu(),
+           "params": [p.cpu() for p in tree_leaves(new.params)],
+           "params0": [p.cpu() for p in tree_leaves(state.params)]}
+    del new, met, logits_p, logits_d
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tstep.train_step(model, tc, state, _sharded_batch(cfg))
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    one_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del params, state, cache
+    torch.cuda.empty_cache()
+    log(f"sharded: {cfg.name} at its published width, {SHARDED_LAYERS} of 52 layers, "
+        f"{cfg.dtype}, remat {cfg.remat}, {model.n_params() / 1e9:.3f} B params; one rank: "
+        f"loss {ref['loss']:.6f}, grad norm {ref['grad_norm']:.6f}, a train step on "
+        f"{SHARDED_BATCH} x {SHARDED_SEQ} tokens {one_ms:.2f} ms, peak {one_peak:.3f} GB")
+    # the fake-group plan of the same steps on the same mesh (host only)
+    mesh, rules = MeshSpec(*SHARDED_MESH), S.make_rules()
+    planned = {kind: dryrun.plan(model, ShapeCell(f"sharded_{kind}", SHARDED_SEQ,
+                                                  SHARDED_BATCH, kind), mesh, rules, tc)
+               for kind in ("train", "prefill", "decode")}
+    os.makedirs(ROOT / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = os.path.join(tmp, "one_rank.pt")
+        torch.save(ref, path)
+        del ref
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_sharded_rank, SHARDED_RANKS, (path,), device="cuda",
+                            backend="gloo")
+        wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        e = res["errs"]
+        log(f"sharded: rank {r} of {SHARDED_RANKS} (mesh {dict(zip(*SHARDED_MESH))}, gloo, "
+            f"one card): loss rel {e['loss']:.3e}, grad norm rel {e['grad_norm']:.3e}, "
+            f"logits rel L2 prefill {e['logits_prefill']:.3e} decode {e['logits_decode']:.3e}, "
+            f"new weights at most {e['params']:.3f} of (2 lr + a bf16 spacing), "
+            f"{res['moved']:,} of {res['n']:,} weights of this shard moved; a train step "
+            f"{res['step_ms']:.2f} ms, peak {res['peak_gb']:.3f} GB")
+        if (e["loss"] > SHARDED_LOSS_RTOL or e["grad_norm"] > SHARDED_GNORM_RTOL
+                or e["logits_prefill"] > SHARDED_LOGIT_REL
+                or e["logits_decode"] > SHARDED_LOGIT_REL or e["params"] > 1.0):
+            raise AssertionError(f"sharded: rank {r} against one rank: {e}")
+        for kind, want in planned.items():
+            if res["counts"][kind] != want["collective_bytes_per_device"]:
+                raise AssertionError(f"sharded: rank {r} {kind}: collective bytes "
+                                     f"{res['counts'][kind]} against the plan's "
+                                     f"{want['collective_bytes_per_device']}")
+    for kind, want in planned.items():
+        log(f"sharded: {kind}: collective bytes a rank {want['collective_bytes_per_device']} "
+            f"= the fake-group plan's; planned peak {want['peak_hbm_per_device'] / 1e9:.3f} GB, "
+            f"FLOPs a rank {want['flops_per_device']:.4e}")
+    log(f"sharded: {SHARDED_RANKS} ranks in {wall:.1f} s wall (spawn, draw, steps)")
 
 
 def phase_families_reduced() -> None:
@@ -3446,6 +3692,7 @@ def main() -> int:
     dryrun = _dryrun_start()
     phase_lm_train()
     phase_dryrun(dryrun)
+    phase_sharded_step()
     # every LM serving phase, one model at a time, after the training phase:
     # its compressed-gradient step needs nearly the whole card (72.6 GB on an
     # H100 80GB), and what a serving phase keeps or leaves in cached segments

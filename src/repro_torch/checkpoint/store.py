@@ -163,13 +163,13 @@ def save_pytree(tree: Any, directory: str, *, manifest_extra: dict | None = None
         raise
 
 
-def restore_pytree(template: Any, directory: str) -> Any:
+def restore_pytree(template: Any, directory: str, *, device=None) -> Any:
     """Restore into the structure of ``template``.
 
     The checkpoint must match the template: the same treedef and, leaf by
     leaf, the same shape and dtype, or ``CheckpointMismatchError``.  A
-    tensor leaf comes back as a tensor on the template leaf's device, any
-    other leaf as a numpy array.
+    tensor leaf comes back as a tensor on ``device`` (default: the template
+    leaf's), any other leaf as a numpy array.
     """
     with open(os.path.join(directory, _MANIFEST)) as f:
         stored = json.load(f)
@@ -196,7 +196,7 @@ def restore_pytree(template: Any, directory: str) -> Any:
                 f"template {t_shape}")
         arr = np.load(os.path.join(directory, meta["file"]))
         if isinstance(leaf, torch.Tensor):
-            leaves.append(_from_disk(arr, meta["dtype"]).to(leaf.device))
+            leaves.append(_from_disk(arr, meta["dtype"]).to(device or leaf.device))
         else:
             leaves.append(arr)
     return _unflatten(template, iter(leaves))
@@ -312,11 +312,11 @@ class CheckpointManager:
         self._gc()
         return True
 
-    def restore_latest(self, template: Any) -> tuple[int, Any] | None:
+    def restore_latest(self, template: Any, *, device=None) -> tuple[int, Any] | None:
         step = latest_step(self.root)
         if step is None:
             return None
-        return step, restore_pytree(template, self.dir_for(step))
+        return step, restore_pytree(template, self.dir_for(step), device=device)
 
     def steps(self) -> list[int]:
         """Complete checkpoint steps currently kept, ascending."""

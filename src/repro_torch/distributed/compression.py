@@ -12,6 +12,11 @@ absmax scales over 256-element blocks, a true division ``blocks / scale``
 (not a product with a reciprocal), ``torch.round`` (half to even, as
 ``jnp.round``) and a clip to [-127, 127].  So the int8 payload, the scales,
 the dequantised gradients and the residuals are the reference's bits.
+
+In the sharded step the gradients and residuals are DTensors placed as the
+params.  The blocks are the whole leaf's, as the reference's: a leaf's
+gradient and residual are gathered, the round trip runs on the whole leaf
+on every rank, and each rank keeps its shards of the results.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.distributed import sharding as S
 from repro_torch.optim.adamw import spans, tree_leaves, tree_map, tree_unflatten
 
 _QBLOCK = 256  # divides UPDATE_CHUNK, so the spans hold whole blocks
@@ -31,7 +37,7 @@ class ErrorFeedbackState(NamedTuple):
 
 def init_error_feedback(grads_template: Any) -> ErrorFeedbackState:
     return ErrorFeedbackState(residual=tree_map(
-        lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads_template))
+        lambda g: torch.zeros_like(g, dtype=torch.float32), grads_template))
 
 
 def _q8_leaf(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -59,6 +65,9 @@ def compress_decompress(grads: Any, ef: ErrorFeedbackState) -> tuple[Any, ErrorF
     float32 residuals."""
 
     def leaf(g, r):
+        if S.is_dtensor(g):
+            out, res = leaf(g.full_tensor(), r.full_tensor())
+            return S.shard_like(out, g), S.shard_like(res, r)
         out = torch.empty(g.shape, dtype=g.dtype, device=g.device)
         res = torch.empty(g.shape, dtype=torch.float32, device=g.device)
         g_flat, r_flat = g.reshape(-1), r.reshape(-1)

@@ -1,28 +1,36 @@
-"""The dry-run planner: every (arch x shape x mesh) cell planned over ``meta``
-tensors (port of ``repro.launch.dryrun``).
+"""The dry-run planner: every (arch x shape x mesh) cell's step run sharded
+over a fake process group of the mesh's size (port of ``repro.launch.dryrun``).
 
 The reference lowers and compiles each cell's jitted step against the
 production TPU meshes (16 x 16 and 2 x 16 x 16) and reads XLA's
 ``memory_analysis``, ``cost_analysis`` and the HLO's collectives.  The port
-has no XLA.  It runs the same step (``train_step``, ``prefill`` or
-``decode_step``) on ``meta`` tensors, which carry shapes and dtypes and no
-storage, under ``torch.utils.flop_counter.FlopCounterMode``, and places
-every argument and output by the same logical-axis rules
-(``distributed/sharding.py``).  A record gives:
+runs the sharded step itself (``train_step``, ``prefill`` or
+``decode_step`` on DTensors, the step ``launch/train.py --mesh`` trains
+with) as rank 0 of a ``fake`` process group of ``n_chips`` ranks, on the
+``(16, 16)`` or ``(2, 16, 16)`` ``DeviceMesh``.  Every argument is a DTensor
+over a ``meta`` shard placed by the logical-axis rules
+(``distributed/sharding.py``), so nothing is allocated, and the fake group's
+collectives move nothing.  ``distributed/accounting.py`` counts what the
+device does as it runs.  A record gives, for one device:
 
-* ``argument_bytes_per_device`` / ``output_bytes_per_device``: exact, from
-  the placements, on the device that holds the most;
-* ``flops_per_device``: the step's global FLOPs as the counter counts them
-  (the products: matmuls, ``bmm``, convolutions, attention kernels) divided
-  by ``n_chips``, an even split (``flops_split`` says so);
-* ``plan_s``, in place of the reference's ``compile_s``.
+* ``argument_bytes_per_device`` / ``output_bytes_per_device``: the local
+  shards of the arguments and outputs;
+* ``collective_bytes_per_device``: the operand bytes of each collective the
+  device issues, by the reference's five kinds, and their sum
+  ``collective_bytes_total``;
+* ``flops_per_device``: the device's own FLOPs (the products, counted on
+  its local shapes; every device's shards have the same shapes, so every
+  device's count), ``flops_total`` the step's FLOPs with each product
+  counted once (``flops_split`` says so);
+* ``peak_hbm_per_device``: the most live local bytes during the step,
+  ``temp_bytes_per_device`` that peak less the arguments and outputs;
+* ``bytes_accessed_per_device``: every operation's operands and results,
+  unfused (``bytes_accessed_kind`` says so; XLA counts a fused program);
+* ``plan_s``, in place of the reference's ``compile_s``;
+* ``not_available``: ``None``, every field counted.
 
-``temp_bytes_per_device``, ``bytes_accessed_per_device``,
-``peak_hbm_per_device`` and ``collective_bytes_per_device`` are ``null``
-(``not_available`` says why): they come from a compiled program's buffer
-assignment and from the collectives an SPMD partitioner inserts into its
-HLO, and the port has neither a compiler that assigns buffers for a mesh
-nor a partitioner.
+All of it is computed on the host: no device runs.  ``fake_pg`` lives in
+``torch.testing._internal``, a private module of PyTorch.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-20b --shape train_4k --mesh single
@@ -36,6 +44,7 @@ cells in subprocesses and writes the records to ``--out``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -44,9 +53,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
-from torch.utils.flop_counter import FlopCounterMode
+import torch.distributed as dist
 
 from repro_torch.core.topology import make_production_mesh
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.accounting import KINDS, StepAccount
 from repro_torch.distributed.sharding import PartitionSpec as P
 from repro_torch.distributed.sharding import make_rules, mesh_context
 from repro_torch.launch import specs as S
@@ -55,9 +66,11 @@ from repro_torch.models.config import ALL_SHAPES, ARCH_IDS, Family
 from repro_torch.train.step import TrainConfig, train_step
 
 SKIP_REASON = "long_500k requires sub-quadratic attention (DESIGN.md Shape skips)"
-FLOPS_SPLIT = "even: the step's global FLOPs (FlopCounterMode over meta tensors) / n_chips"
-NOT_AVAILABLE = ("temp, accessed and peak bytes come from a compiled buffer assignment and "
-                 "collective bytes from an SPMD-partitioned HLO; the port has neither")
+FLOPS_SPLIT = ("measured: one device's FLOPs in the sharded step, on its local shapes (every "
+               "device's shards have the same shapes); more than flops_total / n_chips where a "
+               "product is replicated (KV heads that do not divide the model axis)")
+BYTES_ACCESSED_KIND = ("unfused: every operation's local operands plus its results, views "
+                       "excluded; XLA's bytes accessed are of a fused program")
 
 # Named perf presets: sharding-rule overrides + config overrides (the reference's).
 RULE_PRESETS: dict[str, dict] = {
@@ -108,47 +121,81 @@ def _cell_config(arch: str, rules_preset: str, config_overrides: dict | None):
     return cfg
 
 
-def _run_step(model: Model, cell, mesh, rules, tc: TrainConfig):
-    """The cell's step on meta tensors: (arguments, their specs, outputs,
-    their specs)."""
+@contextlib.contextmanager
+def fake_device_mesh(mesh):
+    """The ``DeviceMesh`` of ``mesh`` over a ``fake`` process group of
+    ``mesh.size`` ranks, this process rank 0, destroyed on exit.  The
+    process must have no process group of its own."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("the planner runs in a process without a process group")
+    dist.init_process_group("fake", rank=0, world_size=mesh.size, store=FakeStore())
+    try:
+        yield mesh.device_mesh("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_step(model: Model, cell, mesh, rules, tc: TrainConfig, device_mesh, acct: StepAccount):
+    """The cell's sharded step on DTensors over meta shards, counted by
+    ``acct``: (arguments, their specs, outputs, their specs)."""
     cfg = model.cfg
     batch = S.input_specs(cfg, cell)
     batch_ps = S.batch_pspecs(batch, mesh, rules)
+    dbatch = SH.distribute(batch, batch_ps, device_mesh)
     if cell.kind == "train":
         state = S.train_state_abstract(model, tc)
         state_ps = S.train_state_pspecs(model, state, mesh, rules)
-        new_state, metrics = train_step(model, tc, state, batch)
-        return ((state, batch), (state_ps, batch_ps),
-                (new_state, metrics), (state_ps, {k: P() for k in metrics}))
-    params = model.abstract_params()
+        args = (SH.distribute(state, state_ps, device_mesh), dbatch)
+        acct.hold(args)
+        with acct:
+            new_state, metrics = train_step(model, tc, *args)
+        return (args, (state_ps, batch_ps), (new_state, metrics),
+                (state_ps, {k: P() for k in metrics}))
     params_ps = model.param_pspecs(mesh, rules)
     cache = S.cache_abstract(cfg, cell)
     cache_ps = S.cache_pspecs(cache, mesh, rules)
-    if cell.kind == "prefill":
-        logits, new_cache = model.prefill(params, batch["tokens"], cache,
-                                          encoder_frames=batch.get("encoder_frames"))
-    else:
-        logits, new_cache = model.decode_step(params, batch["tokens"], cache)
-    return ((params, batch, cache), (params_ps, batch_ps, cache_ps),
-            (logits, new_cache), (P(), S.cache_pspecs(new_cache, mesh, rules)))
+    args = (SH.distribute(model.abstract_params(), params_ps, device_mesh), dbatch,
+            SH.distribute(cache, cache_ps, device_mesh))
+    acct.hold(args)
+    params, batch, cache = args
+    with acct:
+        if cell.kind == "prefill":
+            logits, new_cache = model.prefill(params, batch["tokens"], cache,
+                                              encoder_frames=batch.get("encoder_frames"))
+        else:
+            logits, new_cache = model.decode_step(params, batch["tokens"], cache)
+    return (args, (params_ps, batch_ps, cache_ps), (logits, new_cache),
+            (S.logits_pspec(logits, mesh, rules), S.cache_pspecs(new_cache, mesh, rules)))
+
+
+def plan(model: Model, cell, mesh, rules, tc: TrainConfig | None = None) -> dict:
+    """Run ``cell``'s sharded step of ``model`` as rank 0 of a fake group of
+    ``mesh.size`` ranks; returns the counted fields of the record (any mesh
+    and cell: the planner's cells, or a reduced config on a small mesh)."""
+    acct = StepAccount()
+    with fake_device_mesh(mesh) as device_mesh, mesh_context(mesh, rules):
+        args, args_ps, outs, outs_ps = _run_step(model, cell, mesh, rules, tc or TrainConfig(),
+                                                 device_mesh, acct)
+        counted = acct.record(StepAccount.storage_bytes(args), StepAccount.storage_bytes(outs))
+        counted["argument_bytes_per_device"] = S.per_device_bytes(args, args_ps, mesh)
+        counted["output_bytes_per_device"] = S.per_device_bytes(outs, outs_ps, mesh)
+    return counted
 
 
 def plan_cell(arch: str, shape_name: str, mesh_kind: str, *, extra: dict | None = None,
               config_overrides: dict | None = None, rules_preset: str = "baseline") -> dict:
-    """Plan one cell over meta tensors; returns the dry-run record."""
+    """Run one cell's sharded step on a fake group; returns the dry-run record."""
     cfg = _cell_config(arch, rules_preset, config_overrides)
     cell = {c.name: c for c in ALL_SHAPES}[shape_name]
     if cell not in shapes_for(cfg):
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "status": "skipped",
                 "reason": SKIP_REASON}
-    model = Model(cfg)
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-    rules = make_rules(RULE_PRESETS[rules_preset]["rules"])
     t0 = time.perf_counter()
-    with mesh_context(mesh, rules), FlopCounterMode(display=False) as counter:
-        args, args_ps, outs, outs_ps = _run_step(model, cell, mesh, rules,
-                                                 TrainConfig(**(extra or {})))
-    flops = counter.get_total_flops()
+    counted = plan(Model(cfg), cell, mesh, make_rules(RULE_PRESETS[rules_preset]["rules"]),
+                   TrainConfig(**(extra or {})))
     return {
         "arch": arch,
         "shape": shape_name,
@@ -158,24 +205,32 @@ def plan_cell(arch: str, shape_name: str, mesh_kind: str, *, extra: dict | None 
         "plan_s": round(time.perf_counter() - t0, 1),
         "n_params": int(cfg.n_params()),
         "n_active_params": int(cfg.n_active_params()),
-        "flops_per_device": flops / mesh.size,
-        "flops_total": int(flops),
+        "flops_per_device": counted["flops_per_device"],
+        "flops_total": counted["flops_total"],
         "flops_split": FLOPS_SPLIT,
-        "argument_bytes_per_device": S.per_device_bytes(args, args_ps, mesh),
-        "output_bytes_per_device": S.per_device_bytes(outs, outs_ps, mesh),
-        "temp_bytes_per_device": None,
-        "bytes_accessed_per_device": None,
-        "peak_hbm_per_device": None,
-        "collective_bytes_per_device": None,
-        "collective_bytes_total": None,
-        "not_available": NOT_AVAILABLE,
+        "argument_bytes_per_device": counted["argument_bytes_per_device"],
+        "output_bytes_per_device": counted["output_bytes_per_device"],
+        "temp_bytes_per_device": counted["temp_bytes_per_device"],
+        "bytes_accessed_per_device": counted["bytes_accessed_per_device"],
+        "bytes_accessed_kind": BYTES_ACCESSED_KIND,
+        "peak_hbm_per_device": counted["peak_hbm_per_device"],
+        "collective_bytes_per_device": counted["collective_bytes_per_device"],
+        "collective_bytes_total": counted["collective_bytes_total"],
+        "not_available": None,
     }
+
+
+#: the record's fields the calibration extrapolates in the depth, as the reference's
+_EXTRAPOLATED_KEYS = ("flops_per_device", "bytes_accessed_per_device")
 
 
 def calibrate_cell(arch: str, shape_name: str, mesh_kind: str,
                    rules_preset: str = "baseline") -> dict:
-    """FLOPs per device extrapolated from two reduced-layer plans, as the
-    reference calibrates (its cost model counts a scanned layer once)."""
+    """FLOPs, bytes accessed and each kind's collective bytes extrapolated
+    from two reduced-layer plans, as the reference calibrates (its cost model
+    counts a scanned layer once; the port's plan counts every layer, so on a
+    family whose per-layer cost is the same at every depth the extrapolation
+    equals the full plan: a self-check)."""
     cfg = get_config(arch)
     ov1, ov2, k1, k2 = calib_layer_counts(cfg)
     r1 = plan_cell(arch, shape_name, mesh_kind, rules_preset=rules_preset,
@@ -185,11 +240,21 @@ def calibrate_cell(arch: str, shape_name: str, mesh_kind: str,
     if r1["status"] != "ok" or r2["status"] != "ok":
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "status": "calib_failed"}
     scale = (cfg.n_layers - k1) / (k2 - k1)
-    a, b = r1["flops_per_device"], r2["flops_per_device"]
-    return {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "status": "ok",
-            "calibrated": True, "k1": k1, "k2": k2, "n_chips": r1["n_chips"],
-            "n_params": int(cfg.n_params()), "n_active_params": int(cfg.n_active_params()),
-            "flops_per_device": float(a + scale * (b - a)), "flops_split": FLOPS_SPLIT}
+
+    def extrap(a, b):
+        return a + scale * (b - a)
+
+    out = {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "status": "ok",
+           "calibrated": True, "k1": k1, "k2": k2, "n_chips": r1["n_chips"],
+           "n_params": int(cfg.n_params()), "n_active_params": int(cfg.n_active_params()),
+           "flops_split": FLOPS_SPLIT}
+    for key in _EXTRAPOLATED_KEYS:
+        out[key] = float(extrap(r1[key], r2[key]))
+    coll = {kind: int(max(extrap(r1["collective_bytes_per_device"][kind],
+                                 r2["collective_bytes_per_device"][kind]), 0)) for kind in KINDS}
+    out["collective_bytes_per_device"] = coll
+    out["collective_bytes_total"] = int(sum(coll.values()))
+    return out
 
 
 # -- orchestration --------------------------------------------------------------------

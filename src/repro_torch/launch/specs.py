@@ -19,10 +19,7 @@ from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.models.decode import init_cache
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import tree_leaves
-from repro_torch.train.step import TrainConfig, TrainState, init_train_state
-
-BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
-              "encoder_frames": ("batch", "frames", "embed_act")}
+from repro_torch.train.step import BATCH_AXES, TrainConfig, TrainState, init_train_state
 
 CACHE_AXES = {
     "k": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
@@ -54,6 +51,13 @@ def cache_pspecs(cache_abs: dict[str, torch.Tensor], mesh: Any,
                  rules: ShardingRules) -> dict[str, P]:
     return {k: axis_spec(v.shape, CACHE_AXES[k], mesh, rules) if v.shape else P()
             for k, v in cache_abs.items()}
+
+
+def logits_pspec(logits: torch.Tensor, mesh: Any, rules: ShardingRules) -> P:
+    """The spec of a serving step's last-position logits (B, V): as the
+    ``vocab`` constraint leaves them, the reference's output (``P()``)
+    gathered from it."""
+    return axis_spec(logits.shape, ("batch", "vocab"), mesh, rules)
 
 
 def train_state_abstract(model: Model, tc: TrainConfig) -> TrainState:

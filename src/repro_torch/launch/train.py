@@ -11,14 +11,18 @@ The weights come from ``repro_torch.random.PRNGKey(0)``, so they are the
 reference's.  The token stream's host slice follows the default
 ``torch.distributed`` group when one is initialised.
 
-``--mesh single|multi`` plans the step on the production mesh (16 x 16, or
-2 x 16 x 16): it prints the train state's and the batch's placements, by
-the logical-axis rules of ``distributed/sharding.py``, and the bytes a
-device holds, then builds the ``DeviceMesh``, which raises ``ValueError``
-unless the process group has 256 (512) ranks, as the reference's launcher
-raises on any host short of a pod.  The port writes no train step sharded
-over that many ranks: no machine it runs on has them (``ROADMAP.md``
-Queue 3, "Deviations held by test").
+``--mesh single|multi`` trains with the sharded step on the production
+mesh (16 x 16, or 2 x 16 x 16).  It prints the train state's and the
+batch's placements, by the logical-axis rules of
+``distributed/sharding.py``, and the bytes a device holds, then builds the
+``DeviceMesh``, which raises ``ValueError`` unless the default process
+group has 256 (512) ranks, as the reference's launcher raises building its
+mesh on any host short of a pod.  On a group of the mesh's size every rank
+runs the same loop: the params are drawn whole and each rank keeps its
+shards, every rank draws the global batch and the step keeps its rows, and
+a checkpoint holds each leaf whole, gathered and written by rank 0 and
+restored on every rank by keeping its shards, so a restart continues
+bitwise.
 """
 
 from __future__ import annotations
@@ -29,16 +33,19 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as jr
 from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.core.topology import make_production_mesh
-from repro_torch.distributed.sharding import make_rules, placements
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import make_rules, mesh_context, placements
 from repro_torch.launch import specs as S
 from repro_torch.models.config import ARCH_IDS, get_config
 from repro_torch.models.model import Model
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.train.loop import LoopReport, run_training
 from repro_torch.train.step import TrainConfig, init_train_state, train_step
 
@@ -62,6 +69,35 @@ def plan_mesh(model: Model, tc: TrainConfig, mesh_kind: str, batch: int, seq: in
     print(f"[train] train state {S.per_device_bytes(state, state_ps, mesh):,} B a device of "
           f"{total:,} B; batch {S.per_device_bytes(batch_abs, batch_ps, mesh):,} B a device")
     return mesh
+
+
+class ShardedCheckpoints:
+    """The checkpoints of a sharded run, around a ``CheckpointManager``: each
+    leaf saved whole (gathered on every rank, written by rank 0), and
+    restored whole on every rank, each keeping its shards."""
+
+    def __init__(self, ckpt: CheckpointManager):
+        self.ckpt = ckpt
+
+    def maybe_save(self, step: int, state, *, force: bool = False) -> bool:
+        if not force and (step == 0 or step % self.ckpt.save_every):
+            return False
+        whole = SH.map_tree(SH.whole, state)  # every rank joins the gathers
+        if dist.get_rank() == 0:
+            self.ckpt.maybe_save(step, whole, force=True)
+        dist.barrier()  # the files are complete before any rank may read them
+        return True
+
+    def restore_latest(self, template):
+        shapes = SH.map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                             template)
+        dev = SH.local_value(tree_leaves(template.params)[0]).device
+        found = self.ckpt.restore_latest(shapes, device=dev)
+        if found is None:
+            return None
+        step, whole = found
+        return step, SH.map_tree(lambda t, like: SH.shard_like(t, like)
+                                 if SH.is_dtensor(like) else t, whole, template)
 
 
 def _named(tensors, specs, prefix: str = ""):
@@ -102,23 +138,40 @@ def main(argv=None) -> LoopReport:
                      compress_grads=args.compress_grads)
     print(f"[train] {cfg.name}: {model.n_params() / 1e6:.1f}M params, "
           f"{cfg.n_layers} layers, {cfg.dtype}, remat {cfg.remat}")
+    dev = resolve_device(args.device)
+    ckpt = CheckpointManager(args.ckpt_dir, save_every=args.save_every, keep=3)
     if args.mesh != "none":
         mesh = plan_mesh(model, tc, args.mesh, args.batch, args.seq)
-        mesh.device_mesh()  # raises unless the process group has mesh.size ranks
-        raise NotImplementedError(f"the port has no train step sharded over {mesh.size} ranks "
-                                  f"(ROADMAP.md Queue 3)")
-    dev = resolve_device(args.device)
-    print(f"[train] on {dev}")
+        device_mesh = mesh.device_mesh(dev.type)  # raises unless the group has mesh.size ranks
+        print(f"[train] sharded step on {mesh.size} ranks, {dev}")
+        rules = make_rules()
+        # every rank draws the global batch; the step keeps this rank's rows
+        stream = TokenStream(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+                             host_index=0, n_hosts=1)
 
-    stream = TokenStream(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
-    ckpt = CheckpointManager(args.ckpt_dir, save_every=args.save_every, keep=3)
+        def init_state():
+            state = init_train_state(model, model.init(jr.PRNGKey(0, dev)), tc)
+            return SH.distribute(state, S.train_state_pspecs(model, state, mesh, rules),
+                                 device_mesh)
 
-    def init_state():
-        return init_train_state(model, model.init(jr.PRNGKey(0, dev)), tc)
+        def step_fn(state, batch):
+            with mesh_context(mesh, rules):
+                return train_step(model, tc, state, batch)
 
-    report = run_training(
-        step_fn=functools.partial(train_step, model, tc), init_state=init_state,
-        data=lambda start: stream.iterate(start), ckpt=ckpt, total_steps=args.steps)
+        report = run_training(step_fn=step_fn, init_state=init_state,
+                              data=lambda start: stream.iterate(start),
+                              ckpt=ShardedCheckpoints(ckpt), total_steps=args.steps,
+                              log=print if dist.get_rank() == 0 else lambda _: None)
+    else:
+        print(f"[train] on {dev}")
+        stream = TokenStream(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
+
+        def init_state():
+            return init_train_state(model, model.init(jr.PRNGKey(0, dev)), tc)
+
+        report = run_training(
+            step_fn=functools.partial(train_step, model, tc), init_state=init_state,
+            data=lambda start: stream.iterate(start), ckpt=ckpt, total_steps=args.steps)
     if report.losses:
         print(f"[train] final step {report.final_step}, loss {report.losses[0]:.3f} -> "
               f"{report.losses[-1]:.3f}, restarts {report.restarts}")

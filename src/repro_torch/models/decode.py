@@ -23,6 +23,10 @@ decoder attends to every cached frame, and its self attention never
 windows: the reference's decode body calls the attention with ``is_local``
 left False, so a windowed copy of its config decodes the same bits.  The
 cache it was given is left as it was.
+
+Sharded (the params, tokens and cache DTensors, under ``mesh_context``),
+both steps end with the reference's cache constraints (``KV_AXES``, the SSM
+leaves' axes), and each cache leaf keeps its placements.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as S
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.config import Family, ModelConfig
@@ -52,6 +58,22 @@ from repro_torch.models.transformer import (
     sinusoid,
     unembed,
 )
+
+
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+SSM_AXES = ("layers", "batch", "ssm_heads", None, "ssm_state")
+CONV_AXES = ("layers", "batch", "conv", "ssm_inner")
+
+
+def _constrain_cache(c: dict[str, Any]) -> dict[str, Any]:
+    out = dict(c)
+    for name in ("k", "v", "cross_k", "cross_v"):
+        if name in c:
+            out[name] = constrain(c[name], KV_AXES)
+    if "ssm" in c:
+        out["ssm"] = constrain(c["ssm"], SSM_AXES)
+        out["conv"] = constrain(c["conv"], CONV_AXES)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
@@ -89,10 +111,22 @@ def _positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
 
 
 def _pad_kv(cache: dict[str, Any], ks: list, vs: list) -> None:
-    """Stack the prompt's K/V per layer, pad to the cache's length, cast."""
+    """Stack the prompt's K/V per layer, pad to the cache's length, cast.
+    Sharded, on each rank's shards (the sequence is never split there)."""
     pad = (0, 0, 0, 0, 0, max(cache["k"].shape[2] - ks[0].shape[1], 0))
-    cache["k"] = F.pad(torch.stack(ks), pad).to(cache["k"].dtype)
-    cache["v"] = F.pad(torch.stack(vs), pad).to(cache["v"].dtype)
+
+    def stack_pad(*xs):
+        return F.pad(torch.stack(xs), pad)
+
+    if S.is_dtensor(ks[0]):
+        from torch.distributed.tensor import Shard
+
+        pl = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p for p in ks[0].placements)
+        k, v = S.local(stack_pad, *ks, out=pl), S.local(stack_pad, *vs, out=pl)
+    else:
+        k, v = stack_pad(*ks), stack_pad(*vs)
+    cache["k"] = k.to(cache["k"].dtype)
+    cache["v"] = v.to(cache["v"].dtype)
 
 
 def _put_states(cache: dict[str, Any], states: list) -> None:
@@ -147,22 +181,26 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict[st
     else:  # encoder-decoder: the cross K/V of the frames replace the cache's
         memory = encode(cfg, params, need_frames(encoder_frames))
         dcfg = enc_dec_cfg(cfg)
-        x = x + sinusoid(s, cfg.d_model, x.dtype, x.device)[None]
+        x = x + S.place(sinusoid(s, cfg.d_model, x.dtype, x.device)[None],
+                        (None, "seq", "embed_act"), like=x)
         cks, cvs = [], []
         for i in range(n_stacked(blocks)):
             p = layer(blocks, i)
             x, (k, v) = _dense_block(dcfg, p, x, positions=positions, cross_memory=memory)
             ks.append(k)
             vs.append(v)
-            cks.append(L.einsum("bsd,dhk->bshk", memory, p["cross_attn"]["wk"]))
-            cvs.append(L.einsum("bsd,dhk->bshk", memory, p["cross_attn"]["wv"]))
+            cross = S.gather_fsdp(p["cross_attn"])
+            cks.append(L.einsum("bsd,dhk->bshk", memory, cross["wk"]))
+            cvs.append(L.einsum("bsd,dhk->bshk", memory, cross["wv"]))
         cache["cross_k"] = torch.stack(cks).to(cache["cross_k"].dtype)
         cache["cross_v"] = torch.stack(cvs).to(cache["cross_v"].dtype)
     if states:
         _put_states(cache, states)
     if ks:
         _pad_kv(cache, ks, vs)
-    cache["index"] = torch.full((), s, dtype=torch.int32, device=tokens.device)
+    cache["index"] = S.place(torch.full((), s, dtype=torch.int32, device=tokens.device), (),
+                             like=x)
+    cache = _constrain_cache(cache)
     logits = unembed(cfg, params, x[:, -1:])[:, 0]
     return logits, cache
 
@@ -224,6 +262,7 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         new_cache["k"] = torch.stack(ks).to(cache["k"].dtype)
         new_cache["v"] = torch.stack(vs).to(cache["v"].dtype)
     new_cache["index"] = idx + 1
+    new_cache = _constrain_cache(new_cache)
     logits = unembed(cfg, params, x)[:, 0]
     return logits, new_cache
 
@@ -239,9 +278,11 @@ def _decode_enc_dec(cfg: ModelConfig, blocks: dict, x: torch.Tensor, positions: 
     idx = cache["index"]
     max_seq = cache["k"].shape[2]
     row = torch.clamp(idx, 0, max_seq - 1).reshape(1).to(torch.int64)
-    x = x + sinusoid(max_seq, cfg.d_model, x.dtype, x.device).index_select(0, row)[None]
+    table = S.place(sinusoid(max_seq, cfg.d_model, x.dtype, x.device), (None, "embed_act"),
+                    like=x)
+    x = x + table.index_select(0, row)[None]
     for i in range(n_stacked(blocks)):
-        p = layer(blocks, i)
+        p = S.gather_fsdp(layer(blocks, i))
         h = L.apply_norm(dcfg, x, p["norm_attn"])
         a, (k, v) = L.attention(dcfg, p["attn"], h, positions=positions,
                                 kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx)
@@ -249,11 +290,8 @@ def _decode_enc_dec(cfg: ModelConfig, blocks: dict, x: torch.Tensor, positions: 
         vs.append(v)
         x = x + a
         h = L.apply_norm(dcfg, x, p["norm_cross"])
-        q = L.einsum("bsd,dhk->bshk", h, p["cross_attn"]["wq"])
-        kh = L._expand_kv(cache["cross_k"][i], dcfg.n_heads)
-        vh = L._expand_kv(cache["cross_v"][i], dcfg.n_heads)
-        out = L.dot_attention(q, kh, vh, None)
-        x = x + L.einsum("bshk,hkd->bsd", out.to(x.dtype), p["cross_attn"]["wo"])
+        x = x + L.cross_attention_cached(dcfg, p["cross_attn"], h, cache["cross_k"][i],
+                                         cache["cross_v"][i])
         h = L.apply_norm(dcfg, x, p["norm_mlp"])
         x = x + L.mlp(dcfg, p["mlp"], h)
     return x

@@ -6,8 +6,11 @@ Every function is pure over tensors; parameters come in as dict leaves
 defined by the matching ``*_defs`` function (see ``params.py``).  Attention
 is written as the reference writes it, einsums, the mask and a float32
 softmax, not through ``scaled_dot_product_attention``, so the CPU tests
-compare like with like.  The reference's ``constrain`` calls are GSPMD
-sharding hints; on one card they do nothing, and they are left out.
+compare like with like.  The reference's ``constrain`` sites are kept: on
+a plain tensor ``constrain`` is the identity, and in the sharded step it
+redistributes the DTensor to the site's placements.  There the attention
+itself (RoPE, the cache insert, the KV expansion, the mask and the
+softmax) runs on each rank's shard of batch and heads (``local``).
 
 Einsums promote mixed operands to a common dtype as ``jnp.einsum`` does (a
 bf16 query against a float32 KV cache computes in float32).  The KV cache
@@ -17,6 +20,7 @@ that decodes from a cache never changes the cache it was given.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -25,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import cached_const
+from repro_torch.distributed import sharding as S
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
@@ -157,13 +163,21 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_x: torch.Tensor)
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    q = constrain(q, ("batch", "seq", "heads", "head_dim"))
+    k = constrain(k, ("batch", "kv_seq", "kv_heads", "head_dim"))
+    v = constrain(v, ("batch", "kv_seq", "kv_heads", "head_dim"))
     return q, k, v
 
 
-def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, S, KV, D) -> (B, S, H, D) by repeating each KV head."""
-    rep = n_heads // k.shape[2]
-    return torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
+def _expand_kv(k: torch.Tensor, n_heads: int, rep: int, q_off: int = 0,
+               kv_off: int = 0) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, H, D) by repeating each KV head ``rep`` times.
+    On a shard: ``n_heads`` query heads from global head ``q_off`` on, over
+    the KV heads from ``kv_off`` on."""
+    if n_heads == k.shape[2] * rep and q_off == kv_off * rep:
+        return torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
+    heads = (torch.arange(n_heads, device=k.device) + q_off) // rep - kv_off
+    return k.index_select(2, heads)
 
 
 def _softcap(scores: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -283,11 +297,62 @@ def attention(
         index and attention runs over it.
       * cross: ``cross_memory`` (B, S_enc, D) provides K/V.
     """
-    b, sq, _ = x.shape
     kv_src = cross_memory if cross_memory is not None else x
     q, k, v = _project_qkv(cfg, p, x, kv_src)
+    if use_chunked is None:
+        use_chunked = x.shape[1] > 2048 and kv_cache is None
+    ck, cv = kv_cache if kv_cache is not None else (None, None)
+    core = functools.partial(_attend, cfg, is_local=is_local, cross=cross_memory is not None,
+                             causal=causal, use_chunked=use_chunked,
+                             q_off=S.shard_offset(q, 2), kv_off=S.shard_offset(k, 2))
+    if S.is_dtensor(q):
+        pos_axes = ("batch", "seq") if positions.ndim == 2 else (None, "batch", "seq")
+        positions = constrain(S.place(positions, pos_axes, like=q), pos_axes)
+        kv_pl = ck.placements if ck is not None else k.placements
+        out, k, v = S.local(core, q, k, v, positions, ck, cv, cache_index,
+                            out=(q.placements, kv_pl, kv_pl))
+    else:
+        out, k, v = core(q, k, v, positions, ck, cv, cache_index)
 
-    if cross_memory is None:
+    out = constrain(out, ("batch", "seq", "heads", "head_dim"))
+    y = einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    y = constrain(y, ("batch", "seq", "embed_act"))
+    return y, (k, v)
+
+
+def _cross_cached(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, *, rep: int,
+                  q_off: int = 0, kv_off: int = 0) -> torch.Tensor:
+    kh = _expand_kv(ck, q.shape[2], rep, q_off, kv_off)
+    vh = _expand_kv(cv, q.shape[2], rep, q_off, kv_off)
+    return dot_attention(q, kh, vh, None)
+
+
+def cross_attention_cached(cfg: ModelConfig, p: dict, h: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor) -> torch.Tensor:
+    """whisper's decode-time cross attention over the cached cross K/V
+    (B, S_enc, KV, D): no mask, no RoPE.  Sharded, each rank attends with
+    its shard of batch and heads."""
+    q = constrain(einsum("bsd,dhk->bshk", h, p["wq"]), ("batch", "seq", "heads", "head_dim"))
+    core = functools.partial(_cross_cached, rep=cfg.n_heads // cfg.n_kv_heads,
+                             q_off=S.shard_offset(q, 2), kv_off=S.shard_offset(ck, 2))
+    out = S.local(core, q, ck, cv, out=q.placements) if S.is_dtensor(q) else core(q, ck, cv)
+    out = constrain(out, ("batch", "seq", "heads", "head_dim"))
+    return constrain(einsum("bshk,hkd->bsd", out.to(h.dtype), p["wo"]),
+                     ("batch", "seq", "embed_act"))
+
+
+def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            positions: torch.Tensor, ck: torch.Tensor | None, cv: torch.Tensor | None,
+            cache_index: torch.Tensor | None, *, is_local: bool, cross: bool, causal: bool,
+            use_chunked: bool, q_off: int = 0, kv_off: int = 0):
+    """The attention of ``attention`` after the projections, on whole
+    tensors or on one rank's shard of batch and heads (query heads from
+    global head ``q_off``, KV heads from ``kv_off``): RoPE, the cache insert
+    at ``cache_index`` (decode), the KV expansion, the mask and the softmax.
+    Returns (out, K, V): the K/V the layer hands back, the new cache's in
+    decode and the fresh, rotated ones otherwise."""
+    sq = q.shape[1]
+    if not cross:
         if cfg.mrope_sections is not None:
             q = apply_mrope(q, positions, cfg.mrope_sections, theta=cfg.rope_theta)
             k = apply_mrope(k, positions, cfg.mrope_sections, theta=cfg.rope_theta)
@@ -296,30 +361,25 @@ def attention(
             q = apply_rope(q, pos2, theta=cfg.rope_theta)
             k = apply_rope(k, pos2, theta=cfg.rope_theta)
 
-    new_cache = None
-    if kv_cache is not None:  # decode: insert at cache_index
-        ck, cv = kv_cache
-        ck, cv = _insert(ck, k, cache_index), _insert(cv, v, cache_index)
-        new_cache = (ck, cv)
-        k, v = ck, cv
+    if ck is not None:  # decode: insert at cache_index
+        k, v = _insert(ck, k, cache_index), _insert(cv, v, cache_index)
 
-    kh = _expand_kv(k, cfg.n_heads)
-    vh = _expand_kv(v, cfg.n_heads)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kh = _expand_kv(k, q.shape[2], rep, q_off, kv_off)
+    vh = _expand_kv(v, q.shape[2], rep, q_off, kv_off)
 
     # alternating local/global layers window only the local ones
     window = cfg.sliding_window if (cfg.sliding_window is not None and is_local) else None
 
     sk = kh.shape[1]
-    if use_chunked is None:
-        use_chunked = sq > 2048 and kv_cache is None
     if use_chunked:
-        out = chunked_attention(q, kh, vh, causal=causal and cross_memory is None,
+        out = chunked_attention(q, kh, vh, causal=causal and not cross,
                                 window=window, softcap=cfg.attn_softcap)
     else:
-        dev = x.device
-        if cross_memory is not None:
+        dev = q.device
+        if cross:
             mask = None  # full encoder-decoder cross attention
-        elif kv_cache is not None:  # decode over the cache
+        elif ck is not None:  # decode over the cache
             kv_pos = torch.arange(sk, device=dev)
             valid = kv_pos[None, :] <= cache_index  # (1, Sk)
             if cfg.sliding_window is not None and is_local:
@@ -335,11 +395,7 @@ def attention(
             mask = m[None, None]
         out = dot_attention(q, kh, vh, mask, softcap=cfg.attn_softcap,
                             scores_bf16=cfg.attn_scores_bf16)
-
-    y = einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
-    if kv_cache is not None:
-        return y, new_cache
-    return y, (k, v)
+    return out, k, v
 
 
 # -- MLPs ------------------------------------------------------------------------
@@ -365,6 +421,8 @@ def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         gate = einsum("bsd,df->bsf", x, p["w_gate"])
         g = F.silu(gate) if cfg.mlp_kind == "swiglu" else F.gelu(gate, approximate="tanh")
         u = einsum("bsd,df->bsf", x, p["w_up"])
-        return einsum("bsf,fd->bsd", g * u, p["w_down"])
-    h = F.gelu(einsum("bsd,df->bsf", x, p["w_up"]), approximate="tanh")
-    return einsum("bsf,fd->bsd", h, p["w_down"])
+        h = constrain(g * u, ("batch", "seq", "ff"))
+    else:
+        h = F.gelu(einsum("bsd,df->bsf", x, p["w_up"]), approximate="tanh")
+        h = constrain(h, ("batch", "seq", "ff"))
+    return constrain(einsum("bsf,fd->bsd", h, p["w_down"]), ("batch", "seq", "embed_act"))

@@ -21,6 +21,13 @@ Layer structure follows the official Mamba2 block:
 Every cast of the reference is kept: the block returns its SSM and conv
 states in the activations' dtype, so with bf16 weights the state is rounded
 to bf16 every step whatever the dtype of the cache that holds it.
+
+Sharded (the sharded step's DTensors), the projections are sharded as the
+rules place them, and the mixer between them runs on each rank's batch
+shard: the fused ``[z | x | B | C | dt]`` projection is gathered over
+``model`` (its parts do not split evenly there), the conv, the SSD scan and
+the gated norm run whole on the rank's rows, and ``out_proj``'s partial
+sums are reduced at the reference's ``embed_act`` constraint.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as S
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import einsum
 from repro_torch.models.params import ParamDef
@@ -180,19 +189,55 @@ def mamba_block(
 
     With ``cache`` set, S must be 1 (decode recurrence).
     """
+    zxbcdt = einsum("bsd,dk->bsk", u, p["in_proj"])
+    small = {k: p[k] for k in ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm_w")}
+    if S.is_dtensor(u):
+        zxbcdt = constrain(zxbcdt, ("batch", "seq", None))
+        small = {k: S.replicated(v) for k, v in small.items()}
+        conv = ssm = None
+        if cache is not None:
+            conv = constrain(cache.conv, ("batch", "conv", None))
+            ssm = constrain(cache.ssm, ("batch", None, None, None))
+        bsz, s_len = u.shape[:2]
+        s_cfg = cfg.ssm
+        nh = s_cfg.n_heads(cfg.d_model)
+        conv_dim = s_cfg.d_inner(cfg.d_model) + 2 * s_cfg.n_groups * s_cfg.d_state
+        conv_pl, _ = S.block((bsz, s_cfg.d_conv - 1, conv_dim), ("batch", "conv", None), like=u)
+        ssm_pl, _ = S.block((bsz, nh, s_cfg.head_dim, s_cfg.d_state),
+                            ("batch", None, None, None), like=u)
+        keys = list(small)
+
+        def mixer(zxbcdt, *rest):
+            return _mixer(cfg, zxbcdt, dict(zip(keys, rest)), *rest[len(keys):],
+                          u_dtype=u.dtype)
+
+        y, new_conv, new_ssm = S.local(mixer, zxbcdt, *small.values(), conv, ssm,
+                                       out=(u.placements, conv_pl, ssm_pl))
+    else:
+        conv, ssm = (cache.conv, cache.ssm) if cache is not None else (None, None)
+        y, new_conv, new_ssm = _mixer(cfg, zxbcdt, small, conv, ssm, u_dtype=u.dtype)
+    out = einsum("bsk,kd->bsd", y, p["out_proj"])
+    return constrain(out, ("batch", "seq", "embed_act")), MambaCache(conv=new_conv, ssm=new_ssm)
+
+
+def _mixer(cfg: ModelConfig, zxbcdt: torch.Tensor, p: dict, conv_cache: torch.Tensor | None,
+           ssm_cache: torch.Tensor | None, *, u_dtype: torch.dtype):
+    """The mixer between the projections, on whole tensors or on one rank's
+    batch shard: the causal conv (or its one-step roll with a cache), the
+    SSD scan (or the recurrence), the skip and the gated norm.  Returns
+    (y (B, S, d_inner), new conv state, new SSM state)."""
     s_cfg = cfg.ssm
-    bsz, s, _ = u.shape
+    bsz, s, _ = zxbcdt.shape
     d_in = s_cfg.d_inner(cfg.d_model)
     nh = s_cfg.n_heads(cfg.d_model)
     g, n, pdim = s_cfg.n_groups, s_cfg.d_state, s_cfg.head_dim
     f32 = torch.float32
 
-    zxbcdt = einsum("bsd,dk->bsk", u, p["in_proj"])
     z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([x, bmat, cmat], dim=-1)  # (B,S,conv_dim)
-
     a = -torch.exp(p["a_log"].to(f32))  # (H,)
-    if cache is None:
+
+    if conv_cache is None:
         conv_out = _conv1d_causal(conv_in, p["conv_w"], p["conv_b"])
         x, bmat, cmat = torch.split(conv_out, [d_in, g * n, g * n], dim=-1)
         xh = x.reshape(bsz, s, nh, pdim)
@@ -200,11 +245,11 @@ def mamba_block(
         y, final = ssd_chunked(xh, dtp, a, bmat.reshape(bsz, s, g, n),
                                cmat.reshape(bsz, s, g, n), chunk=min(s_cfg.chunk, s))
         y = y + xh.to(f32) * p["d_skip"][None, None, :, None]
-        new_conv = _last_positions(conv_in, s_cfg.d_conv - 1)
-        new_cache = MambaCache(conv=new_conv.to(u.dtype), ssm=final.to(u.dtype))
+        new_conv = _last_positions(conv_in, s_cfg.d_conv - 1).to(u_dtype)
+        new_ssm = final.to(u_dtype)
     else:
         # decode: roll conv state, apply conv taps, single recurrence step
-        conv_state = torch.cat([cache.conv, conv_in], dim=1)  # (B,K,C), promoted
+        conv_state = torch.cat([conv_cache, conv_in], dim=1)  # (B,K,C), promoted
         conv_out = einsum("bkc,kc->bc", conv_state, p["conv_w"]) + p["conv_b"]
         conv_out = F.silu(conv_out)[:, None, :]  # (B,1,C)
         x, bmat, cmat = torch.split(conv_out, [d_in, g * n, g * n], dim=-1)
@@ -213,18 +258,16 @@ def mamba_block(
         cm = torch.repeat_interleave(cmat.reshape(bsz, g, n), nh // g, dim=1)
         dtp = _softplus(dt[:, 0].to(f32) + p["dt_bias"])  # (B,H)
         decay = torch.exp(dtp * a[None, :])  # (B,H)
-        ssm = cache.ssm.to(f32)
+        ssm = ssm_cache.to(f32)
         upd = torch.einsum("bh,bhn,bhp->bhpn", dtp, bm.to(f32), xh.to(f32))
         ssm_new = ssm * decay[:, :, None, None] + upd
         y = torch.einsum("bhpn,bhn->bhp", ssm_new, cm.to(f32))
         y = y + xh.to(f32) * p["d_skip"][None, :, None]
         y = y[:, None]  # (B,1,H,P)
-        new_cache = MambaCache(conv=conv_state[:, 1:].to(u.dtype), ssm=ssm_new.to(u.dtype))
-
-    y = y.reshape(bsz, s, d_in).to(u.dtype)
-    y = _gated_norm(y, z, p["norm_w"])
-    out = einsum("bsk,kd->bsd", y, p["out_proj"])
-    return out, new_cache
+        new_conv = conv_state[:, 1:].to(u_dtype)
+        new_ssm = ssm_new.to(u_dtype)
+    y = y.reshape(bsz, s, d_in).to(u_dtype)
+    return _gated_norm(y, z, p["norm_w"]), new_conv, new_ssm
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,

@@ -31,10 +31,17 @@ dots_with_no_batch_dims_saveable`` does; ``"none"`` keeps every
 activation.  The recompute runs the same operations on the same inputs, so
 the loss and the gradients are the same bits under every setting (the
 reference remats gemma2's pair as one body, which gives the same values).
+
+Sharded (DTensor params and tokens under ``mesh_context``), each block
+gathers its weights' ``data``/``pod`` shards at its start (inside the remat,
+so the recompute gathers them again), the embedding looks up each rank's
+vocabulary shard and sums the shards, and the reference's ``constrain``
+sites place the stream (``embed_act``) and the logits (``vocab``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -48,6 +55,8 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import cached_const
+from repro_torch.distributed import sharding as S
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
@@ -167,6 +176,7 @@ def _dense_block(
     if is_local is None:
         # uniform-window configs (no local/global alternation) window everywhere
         is_local = cfg.sliding_window is not None and not cfg.local_global_pattern
+    p = S.gather_fsdp(p)
     if cfg.parallel_block:  # command-r: x + attn(n(x)) + mlp(n(x))
         h = L.apply_norm(cfg, x, p["norm_attn"])
         a, cache_out = L.attention(cfg, p["attn"], h, positions=positions, is_local=is_local,
@@ -195,6 +205,7 @@ def _dense_block(
 def _moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor, **kw):
     """Attention (never windowed: the reference calls it with ``is_local``
     left False) and the routed FFN; returns (x, K/V, aux loss)."""
+    p = S.gather_fsdp(p)
     h = L.apply_norm(cfg, x, p["norm_attn"])
     a, cache_out = L.attention(cfg, p["attn"], h, **kw)
     x = x + a
@@ -204,6 +215,7 @@ def _moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor, **kw):
 
 
 def _mamba_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, cache=None):
+    p = S.gather_fsdp(p)
     h = L.apply_norm(cfg, x, p["norm"])
     y, new_cache = M.mamba_block(cfg, p["mixer"], h, cache=cache)
     return x + y, new_cache
@@ -212,24 +224,50 @@ def _mamba_block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, cache=None):
 # -- embedding / head --------------------------------------------------------------
 
 
+def _embed_rows(table: torch.Tensor, tokens: torch.Tensor, v_off: int) -> torch.Tensor:
+    """The rows of a vocabulary shard (ids from ``v_off`` on) for ``tokens``,
+    zeros for the ids another shard holds."""
+    idx = tokens.to(torch.int64) - v_off
+    mine = (idx >= 0) & (idx < table.shape[0])
+    rows = F.embedding(torch.clamp(idx, 0, table.shape[0] - 1), table)
+    return torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+
+def _embed_sharded(table, tokens):
+    """The embedding on a table sharded on ``vocab``: each rank looks up the
+    ids its shard holds, and the rows are a partial sum over the shards
+    (all-reduced by the ``embed_act`` constraint)."""
+    from torch.distributed.tensor import Partial, Shard
+
+    table = S.gather_fsdp(table)
+    tokens = S.constrain(tokens, ("batch", "seq"))
+    out = tuple(Partial() if p == Shard(0) else tp
+                for p, tp in zip(table.placements, tokens.placements))
+    return S.local(functools.partial(_embed_rows, v_off=S.shard_offset(table, 0)),
+                   table, tokens, out=out)
+
+
 def embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    x = F.embedding(tokens.to(torch.int64), params["embed"])
+    if S.is_dtensor(tokens):
+        x = _embed_sharded(params["embed"], tokens)
+    else:
+        x = F.embedding(tokens.to(torch.int64), params["embed"])
     if cfg.family is Family.ENC_DEC or cfg.name.startswith("gemma"):
         # sqrt(d_model) rounded once to the activation dtype, as the reference's
         # ``jnp.asarray(np.sqrt(d), x.dtype)``; built once a device, so a decode
         # step makes no host-to-device copy (a synchronisation)
         x = x * cached_const(("embed_scale", cfg.d_model, x.dtype), x.device,
                              lambda: torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype))
-    return x
+    return constrain(x, ("batch", "seq", "embed_act"))
 
 
 def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = L.apply_norm(cfg, x, params["final_norm"])
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = L.einsum("bsd,dv->bsv", x, w)
+    logits = L.einsum("bsd,dv->bsv", x, S.gather_fsdp(w))
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 # -- rematerialisation -----------------------------------------------------------------
@@ -327,7 +365,8 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor
     frontend): the sinusoidal table in the frames' dtype, the encoder blocks
     non-causal, then the encoder's final norm."""
     b, s, _ = frames.shape
-    x = frames + sinusoid(s, cfg.d_model, frames.dtype, frames.device)[None]
+    x = frames + S.place(sinusoid(s, cfg.d_model, frames.dtype, frames.device)[None],
+                         (None, "frames", "embed_act"), like=frames)
     ecfg = enc_dec_cfg(cfg)
     positions = torch.arange(s, device=frames.device)[None].expand(b, s)
     blocks = params["encoder"]["blocks"]
@@ -388,7 +427,8 @@ def forward(
     else:  # encoder-decoder
         memory = encode(cfg, params, need_frames(encoder_frames))
         dcfg = enc_dec_cfg(cfg)
-        x = x + sinusoid(tokens.shape[1], cfg.d_model, x.dtype, x.device)[None]
+        x = x + S.place(sinusoid(tokens.shape[1], cfg.d_model, x.dtype, x.device)[None],
+                        (None, "seq", "embed_act"), like=x)
         for i in range(n_stacked(blocks)):
             x = _apply(remat, _dense_out, dcfg, layer(blocks, i), x, positions, None, memory)
     logits = unembed(cfg, params, x)

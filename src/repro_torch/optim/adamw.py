@@ -14,6 +14,16 @@ block absmax int8 would collapse small-but-nonzero second moments to zero
 wherever a block mixes magnitudes, and ``m_hat / (sqrt(0) + eps)`` then
 diverges, while bf16 keeps float32's exponent range.  ``torch.round`` rounds
 half to even, as ``jnp.round`` does, so the int8 payload is the reference's.
+
+In the sharded step the leaves are DTensors.  The float32 moments follow
+the params' placements and update on each rank's shard (the update is
+elementwise).  A quantized first moment's blocks are the whole leaf's, as
+the reference's are: its int8 blocks of 128 run over the leaf's flat order,
+which no shard of a weight split on two dims holds, so such a leaf updates
+whole on every rank (an all-gather of each of its tensors) and each rank
+keeps its shards of the result.  The clip's norm sums each leaf's squares
+on its shard and all-reduces the partial sums, one reduction for each
+placement the leaves have.
 """
 
 from __future__ import annotations
@@ -123,12 +133,13 @@ def tree_map(fn, tree: Any, *rest: Any) -> Any:
 
 def adamw_init(params: Any, config: AdamWConfig) -> AdamWState:
     def m_like(p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return _quantize(z) if config.quantize_moments else z
+        if config.quantize_moments:  # whole-leaf blocks; placed by the state's specs
+            return _quantize(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+        return torch.zeros_like(p, dtype=torch.float32)
 
     def v_like(p):
         dt = torch.bfloat16 if config.quantize_moments else torch.float32
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt)
 
     first = tree_leaves(params)[0]
     return AdamWState(
@@ -149,10 +160,12 @@ def adamw_update(
     """Returns ``(new_params, new_state)``.  Update math in float32 whatever
     the param dtype; a Python-float learning rate enters as float32, as the
     reference's jitted step takes it."""
+    from repro_torch.distributed import sharding as S  # the package imports this module
+
     lr = config.learning_rate if learning_rate is None else learning_rate
     step = state.step + 1
     b1, b2 = config.b1, config.b2
-    step_f = step.to(torch.float32)
+    step_f = S.local_value(step).to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, step_f)
     bc2 = 1.0 - torch.pow(b2, step_f)
 
@@ -195,8 +208,18 @@ def adamw_update(
                 new_m.view(-1)[lo:hi] = m_f
         return new_p, new_m, new_v
 
-    out = list(map(leaf_update, _leaves(grads, grads), _leaves(grads, state.m),
-                   _leaves(grads, state.v), _leaves(grads, params)))
+    def sharded_update(g, m, v, p):
+        if not config.quantize_moments:  # elementwise: each rank's shard
+            out = leaf_update(g.to_local(), m.to_local(), v.to_local(), p.to_local())
+            return tuple(S.from_local_like(t, like) for t, like in zip(out, (p, m, v)))
+        new_p, new_m, new_v = leaf_update(g.full_tensor(), _Q8(*map(S.whole, m)), v.full_tensor(),
+                                          p.full_tensor())
+        return (S.shard_like(new_p, p), _Q8(*map(S.shard_like, new_m, m)),
+                S.shard_like(new_v, v))
+
+    out = list(map(lambda g, *rest: (sharded_update if S.is_dtensor(g) else leaf_update)(g, *rest),
+                   _leaves(grads, grads), _leaves(grads, state.m), _leaves(grads, state.v),
+                   _leaves(grads, params)))
     new_p = _rebuild(grads, (o[0] for o in out))
     new_m = _rebuild(grads, (o[1] for o in out))
     new_v = _rebuild(grads, (o[2] for o in out))
@@ -206,9 +229,28 @@ def adamw_update(
 def global_norm_clip(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
     """Scale every gradient by ``min(1, max_norm / global_norm)``; returns the
     scaled tree and the float32 global norm."""
+    from repro_torch.distributed import sharding as S  # the package imports this module
+
     leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
+    if S.is_dtensor(leaves[0]):
+        gnorm = torch.sqrt(_sharded_sum_squares(leaves))
+    else:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
     # a true division: ``float / tensor`` in PyTorch multiplies by a reciprocal
     num = torch.full((), max_norm, dtype=torch.float32, device=gnorm.device)
     scale = torch.clamp(num / torch.clamp(gnorm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gnorm
+
+
+def _sharded_sum_squares(leaves: list) -> torch.Tensor:
+    """The sum of squares of DTensor leaves: each leaf's on its shard, the
+    leaves of one placement summed locally, then one all-reduce of each
+    placement's partial sum, in the leaves' order of first appearance."""
+    from repro_torch.distributed import sharding as S  # the package imports this module
+
+    groups: dict[tuple, Any] = {}
+    for g in leaves:
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        key = tuple(sq.placements)
+        groups[key] = sq if key not in groups else groups[key] + sq
+    return sum(S.replicated(v) for v in groups.values())

@@ -367,6 +367,13 @@ def ai_estimate_folded(folded: dict[str, Any], h_ls: torch.Tensor, *,
     return h[:, :, None].contiguous()
 
 
+def ai_estimate_from_ls_batched(params: dict[str, Any], h_ls: torch.Tensor) -> torch.Tensor:
+    """``(U, ant, n_dmrs_sym, n_pilot_sc)`` LS -> ``(U, ant, 1, n_sc,
+    n_dmrs_sym)``: the multi-UE analogue of ``ai_estimate_from_ls``, the
+    weights folded for the LS width and then ``ai_estimate_folded``."""
+    return ai_estimate_folded(fold_ai_params(params, h_ls.shape[2]), h_ls)
+
+
 class AiEstimator(nn.Module):
     """The AI expert as a module: folded weights held as buffers.
 

@@ -11,6 +11,20 @@ scans: a float32 zero accumulator, ``g.float() / mb`` added per microbatch
 and ``loss / mb`` added to a float32 loss, so the peak activation footprint
 is one microbatch.  Under ``cfg.remat`` each block is rematerialised in the
 backward pass (``models.transformer``).
+
+The sharded step is the same function on a ``TrainState`` of DTensors
+(placed by ``distributed.sharding.distribute`` with ``launch/specs.py``'s
+``train_state_pspecs``), called under
+``mesh_context``: the batch is placed on ``("pod", "data")`` (a batch of
+numpy arrays or plain tensors, which every rank holds whole, is split with
+no collective), the gradients come back on the params' placements (a
+replicated weight's partial sums all-reduced, a sharded one's
+reduce-scattered), and the new state keeps the input's placements, as the
+reference's ``out_shardings=(state_ps, P())``; the metrics are plain 0-d
+tensors, the same on every rank.  A microbatch is a contiguous slice of
+the global batch, as the reference's ``reshape``: the token ids are
+gathered (a few bytes a token) and each rank keeps its shard of each
+slice.
 """
 
 from __future__ import annotations
@@ -20,6 +34,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.distributed import sharding as S
 from repro_torch.distributed.compression import (
     ErrorFeedbackState,
     compress_decompress,
@@ -28,6 +43,11 @@ from repro_torch.distributed.compression import (
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, AdamWState, adamw_init, adamw_update, global_norm_clip
 from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
+
+
+#: the logical axes of a batch's leaves
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "encoder_frames": ("batch", "frames", "embed_act")}
 
 
 class TrainState(NamedTuple):
@@ -73,11 +93,34 @@ def _grads(model: Model, params: Any, batch: dict) -> tuple[torch.Tensor, Any]:
         loss = model.loss(tree_unflatten(params, live), batch["tokens"], batch["labels"],
                           encoder_frames=batch.get("encoder_frames"))
         grads = torch.autograd.grad(loss, live)
+    if S.is_dtensor(leaves[0]):  # partial sums reduced onto the params' placements
+        grads = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(grads, leaves)]
     return loss.detach(), tree_unflatten(params, grads)
 
 
-def _on(batch: dict, device: torch.device) -> dict:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items() if v is not None}
+def _on(batch: dict, device: torch.device, like: torch.Tensor) -> dict:
+    """The batch's tensors on ``device``, placed on ``("pod", "data")`` when
+    the params (``like``) are DTensors."""
+    out = {}
+    for k, v in batch.items():
+        if v is None:
+            continue
+        if not S.is_dtensor(v):
+            v = S.place(torch.as_tensor(v, device=device), BATCH_AXES[k], like=like)
+        out[k] = S.constrain(v, BATCH_AXES[k])
+    return out
+
+
+def _micro(batch: dict, mb: int, i: int) -> dict:
+    """Microbatch ``i`` of ``mb``: rows ``[i * B / mb, (i + 1) * B / mb)``."""
+    out = {}
+    for k, v in batch.items():
+        whole = S.replicated(v)
+        part = whole.reshape(mb, whole.shape[0] // mb, *whole.shape[1:])[i]
+        if S.is_dtensor(v):
+            part = S.constrain(S.place(part.to_local(), BATCH_AXES[k], like=v), BATCH_AXES[k])
+        out[k] = part
+    return out
 
 
 def train_step(model: Model, tc: TrainConfig, state: TrainState,
@@ -85,8 +128,9 @@ def train_step(model: Model, tc: TrainConfig, state: TrainState,
     """One optimizer step.  ``batch`` holds ``tokens`` and ``labels`` (B, S)
     as numpy arrays or tensors; they go to the params' device.  Returns the
     new state and ``{"loss", "grad_norm", "step"}`` as 0-d tensors."""
-    dev = tree_leaves(state.params)[0].device
-    batch = _on(batch, dev)
+    first = tree_leaves(state.params)[0]
+    dev = first.device
+    batch = _on(batch, dev, first)
     if tc.microbatches > 1:
         mb = tc.microbatches
         b = batch["tokens"].shape[0]
@@ -95,11 +139,9 @@ def train_step(model: Model, tc: TrainConfig, state: TrainState,
         # a 0-d tensor divisor: a true division on every device, as the reference's
         div = torch.full((), mb, dtype=torch.float32, device=dev)
         loss = torch.zeros((), dtype=torch.float32, device=dev)
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev),
-                         state.params)
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
         for i in range(mb):
-            micro = {k: v.reshape(mb, b // mb, *v.shape[1:])[i] for k, v in batch.items()}
-            loss_i, g = _grads(model, state.params, micro)
+            loss_i, g = _grads(model, state.params, _micro(batch, mb, i))
             grads = tree_map(lambda a, gi: a + gi.to(torch.float32) / div, grads, g)
             loss = loss + loss_i / div
     else:
@@ -111,4 +153,5 @@ def train_step(model: Model, tc: TrainConfig, state: TrainState,
         grads, ef = compress_decompress(grads, ef)
     params, opt = adamw_update(grads, state.opt, state.params, tc.adamw())
     new_state = TrainState(step=state.step + 1, params=params, opt=opt, ef=ef)
-    return new_state, {"loss": loss, "grad_norm": gnorm, "step": new_state.step}
+    metrics = {"loss": loss, "grad_norm": gnorm, "step": new_state.step}
+    return new_state, {k: S.local_value(S.replicated(v)) for k, v in metrics.items()}

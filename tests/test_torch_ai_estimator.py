@@ -100,6 +100,21 @@ def test_forward_f32(net, carried, rng):
     np.testing.assert_allclose(got, eager, **F32_TOL)
 
 
+@pytest.mark.parametrize("n_ues", [1, 3])
+def test_from_ls_batched(n_ues, rng):
+    """``ai_estimate_from_ls_batched`` (fold for the LS width, then the folded
+    forward) against ``repro``'s jitted one, at its tests' shapes."""
+    net = NETS[0]
+    rnet = rai.AiEstimatorConfig(channels=net.channels, n_res_blocks=net.n_res_blocks)
+    ref = rai.init_params(jax.random.PRNGKey(4), RCFG, rnet)
+    ref = dict(ref, head_w=ref["head_w"] * 300.0)
+    h = _h_ls(rng, n_ues)
+    want = np.asarray(rai.ai_estimate_from_ls_batched(ref, jnp.asarray(h)))
+    got = tai.ai_estimate_from_ls_batched(ai_params_from_reference(ref), torch.as_tensor(h))
+    assert got.shape == want.shape == (n_ues, CFG.n_ant, 1, CFG.n_sc, CFG.n_dmrs_sym)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
 def test_forward_bf16_operands(rng):
     net = NETS[0]
     rnet = rai.AiEstimatorConfig(channels=net.channels, n_res_blocks=net.n_res_blocks)
