@@ -22,7 +22,7 @@ Phases, each of which raises on failure (exit code != 0):
    PyTorch version (switches, scatter, tree and the fused decision phase
    ``policy_step`` bitwise, the per-UE switch and the scatter out of place
    with their inputs untouched, both switches also on the LM decoder's
-   (8, 49,152) bf16 logits, ``mmse_interp``
+   (8, 49,152) bf16 logits, ``mmse_interp`` (its 4-multiply form)
    within ``MMSE_TOL`` at the host loop's, the sweep's and the closed
    loop's row counts and at n_prb 24 and 273, with each error against a
    complex128 product beside the plain version's, bitwise the same twice
@@ -45,6 +45,13 @@ Phases, each of which raises on failure (exit code != 0):
    library, library, kernel) and print the ratio, the scatter also against
    the per-UE switch's call over the same bytes, and the switches print the
    host time of a call alone;
+3b. surface: ``mmse_interp`` in both forms (the Gauss form, the main path's,
+   and the 4-multiply form) at 12, 384 and 2,016 rows against a complex128
+   product (within ``MMSE_FORM_RATIO`` times the plain version's error of the
+   same form) and their plain versions, timed in turns with ``torch.matmul``;
+   ``mmse_interp(use_gauss=False)`` on 32 UEs' LS estimates, the 4-multiply
+   kernel's path, one launch; the scalar and per-UE switches and the scatter over a two-leaf
+   pytree bitwise, one launch a leaf;
 4. main path: ``ArchesSession(...).run()`` of the closed-loop campaign at
    the paper's 106-PRB slot with 32 UEs and the estimator's default width,
    on a CONCURRENT bank (its AI expert one ``gated_expert`` launch a slot
@@ -56,6 +63,12 @@ Phases, each of which raises on failure (exit code != 0):
    served AI count; then an unfused GATED run with ``auto_capacity`` at a
    smaller depth, which launches the scatter kernel, and a fused GATED run
    at 96 channels (the kernel's wide form) for a few slots;
+5b. runtime: ``ArchesRuntime.from_spec(spec, agent=...)`` on the CONCURRENT
+   session, ``run_batched(..., replay_telemetry=True)``: one indication a
+   slot and source to a connected dApp, the history equal to the run without
+   replay, to the session's run and to explicit ``ue_keys``, bitwise; then
+   ``slot_step`` looped over ``SLOT_STEP_SLOTS`` slots equal to
+   ``run(use_scan=False)`` bitwise, each kernel of the slot once a slot;
 6. faults: the CONCURRENT and fused GATED closed loops, 32 slots, under
    one ``FaultSpec`` (a NaN burst, a telemetry outage, a decision outage
    past the TTL, random drops): the health screen trips in the burst and
@@ -88,8 +101,8 @@ Phases, each of which raises on failure (exit code != 0):
    against the CONCURRENT run: the same bits on every KPM and decision;
 10. host loop: ``ArchesSession(path="host")`` at n_prb 106 with the AI
    expert at its default width and a tree policy, 40 slots: the scalar
-   switch must launch exactly once per slot and ``mmse_interp`` must
-   launch, every trajectory leaf must be finite, and the loop must
+   switch must launch exactly once per slot and ``mmse_interp`` (Gauss)
+   must launch, every trajectory leaf must be finite, and the loop must
    synchronise with the device exactly once per slot (its one read-back,
    by PyTorch's sync debug mode); ms per slot and the median measured
    policy time are logged;
@@ -105,7 +118,7 @@ Phases, each of which raises on failure (exit code != 0):
    ``gated_expert`` kernel match their plain folded form; ms a step;
 11c. api: ``mmse_estimate`` (the public API's expert A) on ``DEFAULT_SLOT``
    for 32 UEs, the launch counts zeroed just before it and read just after
-   it: ``mmse_interp`` launches once, and the result is within ``MMSE_TOL``
+   it: ``mmse_interp`` (Gauss) launches once, and the result is within ``MMSE_TOL``
    of ``use_kernel=False``; MMSE-IRC on one UE's slot within
    ``IRC_X_ATOL`` / ``IRC_SINR_RTOL`` of the CPU;
 11d. LM training: granite-20b at its published width (bf16, remat
@@ -514,7 +527,8 @@ def phase_kernels() -> list[dict]:
     cfg = SlotConfig(n_prb=N_PRB)
     rows = []
 
-    # -- mmse_interp: (U*ant*dmrs, Np) @ (Np, Nsc) ------------------------------
+    # -- mmse_interp, the 4-multiply form: (U*ant*dmrs, Np) @ (Np, Nsc) ----------
+    # (the main path's Gauss form, the reference's default, is phase_surface's)
     # at each path's row count: the host loop's one UE (12 of a 64-row tile,
     # 16 subcarriers a block), the sweep's 168 UEs (2,016 rows end in a partial
     # tile) and last the closed loop's 32 UEs, which the kernel row reports
@@ -526,9 +540,9 @@ def phase_kernels() -> list[dict]:
         b = n_ues * per_ue
         h = torch.complex(torch.randn(b, np_, generator=gen, device=dev),
                           torch.randn(b, np_, generator=gen, device=dev))
-        got = mmse_interp(h, w)
-        want = mmse_interp_ref(h, w)
-        again = mmse_interp(h, w)
+        got = mmse_interp(h, w, use_gauss=False)
+        want = mmse_interp_ref(h, w, use_gauss=False)
+        again = mmse_interp(h, w, use_gauss=False)
         exact = torch.matmul(h.to(torch.complex128), w.to(torch.complex128))
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
@@ -547,8 +561,8 @@ def phase_kernels() -> list[dict]:
         bms, by = bound_ms(n_bytes, 18.0 * b * np_ * nsc, PEAK_TF32_FLOPS)
         four_m_ms, _ = bound_ms(n_bytes, 24.0 * b * np_ * nsc, PEAK_TF32_FLOPS)
         f32_ms, _ = bound_ms(n_bytes, 6.0 * b * np_ * nsc)
-        ms, lib, reading = turns(lambda: mmse_interp(h, w), lambda: torch.matmul(h, w))
-        device_alone(f"mmse_interp at {b} rows", lambda h=h: mmse_interp(h, w),
+        ms, lib, reading = turns(lambda: mmse_interp(h, w, use_gauss=False), lambda: torch.matmul(h, w))
+        device_alone(f"mmse_interp at {b} rows", lambda h=h: mmse_interp(h, w, use_gauss=False),
                      "mmse_interp", 50)
         device_alone(f"torch.matmul at {b} rows", lambda h=h: torch.matmul(h, w), None, 50)
         log(f"  mmse_interp at {b} rows ({n_ues} UEs): max |err| {e:.3g} (vs complex128: "
@@ -560,7 +574,7 @@ def phase_kernels() -> list[dict]:
     # one UE's rows alone and at the head of the closed loop's batch: the
     # same bits (each output is summed in one order, whatever the tile)
     one = torch.cat([alone[0], h[alone[0].shape[0]:]])
-    if not torch.equal(mmse_interp(one, w)[:per_ue], alone[1]):
+    if not torch.equal(mmse_interp(one, w, use_gauss=False)[:per_ue], alone[1]):
         raise AssertionError(f"mmse_interp: one UE's rows differ between {per_ue} and "
                              f"{b} rows")
     # accuracy at the other carrier widths, up to NR's widest at 30 kHz
@@ -568,7 +582,8 @@ def phase_kernels() -> list[dict]:
         w2 = WienerInterpolator.build(SlotConfig(n_prb=n_prb), device=dev).w
         h2 = torch.complex(torch.randn(b, w2.shape[0], generator=gen, device=dev),
                            torch.randn(b, w2.shape[0], generator=gen, device=dev))
-        got, want = mmse_interp(h2, w2), mmse_interp_ref(h2, w2)
+        got = mmse_interp(h2, w2, use_gauss=False)
+        want = mmse_interp_ref(h2, w2, use_gauss=False)
         exact = torch.matmul(h2.to(torch.complex128), w2.to(torch.complex128))
         e = float((got - want).abs().max())
         if not e <= MMSE_TOL:
@@ -577,7 +592,7 @@ def phase_kernels() -> list[dict]:
             f"kernel {float((got - exact).abs().max()):.3g}, plain "
             f"{float((want - exact).abs().max()):.3g})")
         err = max(err, e)
-    plain = time_ms(lambda: mmse_interp_ref(h, w))
+    plain = time_ms(lambda: mmse_interp_ref(h, w, use_gauss=False))
     rows.append(dict(
         name="mmse_interp", route="cuda", source="src/repro_torch/csrc/mmse_interp.cu",
         replaces="src/repro/kernels/mmse_interp/mmse_interp.py:54",
@@ -693,7 +708,7 @@ def phase_policy_step(gen) -> dict:
 
     dev = torch.device("cuda")
     n_feat, window, n_slots = len(SELECTED_KPMS), 8, 200
-    pol = tcl.export_tree_tables([5, 1, 3], [0.1, -0.2, 0.3], [1.0, 0.0, 0.0, 1.0], dev)
+    pol = tcl.export_tree_tables([5, 1, 3], [0.1, -0.2, 0.3], [1.0, 0.0, 0.0, 1.0], device=dev)
     phase = torch.where((torch.arange(n_slots, device=dev) // 7) % 2 == 0, -1.0, 1.0)
     feats = phase[:, None, None] + torch.randn(n_slots, N_UES, n_feat, generator=gen,
                                                device=dev)
@@ -1390,7 +1405,7 @@ def phase_host():
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(build.launch_counts)
-    if launches["switch_select"] != N_SLOTS or launches["mmse_interp"] == 0:
+    if launches["switch_select"] != N_SLOTS or launches["mmse_interp_gauss"] == 0:
         raise AssertionError(f"host loop launches {launches}: want switch_select == "
                              f"{N_SLOTS} and mmse_interp > 0")
     if hist.modes.shape != (N_SLOTS, 1):
@@ -1451,8 +1466,9 @@ def phase_sweep(sess) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.launch_counts)
-    if launches["mmse_interp"] != SWEEP_SLOTS:
-        raise AssertionError(f"sweep launches {launches}: want mmse_interp == {SWEEP_SLOTS}")
+    if launches["mmse_interp_gauss"] != SWEEP_SLOTS:
+        raise AssertionError(f"sweep launches {launches}: want mmse_interp_gauss == "
+                             f"{SWEEP_SLOTS}")
     if not np.isfinite(sweep.samples).all():
         raise AssertionError("sweep samples are not finite")
     snr = sweep.kpm_names.index("snr")
@@ -1570,6 +1586,264 @@ def phase_wide_width() -> None:
         f"{t['global_weights'] / t['staged']:.3f}")
 
 
+#: each form of ``mmse_interp`` against a complex128 product: at most this many
+#: times its plain float32 version's error
+MMSE_FORM_RATIO = 4.0
+#: slots of the public one-slot step's loop (``phase_runtime``)
+SLOT_STEP_SLOTS = 4
+
+
+def _leaf_pairs(got, want, name: str = ""):
+    """(name, got leaf, want leaf) over two nested dicts of tensors."""
+    if isinstance(got, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{name}: keys {sorted(got)} vs {sorted(want)}")
+        for k in got:
+            yield from _leaf_pairs(got[k], want[k], f"{name}.{k}" if name else k)
+    else:
+        yield name, got, want
+
+
+def _bitwise(got, want, label: str) -> None:
+    for name, x, y in _leaf_pairs(got, want):
+        xs, ys = (torch.view_as_real(t) if t.is_complex() else t for t in (x, y))
+        if x.dtype != y.dtype or not torch.equal(xs, ys):
+            raise AssertionError(f"{label}: leaf {name} differs")
+
+
+def phase_surface() -> tuple[dict, dict[str, int]]:
+    """The reference's surface the port gained last, at the main path's width
+    (the paper's 106-PRB, 4-antenna, 3-DMRS slot, 32 UEs).
+
+    ``mmse_interp`` in both forms at the host loop's 12, the closed loop's 384
+    and the sweep's 2,016 rows: each against a complex128 product (within
+    ``MMSE_FORM_RATIO`` times its plain float32 version's error) and against
+    its plain version of the same form (``MMSE_TOL``), bitwise the same twice;
+    both forms and ``torch.matmul`` timed in turns and queued for their device
+    time.  The public kernel entry asked for the 4-multiply form on the
+    slot's LS estimates of 32 UEs, ``mmse_interp(ls_estimate(...), w,
+    use_gauss=False)`` (what ``mmse_estimate`` does in the Gauss form), with
+    the counts zeroed just before and read just after: the 4-multiply
+    kernel's one launch, its row's (the main path runs the Gauss form, the
+    reference's default).  The three
+    switch kernels over a two-leaf pytree (an estimate and a noise variance:
+    one UE's for the scalar switch, 32 UEs' for the per-UE switch and the
+    scatter), bitwise their plain versions, one launch a leaf a call.
+    Returns the Gauss form's row and the 4-multiply path's launch counts."""
+    from repro_torch import random as jr
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mmse_interp import mmse_interp, mmse_interp_ref
+    from repro_torch.kernels.switch_select import (
+        switch_gather_batched_tree_ref,
+        switch_scatter,
+        switch_select,
+        switch_select_batched_tree_ref,
+        switch_select_tree_ref,
+    )
+    from repro_torch.phy import DEFAULT_SLOT, mmse_estimate
+    from repro_torch.phy.dmrs import dmrs_sequence
+    from repro_torch.phy.estimators import WienerInterpolator, ls_estimate
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    cfg = DEFAULT_SLOT
+    if (cfg.n_prb, cfg.n_ant, cfg.n_dmrs_sym) != (N_PRB, 4, 3):
+        raise AssertionError(f"DEFAULT_SLOT is not the main path's slot: {cfg}")
+
+    def cplx(shape):
+        return torch.complex(torch.randn(shape, generator=gen, device=dev),
+                             torch.randn(shape, generator=gen, device=dev))
+
+    # -- mmse_interp, both forms ------------------------------------------------
+    w = WienerInterpolator.build(cfg, device=dev).w
+    per_ue = cfg.n_ant * cfg.n_dmrs_sym
+    np_, nsc = cfg.n_pilot_sc, cfg.n_sc
+    err = 0.0
+    for n_ues in (1, N_UES, sweep_ues()):
+        b = n_ues * per_ue
+        h = cplx((b, np_))
+        exact = torch.matmul(h.to(torch.complex128), w.to(torch.complex128))
+        notes = []
+        for gauss in (True, False):
+            got = mmse_interp(h, w, use_gauss=gauss)
+            plain = mmse_interp_ref(h, w, use_gauss=gauss)
+            again = mmse_interp(h, w, use_gauss=gauss)
+            e = float((got - plain).abs().max())
+            e64, p64 = (float((x - exact).abs().max()) for x in (got, plain))
+            form = "Gauss" if gauss else "4-multiply"
+            if not (e <= MMSE_TOL and e64 <= MMSE_FORM_RATIO * p64):
+                raise AssertionError(f"mmse_interp {form} at {b} rows: |err| {e} vs plain "
+                                     f"(limit {MMSE_TOL}), {e64} vs complex128 (plain {p64})")
+            if not torch.equal(got, again):
+                raise AssertionError(f"mmse_interp {form} differs between two calls at {b} rows")
+            if gauss:
+                err = max(err, e)
+            notes.append(f"{form} |err| vs plain {e:.3g}, vs complex128 {e64:.3g} (plain "
+                         f"{p64:.3g}, {e64 / p64:.2f}x)")
+        times, reading = turns_of(gauss=lambda h=h: mmse_interp(h, w),
+                                  four=lambda h=h: mmse_interp(h, w, use_gauss=False),
+                                  matmul=lambda h=h: torch.matmul(h, w))
+        n_bytes = 8.0 * (b * np_ + np_ * nsc + b * nsc)
+        bms, by = bound_ms(n_bytes, 18.0 * b * np_ * nsc, PEAK_TF32_FLOPS)
+        four_ms, _ = bound_ms(n_bytes, 24.0 * b * np_ * nsc, PEAK_TF32_FLOPS)
+        device_alone(f"mmse_interp (Gauss) at {b} rows", lambda h=h: mmse_interp(h, w),
+                     "mmse_interp_gauss", 50)
+        log(f"  mmse_interp at {b} rows ({n_ues} UEs): " + "; ".join(notes)
+            + f"; {reading}; bound Gauss {bms * 1e3:.2f} us ({by}), 4-multiply "
+            f"{four_ms * 1e3:.2f} us")
+        if n_ues == N_UES:
+            gauss_row = dict(
+                name="mmse_interp_gauss", route="cuda",
+                source="src/repro_torch/csrc/mmse_interp.cu",
+                replaces="src/repro/kernels/mmse_interp/mmse_interp.py:54",
+                launches=0, max_abs_err=0.0, ms=times["gauss"],
+                plain_ms=time_ms(lambda h=h: mmse_interp_ref(h, w)),
+                bound_ms=bms, bound_by=by, library_ms=times["matmul"],
+                shape=f"H ({b}, {np_}) @ W ({np_}, {nsc}) complex64, the Gauss form (also "
+                      f"checked at {per_ue} and {sweep_ues() * per_ue} rows)")
+    gauss_row["max_abs_err"] = err
+
+    # -- the 4-multiply form through the public entry, on the slot's LS estimates --------
+    k1, k2 = jr.split(jr.PRNGKey(25, dev))
+    shape = (N_UES, cfg.n_ant, cfg.n_sc, cfg.n_sym)
+    rx = torch.complex(jr.normal(k1, shape), jr.normal(k2, shape))
+    pilots, interp = dmrs_sequence(cfg, device=dev), WienerInterpolator.build(cfg, device=dev)
+    h_ls = ls_estimate(cfg, rx, pilots)
+    mmse_interp(h_ls, interp.w, use_gauss=False)  # first call outside the count
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    got = mmse_interp(h_ls, interp.w, use_gauss=False)
+    torch.cuda.synchronize()
+    four_launches = dict(build.launch_counts)
+    if four_launches["mmse_interp"] != 1 or sum(four_launches.values()) != 1:
+        raise AssertionError(f"mmse_interp(use_gauss=False) launched {four_launches}")
+    want = mmse_interp_ref(h_ls, interp.w, use_gauss=False)
+    gauss = mmse_estimate(cfg, rx, pilots, interp).squeeze(-3).movedim(-1, -2)
+    e, eg = (float((x - y).abs().max()) for x, y in ((got, want), (gauss, got)))
+    if not (e <= MMSE_TOL and eg <= MMSE_TOL):
+        raise AssertionError(f"mmse_interp(use_gauss=False) on the LS estimates: |err| {e} "
+                             f"vs its plain version, {eg} vs mmse_estimate's Gauss form")
+
+    # -- the switch kernels over a two-leaf pytree --------------------------------------
+    est = (cfg.n_ant, 1, cfg.n_sc, cfg.n_dmrs_sym)
+
+    def tree(lead):
+        return {"h": cplx(lead + est), "nv": torch.rand(lead, generator=gen, device=dev)}
+
+    one = [tree(()), tree(())]
+    for mode in (0, 1):
+        want = switch_select_tree_ref(mode, one)
+        des = {k: v.clone() for k, v in one[0].items()}  # the scalar switch works in place
+        build.reset_launch_counts()
+        got = switch_select(mode, [des, one[1]])
+        torch.cuda.synchronize()
+        if build.launch_counts["switch_select"] != 2:
+            raise AssertionError(f"scalar switch over 2 leaves: {dict(build.launch_counts)}")
+        _bitwise(got, want, f"scalar switch over a pytree, mode {mode}")
+    outs = [tree((N_UES,)), tree((N_UES,))]
+    modes = (torch.arange(N_UES, device=dev) % 3 == 0).to(torch.int32)
+    build.reset_launch_counts()
+    got = switch_select(modes, outs)
+    torch.cuda.synchronize()
+    if build.launch_counts["switch_select_batched"] != 2:
+        raise AssertionError(f"per-UE switch over 2 leaves: {dict(build.launch_counts)}")
+    _bitwise(got, switch_select_batched_tree_ref(modes, outs), "per-UE switch over a pytree")
+    compact = tree((GATED_CAPACITY,))
+    src = torch.where(torch.arange(N_UES, device=dev) % 2 == 0,
+                      torch.arange(N_UES, device=dev) // 2, -1).to(torch.int32)
+    build.reset_launch_counts()
+    got = switch_scatter(src, compact, outs[0])
+    torch.cuda.synchronize()
+    if build.launch_counts["switch_gather_batched"] != 2:
+        raise AssertionError(f"scatter over 2 leaves: {dict(build.launch_counts)}")
+    _bitwise(got, switch_gather_batched_tree_ref(src, compact, outs[0]), "scatter over a pytree")
+    log(f"surface: mmse_interp(use_gauss=False) on {N_UES} UEs' LS estimates: launches "
+        f"{four_launches}, |err| {e:.3g} vs its plain version, {eg:.3g} vs mmse_estimate's "
+        f"Gauss form; the scalar switch (one UE), the "
+        f"per-UE switch and the scatter ({N_UES} UEs, capacity {GATED_CAPACITY}) over a "
+        f"two-leaf pytree bitwise their plain versions, one launch a leaf a call; "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return gauss_row, four_launches
+
+
+def phase_runtime(sess, hist) -> None:
+    """The closed-loop runtime's public surface on the main path's session.
+
+    ``ArchesRuntime.from_spec(spec, agent=...)`` then ``run_batched(...,
+    replay_telemetry=True)``: the history equals the same call without
+    replay and the session's own run, bitwise, and so does a run with
+    explicit ``ue_keys`` equal to ``fold_in(key, u)``; a dApp connected to
+    the agent receives one indication a slot from each source and decides
+    once a slot.  Then ``BatchedPuschPipeline.slot_step`` looped over
+    ``SLOT_STEP_SLOTS`` slots of the main path's engine equals
+    ``run(use_scan=False)`` bitwise, the counts zeroed just before the loop
+    and read just after it: the slot's kernels launch once a slot each."""
+    from repro_torch import random as jr
+    from repro_torch.core.dapp import DApp, connect_dapp
+    from repro_torch.core.e3 import E3Agent, E3Subscription
+    from repro_torch.core.runtime import ArchesRuntime
+    from repro_torch.kernels import build
+    from repro_torch.phy import pipeline as P
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    spec = sess.spec
+    agent = E3Agent()
+    seen: collections.Counter = collections.Counter()
+    agent.subscribe(E3Subscription(callback=lambda m: seen.update([m.source])))
+    dapp = DApp(sess.host_policies[0], spec.feature_names,
+                window_slots=spec.switch.window_slots)
+    connect_dapp(agent, dapp)
+    runtime = ArchesRuntime.from_spec(spec, engine=sess.engine,
+                                      device_policy=sess.device_policy, agent=agent)
+    key = jr.PRNGKey(spec.seed, dev)
+    run = dict(n_slots=spec.n_slots, n_ues=spec.n_ues)
+    t0 = time.perf_counter()
+    replayed = runtime.run_batched(sess.schedule, key=key, replay_telemetry=True, **run)
+    replay_s = time.perf_counter() - t0
+    if dict(seen) != {"aerial": spec.n_slots, "oai": spec.n_slots}:
+        raise AssertionError(f"replay delivered {dict(seen)}, not {spec.n_slots} a source")
+    if len(dapp.decisions) != spec.n_slots:
+        raise AssertionError(f"the dApp decided {len(dapp.decisions)} times in "
+                             f"{spec.n_slots} slots")
+    quiet = runtime.run_batched(sess.schedule, key=key, **run)
+    keyed = runtime.run_batched(
+        sess.schedule, ue_keys=jr.fold_in(key, torch.arange(spec.n_ues, device=dev)), **run)
+    if sum(seen.values()) != 2 * spec.n_slots:
+        raise AssertionError("a run without replay indicated to the agent")
+    _same_history(replayed, quiet, "run_batched with replay vs without")
+    _same_history(replayed, hist, "run_batched with replay vs the session's run")
+    _same_history(keyed, quiet, "run_batched with ue_keys = fold_in(key, u) vs key")
+
+    # -- slot_step, looped == run(use_scan=False) ---------------------------------------
+    eng, n = sess.engine, SLOT_STEP_SLOTS
+    grid = (np.arange(n * N_UES).reshape(n, N_UES) % 2).astype(np.int32)
+    _, whole = eng.run(sess.schedule, grid, n_slots=n, n_ues=N_UES, key=key, use_scan=False)
+    profile, params = P.resolve_schedule(eng.cfg, sess.schedule, n, N_UES, dev)
+    modes = P.normalize_modes(grid, n, N_UES, dev)
+    ue_keys = jr.fold_in(key, torch.arange(N_UES, device=dev))
+    link = P.init_device_link(N_UES, dev)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    outs = []
+    for s in range(n):
+        link, out = eng.slot_step(profile, link, modes[s], jr.fold_in(ue_keys, s), params.at(s))
+        outs.append(out)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    for k in ("mmse_interp_gauss", "switch_select_batched", "gated_expert"):
+        if launches[k] != n:
+            raise AssertionError(f"slot_step x {n}: {launches}")
+    _bitwise(P._stack_tree(outs), whole, f"slot_step x {n} vs run(use_scan=False)")
+    log(f"runtime: from_spec(agent=...) + run_batched(replay_telemetry=True), "
+        f"{spec.n_slots} slots x {spec.n_ues} UEs in {replay_s:.2f} s: {dict(seen)} "
+        f"indications, {len(dapp.decisions)} dApp decisions; == without replay, == the "
+        f"session's run, == explicit ue_keys, bitwise; slot_step x {n} == "
+        f"run(use_scan=False) bitwise, launches {launches}; "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+
 def _fault_spec():
     from repro_torch.core.faults import FaultSpec
 
@@ -1606,11 +1880,11 @@ def phase_faults(host_policies) -> dict:
     fs = _fault_spec()
     launches = {}
     for label, bank, kernels in (
-            ("CONCURRENT", {}, ("mmse_interp", "switch_select_batched", "tree_infer",
+            ("CONCURRENT", {}, ("mmse_interp_gauss", "switch_select_batched", "tree_infer",
                                 "gated_expert")),
             ("GATED fused", dict(execution_mode="gated", fused=True,
                                  gated_capacity=GATED_CAPACITY),
-             ("gated_expert", "mmse_interp", "tree_infer"))):
+             ("gated_expert", "mmse_interp_gauss", "tree_infer"))):
         base = _main_spec(**bank)
         spec = dataclasses.replace(base, n_slots=FAULT_SLOTS, faults=fs,
                                    scenario_args=(("poor_start", 2), ("poor_end", 18)),
@@ -1854,11 +2128,12 @@ def phase_topology(host_policies, main_ms: float) -> None:
     full = {"CONCURRENT": _topo_spec(),
             "GATED fused": _topo_spec(execution_mode="gated", fused=True, gated_capacity=N_UES)}
     runs = (("CONCURRENT", full["CONCURRENT"],
-             ("gated_expert", "mmse_interp", "switch_select_batched", "tree_infer")),
+             ("gated_expert", "mmse_interp_gauss", "switch_select_batched", "tree_infer")),
             ("GATED fused, capacity 16", _topo_spec(
                 execution_mode="gated", fused=True, gated_capacity=GATED_CAPACITY),
-             ("gated_expert", "mmse_interp", "tree_infer")),
-            ("GATED fused", full["GATED fused"], ("gated_expert", "mmse_interp", "tree_infer")))
+             ("gated_expert", "mmse_interp_gauss", "tree_infer")),
+            ("GATED fused", full["GATED fused"],
+             ("gated_expert", "mmse_interp_gauss", "tree_infer")))
     one = {}
     for label, spec, kernels in runs:
         sess = ArchesSession(spec, device="cuda", host_policies=host_policies)
@@ -2070,7 +2345,7 @@ def train_sampler(cfg, dev):
     from repro_torch.phy.channel import ChannelConfig, apply_channel, simulate_slot_channel
     from repro_torch.phy.estimators import ls_estimate
 
-    pilots = D.dmrs_sequence(cfg, dev)
+    pilots = D.dmrs_sequence(cfg, device=dev)
     data = torch.zeros((1, cfg.n_data_re()), dtype=torch.complex64, device=dev)
     grid = D.map_slot_grid(cfg, data, pilots)
     dmrs_idx = torch.as_tensor(cfg.dmrs_symbols, device=dev)
@@ -3301,7 +3576,7 @@ def phase_api() -> dict[str, int]:
     """The public API's kernel path: ``mmse_estimate`` (LS + Wiener) on the main
     path's slot (n_prb 106, 4 antennas, 3 DMRS symbols) for ``N_UES`` UEs'
     received grids, with the launch counts zeroed just before the call and
-    read just after it: ``mmse_interp`` must launch once; against
+    read just after it: ``mmse_interp``'s Gauss form must launch once; against
     ``use_kernel=False`` (the plain version on the card) within ``MMSE_TOL``;
     then MMSE-IRC on UE 0's grid and estimate, on the card against the CPU."""
     from repro_torch import random as jr
@@ -3318,7 +3593,7 @@ def phase_api() -> dict[str, int]:
     k1, k2 = jr.split(jr.PRNGKey(11, dev))
     shape = (N_UES, cfg.n_ant, cfg.n_sc, cfg.n_sym)
     rx = torch.complex(jr.normal(k1, shape), jr.normal(k2, shape))
-    pilots = dmrs_sequence(cfg, dev)
+    pilots = dmrs_sequence(cfg, device=dev)
     w = WienerInterpolator.build(cfg, device=dev)
     mmse_estimate(cfg, rx, pilots, w)  # first call outside the count
     torch.cuda.synchronize()
@@ -3326,7 +3601,7 @@ def phase_api() -> dict[str, int]:
     got = mmse_estimate(cfg, rx, pilots, w, use_kernel=True)
     torch.cuda.synchronize()
     launches = dict(build.launch_counts)
-    if launches["mmse_interp"] != 1 or sum(launches.values()) != 1:
+    if launches["mmse_interp_gauss"] != 1 or sum(launches.values()) != 1:
         raise AssertionError(f"api: mmse_estimate launched {launches}")
     want = mmse_estimate(cfg, rx, pilots, w, use_kernel=False)
     err = float((got - want).abs().max())
@@ -3647,18 +3922,21 @@ def main() -> int:
     phase_build()
     rows = (phase_kernels() + phase_gated_kernels() + [phase_scalar_switch()]
             + phase_lm_switch_kernels())
+    gauss_row, four_launches = phase_surface()
+    rows.insert(1, gauss_row)
     conc, conc_hist, launches = run_path(
         "main path CONCURRENT", _main_spec(),
-        ("mmse_interp", "switch_select_batched", "tree_infer", "gated_expert"))
+        ("mmse_interp_gauss", "switch_select_batched", "tree_infer", "gated_expert"))
     gated, gated_hist, gated_launches = run_path(
         "main path GATED fused", _main_spec(execution_mode="gated", fused=True,
                                             gated_capacity=GATED_CAPACITY),
-        ("gated_expert", "mmse_interp", "tree_infer"))
+        ("gated_expert", "mmse_interp_gauss", "tree_infer"))
     for label, counts in (("CONCURRENT", launches), ("GATED fused", gated_launches)):
         if counts["tree_infer"] != N_SLOTS:  # the whole decision phase in one launch
             raise AssertionError(f"{label}: {counts['tree_infer']} policy-step launches in "
                                  f"{N_SLOTS} decision slots")
     check_executed_flops(gated, gated_hist)
+    phase_runtime(conc, conc_hist)
     unfused = dataclasses.replace(
         _main_spec(execution_mode="gated", gated_capacity=GATED_CAPACITY),
         n_slots=UNFUSED_SLOTS, scenario_args=(("poor_start", 4), ("poor_end", 9)))
@@ -3705,6 +3983,7 @@ def main() -> int:
     for r in rows:
         counter = r.pop("counter", r["name"])
         source = {"gated_expert": gated_launches, "switch_gather_batched": unf_launches,
+                  "mmse_interp": four_launches,
                   "switch_select": host_launches, "switch_select_batched_bf16": lm_launches,
                   "switch_select_bf16": lm_launches}.get(r["name"], launches)
         r["launches"] = source[counter]
@@ -3722,7 +4001,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lm_train_profile()
     log(f"api: mmse_interp launches from mmse_estimate on the public path: "
-        f"{api_launches['mmse_interp']}")
+        f"{api_launches['mmse_interp_gauss']}")
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")

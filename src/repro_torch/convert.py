@@ -82,4 +82,4 @@ def device_tree_policy(feature, threshold, leaf_values,
                        device: torch.device | str = "cpu") -> DeviceTreePolicy:
     """Level-order tree tables -> a ``DeviceTreePolicy`` on ``device``."""
     return export_tree_tables(np.asarray(feature), np.asarray(threshold),
-                              np.asarray(leaf_values), device)
+                              np.asarray(leaf_values), device=device)

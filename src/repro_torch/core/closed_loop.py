@@ -85,11 +85,22 @@ def per_ue_policy(tables: Sequence, assignment,
 DevicePolicy = DeviceTreePolicy | DeviceThresholdPolicy | PerUEPolicy
 
 
-def export_tree_tables(feature, threshold, leaf_values,
+def export_tree_tables(feature, threshold, leaf_values, n_features: int | None = None,
+                       depth: int | None = None, *,
                        device: torch.device | str = "cuda") -> DeviceTreePolicy:
     """Level-order tree arrays -> a ``DeviceTreePolicy`` on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU).  ``n_features`` and ``depth``,
+    where given, are checked against the arrays: ``2**depth - 1`` nodes,
+    ``2**depth`` leaves, every node's feature in ``[0, n_features)``."""
     device = resolve_device(device)
+    feat = np.asarray(feature)
+    if depth is not None and (feat.shape != (2**depth - 1,)
+                              or np.shape(leaf_values) != (2**depth,)):
+        raise ValueError(f"a depth-{depth} tree has {2**depth - 1} nodes and {2**depth} "
+                         f"leaves, got {feat.shape} and {np.shape(leaf_values)}")
+    if n_features is not None and feat.size and not (
+            0 <= feat.min() and feat.max() < n_features):
+        raise ValueError(f"tree features {feat.tolist()} outside [0, {n_features})")
     return DeviceTreePolicy(
         feature=torch.as_tensor(np.asarray(feature, np.int32), device=device),
         threshold=torch.as_tensor(np.asarray(threshold, np.float32), device=device),

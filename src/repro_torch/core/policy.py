@@ -10,7 +10,7 @@ the host and exports its tables for the in-loop ``tree_infer`` kernel;
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -144,13 +144,18 @@ class DecisionTreePolicy:
         return tree_infer(x.to(torch.float32).contiguous(), *tables,
                           self.tree.depth).to(torch.int32)
 
+    def predict_from_kpms(self, kpms: Mapping[str, float]) -> int:
+        """The mode of the literal walk over ``kpms`` by feature name."""
+        return self(np.asarray([float(kpms[n]) for n in self.feature_names], np.float32))
+
     def to_device(self, device: torch.device | str = "cuda"):
         """Export to level-order device tables for in-loop inference, on
         ``device`` (the card unless the caller asks for the CPU)."""
         from repro_torch.core.closed_loop import export_tree_tables
 
         return export_tree_tables(self.tree.feature, self.tree.threshold,
-                                  self.tree.leaf_values, device)
+                                  self.tree.leaf_values, self.tree.n_features,
+                                  self.tree.depth, device=device)
 
 
 @dataclasses.dataclass

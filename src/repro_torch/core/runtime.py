@@ -358,11 +358,12 @@ class ArchesRuntime:
 
     @classmethod
     def from_spec(cls, spec, *, engine: Any = None, device_policy: Any = None,
-                  device: Any = "cuda") -> "ArchesRuntime":
+                  agent: E3Agent | None = None, device: Any = "cuda") -> "ArchesRuntime":
         """A closed-loop runtime from a ``CampaignSpec``: the switch config
         comes from ``spec.switch`` / ``spec.feature_names``, and what is not
         passed in (engine, exported policy) is built by an ``ArchesSession``
-        on ``device``."""
+        on ``device``.  ``agent`` receives the KPMs of a ``run_batched(...,
+        replay_telemetry=True)``."""
         if engine is None or device_policy is None:
             from repro_torch.core.session import ArchesSession
 
@@ -372,22 +373,29 @@ class ArchesRuntime:
             if device_policy is None:
                 device_policy = session.device_policy
         sw_cfg = spec.switch.to_config(spec.feature_names)
-        return cls(default_mode=sw_cfg.default_mode,
+        return cls(agent=agent, default_mode=sw_cfg.default_mode,
                    fail_safe_mode=sw_cfg.default_mode, ttl_slots=spec.switch.ttl_slots,
                    closed_loop=True, engine=engine, device_policy=device_policy,
                    switch_config=sw_cfg)
 
-    def run_batched(self, schedule, *, n_slots: int, n_ues: int, key=None,
+    def run_batched(self, schedule, *, n_slots: int, n_ues: int, key=None, ue_keys=None,
+                    replay_telemetry: bool = False,
                     provisioned_capacity: int | None = None,
                     faults=None) -> BatchedRunHistory:
         """Closed-loop batched campaign: device-decided modes in one slot loop.
-        ``provisioned_capacity`` is recorded in the history as given;
-        ``faults`` (a ``FaultSpec``) arms the degradation ladder."""
+        ``ue_keys (U, ...)`` replace the keys folded from ``key``; with
+        ``replay_telemetry=True`` the campaign's KPMs go through the agent
+        after the run (``replay_batched_telemetry``), so the dApp's
+        subscriptions see it; ``provisioned_capacity`` is recorded in the
+        history as given; ``faults`` (a ``FaultSpec``) arms the degradation
+        ladder."""
         if not self.closed_loop:
             raise RuntimeError("run_batched requires closed_loop=True")
         _, final_switch, traj = self.engine.run_closed_loop(
             schedule, self.device_policy, self.switch_config, n_slots=n_slots,
-            n_ues=n_ues, key=key, faults=faults)
+            n_ues=n_ues, key=key, ue_keys=ue_keys, faults=faults)
+        if replay_telemetry and self.agent is not None:
+            replay_batched_telemetry(self.agent, traj)
         return BatchedRunHistory.from_closed_loop(
             traj, final_switch, provisioned_capacity=provisioned_capacity)
 

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.device import resolve_device
 from repro_torch.phy.channel import CellParams, cell_params
 
 #: collectives this module issued since the last ``reset_collective_counts``:
@@ -496,17 +497,19 @@ def _rank_main(rank, fn, args, n_ranks, backend, port, device, results):
 SPAWN_TIMEOUT_S = 600.0
 
 
-def spawn_ranks(fn, n_ranks: int, args: tuple = (), *, device: str = "cpu",
+def spawn_ranks(fn, n_ranks: int, args: tuple = (), *, device: str = "cuda",
                 backend: str | None = None) -> list:
     """Run ``fn(rank, *args)`` in ``n_ranks`` spawned processes joined in one
     group (``tcp://127.0.0.1``, a free port; gloo or NCCL per
-    ``default_backend``), each with one CPU thread and, on the card, device
+    ``default_backend``), each with one CPU thread and, on the card (the
+    default; ``device="cpu"`` runs the ranks on the host), device
     ``rank % device_count``; return each rank's result, in rank order.
     ``fn`` must be importable by name (a module-level function).  Every
     process is joined before this returns or raises (at the latest after
     ``SPAWN_TIMEOUT_S``)."""
     import torch.multiprocessing as mp
 
+    device = resolve_device(device).type
     backend = backend or default_backend(n_ranks, device)
     ctx = mp.get_context("spawn")
     results = ctx.SimpleQueue()

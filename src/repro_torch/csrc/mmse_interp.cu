@@ -2,7 +2,11 @@
 // complex64 in and out, on the tensor cores in 3xTF32.
 //
 // Replaces: src/repro/kernels/mmse_interp/mmse_interp.py::mmse_interp_2d (Pallas TPU
-// kernel _mmse_interp_kernel), reached through ops.py::mmse_interp.
+// kernel _mmse_interp_kernel, both its forms), reached through ops.py::mmse_interp.
+// Called from src/repro_torch/kernels/mmse_interp/ops.py::mmse_interp:
+// mmse_interp_gauss_launch for use_gauss=True (the default, as the reference's:
+// the slot loop, the host loop and phy/estimators.py::mmse_estimate take it) and
+// mmse_interp_launch for use_gauss=False.
 //
 // What bounds it on the H100: arithmetic.  At the paper's slot (Np = 636, Nsc = 1272)
 // and the closed loop's B = 384 rows (32 UEs x 4 antennas x 3 DMRS symbols) the
@@ -10,8 +14,10 @@
 // L2) and 5.9 MB of H in and out: far above the ridge point.  On the CUDA cores that
 // is 27.8 us at 67 TFLOP/s; the earlier form of this kernel, a tiled fp32 SGEMM there,
 // took 126 us, slower than torch.matmul's complex GEMM.  In 3xTF32 the cheapest form,
-// the Gauss form, is 5.59 GFLOP of TF32 work, bound at 11.3 us by 495 TFLOP/s; this
-// kernel's 4-multiply form (below) does 7.45 GFLOP, 15.1 us at the same rate.
+// the Gauss form, is 5.59 GFLOP of TF32 work, bound at 11.3 us by 495 TFLOP/s; the
+// 4-multiply form does 7.45 GFLOP, 15.1 us at the same rate.  Both forms are here;
+// at 384 rows they take 49.9 and 50.3 us of device time (PERF.md): the staging and
+// latency bound this design, not the tensor cores.
 //
 // Design.
 //
@@ -37,11 +43,10 @@
 //   5.9e-6 (PERF.md).
 // * The complex product as one real GEMM read from the interleaved layout:
 //       [re im] (B x 2Nsc) = [Hr Hi] (B x 2Np) @ [[Wr Wi], [-Wi Wr]] (2Np x 2Nsc)
-//   (the 4-multiply form, 12 TF32 GEMM-equivalents; the Gauss form's 9 would need
-//   three planes of each operand).  A k8 step covers four complex pilots: real k slot
-//   s < 4 holds Re h[k + s] and slot s + 4 holds Im h[k + s], and the output's real
-//   column pair (2n, 2n + 1) is (re, im) of subcarrier n, so each accumulator pair is
-//   one complex output.
+//   (the 4-multiply form, 12 TF32 GEMM-equivalents).  A k8 step covers four complex
+//   pilots: real k slot s < 4 holds Re h[k + s] and slot s + 4 holds Im h[k + s], and
+//   the output's real column pair (2n, 2n + 1) is (re, im) of subcarrier n, so each
+//   accumulator pair is one complex output.
 // * wgmma: one warpgroup per block runs m64n64k8 TF32 wgmma, A (H) from registers in
 //   mma.m16n8k8's fragment layout per warp, B (W) from shared memory by descriptor
 //   (K-major, 8-row x 16-byte core matrices, no swizzle).  A form of this kernel
@@ -61,6 +66,16 @@
 //   pilot group in one fixed order, so the result is bitwise the same from run to
 //   run and does not depend on B or on the tile width (one UE's rows give the same
 //   bits alone or in a batch).
+// * The Gauss form (mmse_interp_gauss_kernel, 9 TF32 GEMM-equivalents): three real
+//   products p1 = Hr Wr, p2 = Hi Wi, p3 = (Hr + Hi)(Wr + Wi) over three planes of
+//   each operand, the sums formed in float32 before the split, each product its own
+//   wgmma chain into its own fresh accumulator per k-tile and its own float32 sum;
+//   re = p1 - p2, im = (p3 - p1) - p2 at the end.  The same staging, ring, k-tile
+//   and block width as the 4-multiply form (N subcarriers a block, one accumulator
+//   column each: m64n32k8, and m64n16k8 up to 64 rows): three accumulators and three
+//   sums (96 registers at m64n32) beside the double-buffered A fragments of three
+//   planes (96) take 244 registers, under the cap without spills, so no narrower
+//   tile was needed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,9 +132,10 @@ __device__ __forceinline__ void split(float x, float& hi, float& lo) {
 
 // Shared-memory matrix descriptor, no swizzle: start address, LBO = 128 B between
 // the two core matrices of a k8 step, SBO = the stride between 8-row groups.
+template <int KSL = KS>
 __device__ __forceinline__ uint64_t smem_desc(const float* tile) {
   const uint64_t addr = static_cast<unsigned>(__cvta_generic_to_shared(tile));
-  constexpr uint64_t lbo = 128 >> 4, sbo = (KS / 4 * 128) >> 4;
+  constexpr uint64_t lbo = 128 >> 4, sbo = (KSL / 4 * 128) >> 4;
   return ((addr & 0x3FFFF) >> 4) | (lbo << 16) | (sbo << 32);
 }
 
@@ -183,9 +199,59 @@ __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const float (&a)[
         "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(b_desc), "r"(scale_d));
 }
 
-// float offset of core-matrix row (row, 4-slot group starting at slot) in a K-major tile
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const float (&a)[4],
+                                              uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(b_desc), "r"(scale_d));
+}
+
+// float offset of core-matrix row (row, 4-slot group starting at slot) in a K-major
+// tile of KSL k slots
+template <int KSL = KS>
 __device__ __forceinline__ int core_offset(int row, int slot) {
-  return ((row / 8) * (KS / 4) + slot / 4) * 32 + (row % 8) * 4;
+  return ((row / 8) * (KSL / 4) + slot / 4) * 32 + (row % 8) * 4;
+}
+
+// Stage k-tile kt's raw complex tiles into ring stage kt % STAGES: H (BM rows from
+// row0 x BKC pilots) and W (BKC pilots x BNC subcarriers from col0), by cp.async,
+// zero-filled past every ragged edge; one commit group per tile, empty past the end.
+template <int BNC>
+__device__ __forceinline__ void load_raw(const float2* __restrict__ h,
+                                         const float2* __restrict__ w, float2* raw_a,
+                                         float2* raw_b, int kt, int kt_count, int row0,
+                                         int col0, int B, int Np, int Nsc) {
+  constexpr int RAW_B = BKC * BNC;
+  const int tid = threadIdx.x;
+  if (kt < kt_count) {
+    const int k0 = kt * BKC;
+    float2* sa = raw_a + (kt % STAGES) * RAW_A;
+#pragma unroll
+    for (int i = 0; i < BM * BKC / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int r = e / BKC, k = e % BKC;
+      const bool ok = row0 + r < B && k0 + k < Np;
+      cp_async8(sa + r * A_STRIDE + k, ok ? h + (size_t)(row0 + r) * Np + k0 + k : h,
+                ok ? 8 : 0);
+    }
+    float2* sb = raw_b + (kt % STAGES) * RAW_B;
+#pragma unroll
+    for (int i = 0; i < (RAW_B + THREADS - 1) / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      if (RAW_B % THREADS != 0 && e >= RAW_B) break;
+      const int k = k0 + e / BNC, n = col0 + e % BNC;
+      const bool ok = k < Np && n < Nsc;
+      cp_async8(sb + e, ok ? w + (size_t)k * Nsc + n : w, ok ? 8 : 0);
+    }
+  }
+  cp_async_commit();
 }
 
 template <int N>
@@ -206,28 +272,7 @@ mmse_interp_kernel(const float2* __restrict__ h, const float2* __restrict__ w,
   const int kt_count = (Np + BKC - 1) / BKC;
 
   auto load_tile = [&](int kt) {
-    if (kt < kt_count) {
-      const int k0 = kt * BKC;
-      float2* sa = raw_a + (kt % STAGES) * RAW_A;
-#pragma unroll
-      for (int i = 0; i < BM * BKC / THREADS; ++i) {
-        const int e = tid + i * THREADS;
-        const int r = e / BKC, k = e % BKC;
-        const bool ok = row0 + r < B && k0 + k < Np;
-        cp_async8(sa + r * A_STRIDE + k, ok ? h + (size_t)(row0 + r) * Np + k0 + k : h,
-                  ok ? 8 : 0);
-      }
-      float2* sb = raw_b + (kt % STAGES) * T::RAW_B;
-#pragma unroll
-      for (int i = 0; i < (T::RAW_B + THREADS - 1) / THREADS; ++i) {
-        const int e = tid + i * THREADS;
-        if (T::RAW_B % THREADS != 0 && e >= T::RAW_B) break;
-        const int k = k0 + e / BNC, n = col0 + e % BNC;
-        const bool ok = k < Np && n < Nsc;
-        cp_async8(sb + e, ok ? w + (size_t)k * Nsc + n : w, ok ? 8 : 0);
-      }
-    }
-    cp_async_commit();  // one group per tile, empty past the end
+    load_raw<BNC>(h, w, raw_a, raw_b, kt, kt_count, row0, col0, B, Np, Nsc);
   };
 
   // Tile kt, landed in the ring, as this k-tile's operands.  W becomes the real B
@@ -332,9 +377,155 @@ mmse_interp_kernel(const float2* __restrict__ h, const float2* __restrict__ w,
   }
 }
 
-template <int N>
+// The Gauss form: three real products over the same k-tile, p1 = Hr Wr, p2 = Hi Wi,
+// p3 = (Hr + Hi)(Wr + Wi), each its own m64nNCk8 wgmma chain into its own fresh
+// accumulator (NC subcarriers, one real column each), then re = p1 - p2 and
+// im = (p3 - p1) - p2 at the end, as the reference kernel writes them.  A k8 step of
+// a plane holds eight consecutive pilots (slot s: pilot k0 + 8 ks + s), so a
+// 16-pilot k-tile is two k8 steps a plane, six wgmmas a product in the 4-multiply
+// form's order (lo*hi and hi*lo of each step, then hi*hi), 18 a tile.  The sums
+// Hr + Hi and Wr + Wi are formed in float32 before the hi/lo split.
+constexpr int GK = BKC;  // k slots of one plane's k-tile
+
+template <int NC>
+struct GaussTile {
+  static constexpr int PLANE = NC * GK;  // floats per hi or lo plane tile
+  static constexpr int BUF = 6 * PLANE;  // Wr, Wi, Wr + Wi, each hi then lo
+  static constexpr int RAW_B = BKC * NC;
+  // B planes, double-buffered, then the raw ring
+  static constexpr size_t SMEM = (size_t)2 * BUF * sizeof(float) +
+                                 (size_t)STAGES * (RAW_A + RAW_B) * sizeof(float2);
+};
+
+template <int NC>
+__global__ void __launch_bounds__(THREADS)
+mmse_interp_gauss_kernel(const float2* __restrict__ h, const float2* __restrict__ w,
+                         float2* __restrict__ out, int B, int Np, int Nsc) {
+  using T = GaussTile<NC>;
+  extern __shared__ __align__(128) float smem[];
+  float* b_tiles = smem;  // [2 buffers][6 planes][NC columns][GK], core matrices
+  float2* raw_a = reinterpret_cast<float2*>(smem + 2 * T::BUF);  // [STAGES][BM][A_STRIDE]
+  float2* raw_b = raw_a + STAGES * RAW_A;                         // [STAGES][BKC][NC]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, g = (tid % 32) / 4, tig = tid % 4;
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * NC;
+  const int kt_count = (Np + BKC - 1) / BKC;
+  // per plane (Hr, Hi, Hr + Hi) and k8 step: this thread's A fragment
+  using Frag = float[3][GK / 8][4];
+
+  auto load_tile = [&](int kt) {
+    load_raw<NC>(h, w, raw_a, raw_b, kt, kt_count, row0, col0, B, Np, Nsc);
+  };
+
+  // Tile kt, landed in the ring, as this k-tile's operands: a task (n, q) splits
+  // Wr, Wi and Wr + Wi of column n over pilots 4q .. 4q + 3 and writes their six
+  // 16-byte core-matrix rows; H's fragments come from the raw tile, split here.
+  auto stage_in = [&](int kt, float* b, Frag& a_hi, Frag& a_lo) {
+    const float2* sb = raw_b + (kt % STAGES) * T::RAW_B;
+    if (tid < NC * (GK / 4)) {
+      const int n = tid % NC, q = tid / NC;
+      float v[6][4];  // Wr hi, Wr lo, Wi hi, Wi lo, (Wr + Wi) hi, lo
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 x = sb[(4 * q + j) * NC + n];
+        split(x.x, v[0][j], v[1][j]);
+        split(x.y, v[2][j], v[3][j]);
+        split(x.x + x.y, v[4][j], v[5][j]);
+      }
+      float4* dst = reinterpret_cast<float4*>(b) + core_offset<GK>(n, 4 * q) / 4;
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+        dst[p * T::PLANE / 4] = make_float4(v[p][0], v[p][1], v[p][2], v[p][3]);
+    }
+    // mma.m16n8k8's A: (row g, slot tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4)
+    const float2* sa = raw_a + (kt % STAGES) * RAW_A + (warp * 16 + g) * A_STRIDE + tig;
+#pragma unroll
+    for (int ks = 0; ks < GK / 8; ++ks) {
+      const float2 x[4] = {sa[8 * ks], sa[8 * A_STRIDE + 8 * ks], sa[8 * ks + 4],
+                           sa[8 * A_STRIDE + 8 * ks + 4]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        split(x[i].x, a_hi[0][ks][i], a_lo[0][ks][i]);
+        split(x[i].y, a_hi[1][ks][i], a_lo[1][ks][i]);
+        split(x[i].x + x[i].y, a_hi[2][ks][i], a_lo[2][ks][i]);
+      }
+    }
+    fence_async_smem();
+  };
+
+  float acc[3][NC / 2];  // this k-tile's tensor-core accumulators, p1, p2, p3
+  float sum[3][NC / 2];  // the k-tiles' float32 sums, rounded to nearest
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc[p][i] = sum[p][i] = 0.f;
+
+  auto step = [&](int kt, const float* b, const Frag& a_hi, const Frag& a_lo, float* nb,
+                  Frag& na_hi, Frag& na_lo) {
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const float* b_hi = b + 2 * p * T::PLANE;
+      const float* b_lo = b_hi + T::PLANE;
+#pragma unroll
+      for (int ks = 0; ks < GK / 8; ++ks) {
+        wgmma_tf32<NC>(acc[p], a_lo[p][ks], smem_desc<GK>(b_hi + ks * 64), ks > 0);
+        wgmma_tf32<NC>(acc[p], a_hi[p][ks], smem_desc<GK>(b_lo + ks * 64), 1);
+      }
+#pragma unroll
+      for (int ks = 0; ks < GK / 8; ++ks)
+        wgmma_tf32<NC>(acc[p], a_hi[p][ks], smem_desc<GK>(b_hi + ks * 64), 1);
+    }
+    wgmma_commit();
+    if (kt + 1 < kt_count) {
+      load_tile(kt + STAGES - 1);
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      stage_in(kt + 1, nb, na_hi, na_lo);
+    }
+    wgmma_wait();
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) sum[p][i] += acc[p][i];
+    __syncthreads();
+  };
+
+  Frag a_hi0, a_lo0, a_hi1, a_lo1;
+  float* b0 = b_tiles;
+  float* b1 = b_tiles + T::BUF;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_tile(s);
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  if (kt_count > 0) stage_in(0, b0, a_hi0, a_lo0);
+  __syncthreads();
+  for (int kt = 0; kt < kt_count; kt += 2) {
+    step(kt, b0, a_hi0, a_lo0, b1, a_hi1, a_lo1);
+    if (kt + 1 < kt_count) step(kt + 1, b1, a_hi1, a_lo1, b0, a_hi0, a_lo0);
+  }
+
+  // accumulator layout: sum[p][4 j + i] holds row warp * 16 + g (+ 8 for i >= 2),
+  // column 8 j + 2 tig (+ 1 for odd i), one subcarrier each
+  const int r = row0 + warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = col0 + 8 * j + 2 * tig + (i & 1);
+      const int row = r + (i >= 2 ? 8 : 0);
+      if (n >= Nsc || row >= B) continue;
+      const float p1 = sum[0][4 * j + i], p2 = sum[1][4 * j + i], p3 = sum[2][4 * j + i];
+      out[(size_t)row * Nsc + n] = make_float2(p1 - p2, p3 - p1 - p2);
+    }
+  }
+}
+
+// one launch of Kernel, COLS subcarriers a block
+template <auto Kernel, size_t SMEM, int COLS>
 int launch(const void* h, const void* w, void* out, int B, int Np, int Nsc, void* stream) {
-  const auto kernel = mmse_interp_kernel<N>;
   // the dynamic shared memory above 48 KB, allowed once per device (bit d: device d)
   static std::atomic<unsigned long long> allowed{0};
   int dev = 0;
@@ -342,16 +533,29 @@ int launch(const void* h, const void* w, void* out, int B, int Np, int Nsc, void
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (!(allowed.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Tile<N>::SMEM);
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     allowed.fetch_or(bit, std::memory_order_release);
   }
-  const dim3 grid((Nsc + Tile<N>::BNC - 1) / Tile<N>::BNC, (B + BM - 1) / BM);
-  kernel<<<grid, THREADS, Tile<N>::SMEM, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((Nsc + COLS - 1) / COLS, (B + BM - 1) / BM);
+  Kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(h), static_cast<const float2*>(w),
       static_cast<float2*>(out), B, Np, Nsc);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+int launch_4m(const void* h, const void* w, void* out, int B, int Np, int Nsc, void* stream) {
+  return launch<mmse_interp_kernel<N>, Tile<N>::SMEM, Tile<N>::BNC>(h, w, out, B, Np, Nsc,
+                                                                    stream);
+}
+
+template <int NC>
+int launch_gauss(const void* h, const void* w, void* out, int B, int Np, int Nsc,
+                 void* stream) {
+  return launch<mmse_interp_gauss_kernel<NC>, GaussTile<NC>::SMEM, NC>(h, w, out, B, Np,
+                                                                        Nsc, stream);
 }
 
 }  // namespace
@@ -360,6 +564,14 @@ extern "C" int mmse_interp_launch(const void* h, const void* w, void* out, int B
                                   int Np, int Nsc, void* stream) {
   if (B <= 0 || Nsc <= 0) return 0;
   // up to one 64-row tile: 16 subcarriers a block, for twice the blocks
-  if (B <= BM) return launch<32>(h, w, out, B, Np, Nsc, stream);
-  return launch<64>(h, w, out, B, Np, Nsc, stream);
+  if (B <= BM) return launch_4m<32>(h, w, out, B, Np, Nsc, stream);
+  return launch_4m<64>(h, w, out, B, Np, Nsc, stream);
+}
+
+extern "C" int mmse_interp_gauss_launch(const void* h, const void* w, void* out, int B,
+                                        int Np, int Nsc, void* stream) {
+  if (B <= 0 || Nsc <= 0) return 0;
+  // the 4-multiply form's blocks: 16 subcarriers up to one 64-row tile, else 32
+  if (B <= BM) return launch_gauss<16>(h, w, out, B, Np, Nsc, stream);
+  return launch_gauss<32>(h, w, out, B, Np, Nsc, stream);
 }

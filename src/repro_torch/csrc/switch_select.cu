@@ -9,6 +9,13 @@
 // switch_select.py::switch_gather_batched_2d (kernel _gather_kernel_batched),
 // reached through ops.py::switch_gather_batched_leaf / switch_scatter.
 //
+// Called from src/repro_torch/kernels/switch_select/ops.py, the same names:
+// switch_select_scalar_launch by switch_select_leaf and switch_select (scalar
+// mode), switch_select_launch by switch_select_batched_leaf and switch_select
+// (per-UE modes), switch_gather_launch by switch_gather_batched_leaf and
+// switch_scatter.  A pytree of outputs is switched one launch a leaf, as the
+// reference maps one pallas_call over the leaves.
+//
 // Semantics (paper 3.2): downstream always reads the designated buffer.  Mode 0
 // keeps it (the designated expert is active); mode k + 1 makes it a copy of
 // alternative k -- for the whole tensor (scalar switch) or for one UE's slice

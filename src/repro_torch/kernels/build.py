@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 #: launches per kernel since the last ``reset_launch_counts``; each wrapper
 #: adds one where it launches its kernel, and nowhere else
 launch_counts: dict[str, int] = {
-    "mmse_interp": 0, "switch_select_batched": 0, "tree_infer": 0,
+    "mmse_interp": 0, "mmse_interp_gauss": 0, "switch_select_batched": 0, "tree_infer": 0,
     "switch_gather_batched": 0, "gated_expert": 0, "switch_select": 0,
 }
 

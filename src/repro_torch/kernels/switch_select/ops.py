@@ -1,13 +1,19 @@
 """The expert switch: the wrappers of the hand-written kernels and their plain
 PyTorch versions.
 
-``switch_select(mode, outputs)`` replaces
+``switch_select(mode, outputs, designated_idx=0)`` replaces
 ``repro.kernels.switch_select.ops.switch_select``: ``outputs`` lists one
-tensor per expert, designated expert first.  With a scalar ``mode`` (a
-Python int or a 0-d tensor) the designated buffer ends up holding expert
-``mode``'s whole output (the single-UE host loop); with an ``(U,)`` vector
-every tensor carries a leading UE axis and UE ``u`` receives expert
-``modes[u]``'s slice (the batched engine).
+output per expert, designated expert first, each a tensor or a pytree of
+tensors (dicts, lists, tuples, NamedTuples) of one structure.  With a
+scalar ``mode`` (a Python int or a 0-d tensor) the designated buffer ends
+up holding expert ``mode``'s whole output (the single-UE host loop); with
+an ``(U,)`` vector every tensor carries a leading UE axis and UE ``u``
+receives expert ``modes[u]``'s slice (the batched engine).  A pytree is
+switched leaf by leaf, one launch a leaf, as the reference maps its
+``pallas_call`` over the leaves: ``switch_select_leaf`` (scalar),
+``switch_select_batched_leaf`` (per UE) and ``switch_gather_batched_leaf``
+(the scatter) are the one-leaf entries, and ``*_tree_ref`` their plain
+versions over pytrees.
 
 The per-UE switch is out of place on every device: on a CUDA tensor one
 launch of ``csrc/switch_select.cu`` writes a new tensor and leaves every
@@ -22,7 +28,7 @@ copy, so its ``all_outputs[0]`` stays unswitched).  On a CPU tensor the
 plain versions ``switch_select_ref`` (scalar) and
 ``switch_select_batched_ref`` gather into a new tensor.
 
-``switch_scatter(src, compact, designated)`` replaces
+``switch_scatter(src, compact, designated)`` (tensors or pytrees) replaces
 ``repro.kernels.switch_select.ops.switch_scatter``, the GATED bank's
 un-compaction: UE ``u`` takes row ``src[u]`` of the capacity-``K`` compact
 sub-batch when ``src[u] >= 0`` and keeps its designated (fail-safe) slice
@@ -40,7 +46,7 @@ return the same bits.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -71,6 +77,44 @@ def switch_gather_batched_ref(src: torch.Tensor, compact: torch.Tensor,
     taken = compact.index_select(0, safe)
     keep = (src < 0).reshape((-1,) + (1,) * (designated.ndim - 1))
     return torch.where(keep, designated, taken)
+
+
+def _tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the tensor leaves of ``tree`` and the same leaves of
+    ``rest``: nested dicts, lists, tuples and NamedTuples of tensors, or a
+    bare tensor.  Structures that differ raise ``ValueError``, as
+    ``jax.tree.map`` does."""
+    if isinstance(tree, torch.Tensor):
+        if not all(isinstance(r, torch.Tensor) for r in rest):
+            raise ValueError("pytree structures differ: a tensor against a node")
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        if any(not isinstance(r, dict) or r.keys() != tree.keys() for r in rest):
+            raise ValueError(f"pytree structures differ at a dict of keys {sorted(tree)}")
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if any(type(r) is not type(tree) or len(r) != len(tree) for r in rest):
+            raise ValueError(f"pytree structures differ at a {type(tree).__name__} "
+                             f"of {len(tree)}")
+        leaves = [_tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else type(tree)(leaves)
+    raise TypeError(f"switch outputs take tensors, dicts, lists and tuples, "
+                    f"not {type(tree).__name__}")
+
+
+def switch_select_tree_ref(mode, outputs: Sequence[Any]) -> Any:
+    """Plain version over per-expert pytrees: expert ``mode``'s output."""
+    return _tree_map(lambda *leaves: switch_select_ref(mode, leaves), *outputs)
+
+
+def switch_select_batched_tree_ref(modes: torch.Tensor, outputs: Sequence[Any]) -> Any:
+    """Per-UE plain version over per-expert pytrees with a leading UE axis."""
+    return _tree_map(lambda *leaves: switch_select_batched_ref(modes, leaves), *outputs)
+
+
+def switch_gather_batched_tree_ref(src: torch.Tensor, compact: Any, designated: Any) -> Any:
+    """``switch_gather_batched_ref`` over per-expert pytrees, leaf by leaf."""
+    return _tree_map(lambda c, d: switch_gather_batched_ref(src, c, d), compact, designated)
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -143,23 +187,49 @@ def _scalar_mode(mode, designated: torch.Tensor) -> int | torch.Tensor:
     raise TypeError(f"mode must be an int or a tensor, got {type(mode).__name__}")
 
 
-def switch_select(mode: int | torch.Tensor,
-                  outputs: Sequence[torch.Tensor]) -> torch.Tensor:
+def switch_select(mode: int | torch.Tensor, outputs: Sequence[Any],
+                  designated_idx: int = 0) -> Any:
     """Zero-gap switch over a designated-first list of expert outputs.
 
     ``mode`` is a scalar (Python int, or a 0-d tensor) selecting one whole
     output, or an ``(U,)`` int32 vector selecting per UE along the leading
     axis.  A scalar mode returns the designated tensor, switched in place,
     on the card, and a new tensor on the CPU; a mode vector returns a new
-    tensor on every device.
+    tensor on every device.  Pytree outputs are switched leaf by leaf, one
+    launch a leaf.  ``designated_idx`` must be 0, as in the reference (the
+    bank puts the designated expert first).
 
     The host loop calls this once a slot with an int mode and the batched
     engine once a slot with a mode vector, so both card paths are kept
     lean: each tensor is checked once, cheapest check first, and the launch
     passes ``data_ptr()`` ints and the raw stream.
     """
-    if isinstance(mode, torch.Tensor) and mode.ndim == 1:
+    if designated_idx != 0:
+        raise ValueError("bank must place the designated expert first")
+    batched = isinstance(mode, torch.Tensor) and mode.ndim == 1
+    if not isinstance(outputs[0], torch.Tensor):
+        leaf = switch_select_batched_leaf if batched else switch_select_leaf
+        return _tree_map(lambda d, *alts: leaf(mode, alts, d), *outputs)
+    if batched:
         return _switch_batched(mode, outputs)
+    return _switch_scalar(mode, outputs)
+
+
+def switch_select_leaf(mode: int | torch.Tensor, alternatives: Sequence[torch.Tensor],
+                       designated: torch.Tensor) -> torch.Tensor:
+    """The scalar switch of one leaf: ``mode`` 0 keeps ``designated``, ``k``
+    takes ``alternatives[k - 1]``; in place in ``designated`` on the card."""
+    return _switch_scalar(mode, [designated, *alternatives])
+
+
+def switch_select_batched_leaf(modes: torch.Tensor, alternatives: Sequence[torch.Tensor],
+                               designated: torch.Tensor) -> torch.Tensor:
+    """The per-UE switch of one leaf with a leading UE axis, out of place."""
+    return _switch_batched(modes, [designated, *alternatives])
+
+
+def _switch_scalar(mode: int | torch.Tensor, outputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The scalar switch of one tensor, in place in the designated one on the card."""
     designated, *alternatives = outputs
     if not alternatives:
         raise ValueError("the switch needs at least two expert outputs")
@@ -279,17 +349,18 @@ def _scatter_plan(src: torch.Tensor, compact: torch.Tensor, designated: torch.Te
     return known
 
 
-def switch_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.Tensor,
-                   *, backend: str = "auto") -> torch.Tensor:
+def switch_scatter(src: torch.Tensor, compact: Any, designated: Any, *,
+                   backend: str = "auto") -> Any:
     """Scatter a dense capacity-``K`` sub-batch back over the full UE batch.
 
     ``src (U,)`` int32 names each UE's compact row (negative keeps the
     designated buffer); ``compact (K, ...)`` and ``designated (U, ...)``
-    share their trailing shape, dtype and device, with ``K >= 1``.
+    share their trailing shape, dtype and device, with ``K >= 1``; both may
+    be pytrees of one structure, scattered leaf by leaf, one launch a leaf.
     ``backend`` takes the reference's values: ``"ref"`` is the plain version
     on any device; ``"auto"``, ``"pallas"`` and ``"cuda"`` launch the kernel
     on a CUDA tensor and take the plain version on a CPU tensor.  Either way
-    the result is a new tensor and the inputs are left as they were.
+    the result is new and the inputs are left as they were.
 
     The unfused GATED bank calls this once a slot, so the card path is lean,
     as the per-UE switch's is: a signature is validated once
@@ -298,9 +369,29 @@ def switch_scatter(src: torch.Tensor, compact: torch.Tensor, designated: torch.T
     """
     if backend not in _BACKENDS:
         raise ValueError(f"unknown switch_scatter backend {backend!r}; one of {_BACKENDS}")
+    if not isinstance(designated, torch.Tensor):
+        if backend == "ref":
+            return switch_gather_batched_tree_ref(src, compact, designated)
+        return _tree_map(lambda c, d: switch_gather_batched_leaf(src, c, d),
+                         compact, designated)
     if backend == "ref" or not designated.is_cuda:
         _check_scatter(src, compact, designated)
         return switch_gather_batched_ref(src, compact, designated)
+    return _scatter_launch(src, compact, designated)
+
+
+def switch_gather_batched_leaf(src: torch.Tensor, compact: torch.Tensor,
+                               designated: torch.Tensor) -> torch.Tensor:
+    """The scatter of one leaf: the kernel on a CUDA tensor, the plain
+    version on a CPU tensor; a new tensor either way."""
+    if not designated.is_cuda:
+        _check_scatter(src, compact, designated)
+        return switch_gather_batched_ref(src, compact, designated)
+    return _scatter_launch(src, compact, designated)
+
+
+def _scatter_launch(src: torch.Tensor, compact: torch.Tensor,
+                    designated: torch.Tensor) -> torch.Tensor:
     row_bytes, fn = _scatter_plan(src, compact, designated, lambda: build.function(
         "switch_select", "switch_gather_launch", _GATHER_ARGS))
     out = build.unfilled(torch.empty_like, designated)

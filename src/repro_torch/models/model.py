@@ -61,8 +61,8 @@ class Model:
         for the CPU)."""
         return D.init_cache(self.cfg, batch, max_seq, dtype, device)
 
-    def prefill(self, params, tokens, cache, *, encoder_frames=None):
-        return D.prefill(self.cfg, params, tokens, cache, encoder_frames=encoder_frames)
+    def prefill(self, params, tokens, cache, **kw):
+        return D.prefill(self.cfg, params, tokens, cache, **kw)
 
     def decode_step(self, params, tokens, cache):
         return D.decode_step(self.cfg, params, tokens, cache)

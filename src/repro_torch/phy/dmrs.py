@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.device import cached_const
+from repro_torch.device import cached_const, resolve_device
 from repro_torch.phy.nr import SlotConfig
 
 
@@ -44,8 +44,12 @@ def dmrs_sequence_np(cfg: SlotConfig, slot: int = 0, cell_id: int = 42) -> np.nd
     return np.stack(seqs).astype(np.complex64)
 
 
-def dmrs_sequence(cfg: SlotConfig, device: torch.device | str = "cpu") -> torch.Tensor:
-    return torch.as_tensor(dmrs_sequence_np(cfg), device=device)
+def dmrs_sequence(cfg: SlotConfig, *, slot: int = 0, cell_id: int = 42,
+                  device: torch.device | str = "cuda") -> torch.Tensor:
+    """QPSK DMRS symbols of ``slot`` in cell ``cell_id``, (n_dmrs_sym,
+    n_pilot_sc) complex64 on ``device`` (the card unless the caller asks for
+    the CPU), bitwise ``repro.phy.dmrs.dmrs_sequence``."""
+    return torch.as_tensor(dmrs_sequence_np(cfg, slot, cell_id), device=resolve_device(device))
 
 
 @functools.lru_cache(maxsize=None)

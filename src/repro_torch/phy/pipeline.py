@@ -155,7 +155,7 @@ class PuschPipeline:
         self.ai_params = _params_to(ai_params, self.device)
         self.interpolator = WienerInterpolator.build(
             cfg, rms_delay_spread_s=rms_delay_spread_s, device=self.device)
-        self._pilots = dmrs_mod.dmrs_sequence(cfg, self.device)
+        self._pilots = dmrs_mod.dmrs_sequence(cfg, device=self.device)
         self.bank = ExpertBank(
             [
                 Expert(name="ai", fn=ai_estimate_from_ls, params=self.ai_params,
@@ -453,7 +453,7 @@ class BatchedPuschPipeline:
         self.ai_params = ai_params
         self.interpolator = WienerInterpolator.build(
             cfg, rms_delay_spread_s=rms_delay_spread_s, device=dev)
-        self._pilots = dmrs_mod.dmrs_sequence(cfg, dev)
+        self._pilots = dmrs_mod.dmrs_sequence(cfg, device=dev)
         n_re = cfg.n_data_re()
         self._tbs_table = torch.as_tensor(tbs_table(n_re), device=dev)
         self._ncb_table = torch.as_tensor(n_code_blocks_table(n_re), device=dev)
@@ -722,6 +722,12 @@ class BatchedPuschPipeline:
                 lambda x: torch.where(_rows(active, x), x, torch.zeros_like(x)), outputs)
         return new_link, outputs
 
+    def slot_step(self, profile: TdlProfile, link: DeviceLinkState, modes: torch.Tensor,
+                  keys: torch.Tensor, p: ChannelParams):
+        """One multi-UE slot: ``modes`` and ``keys`` carry the UE axis, ``p``
+        is the slot's channel parameters.  Returns ``(link, outputs)``."""
+        return self._slot_core(profile, link, modes, keys, p)
+
     def _ue_keys(self, key, ue_keys, n_ues: int) -> torch.Tensor:
         if ue_keys is not None:
             ue_keys = jr.as_key(ue_keys, self.device)
@@ -738,12 +744,17 @@ class BatchedPuschPipeline:
         """The open loop over ``modes (S, U)``: slot ``s`` folds the global
         slot index ``slot0 + s`` into every UE's key.  ``active``, ``faults``,
         ``corrupt (S, U)`` and ``cells`` as in ``_slot_core``."""
+        plain = active is None and faults is None and cells is None
         outs = []
         for s in range(modes.shape[0]):
-            link, out = self._slot_core(
-                profile, link, modes[s], jr.fold_in(ue_keys, slot0 + s), params.at(s),
-                active=active, faults=faults,
-                corrupt=None if corrupt is None else corrupt[s], cells=cells)
+            keys = jr.fold_in(ue_keys, slot0 + s)
+            if plain:  # the public one-slot step, as the reference's use_scan=False loop
+                link, out = self.slot_step(profile, link, modes[s], keys, params.at(s))
+            else:
+                link, out = self._slot_core(
+                    profile, link, modes[s], keys, params.at(s), active=active,
+                    faults=faults, corrupt=None if corrupt is None else corrupt[s],
+                    cells=cells)
             outs.append(out)
         return link, _stack_tree(outs)
 

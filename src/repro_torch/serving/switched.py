@@ -40,6 +40,8 @@ from repro_torch.models.model import Model
 class SwitchedDecodeConfig:
     window: int = 512  # windowed expert's attention span
     execution_mode: ExecutionMode = ExecutionMode.CONCURRENT
+    # False: the bank's plain switch on any device (the oracle path)
+    use_pallas_switch: bool = True
 
 
 def _kv_bytes(cfg, positions: int) -> float:
@@ -73,6 +75,7 @@ class SwitchedDecoder:
              Expert(name="windowed", fn=win_fn, bytes_hbm=_kv_bytes(model.cfg, sw.window))],
             default_mode=1,
             execution_mode=sw.execution_mode,
+            use_pallas_switch=sw.use_pallas_switch,
         )
 
     def _mode(self, mode, device) -> int | torch.Tensor:

@@ -50,7 +50,7 @@ def test_cuda_policy_step_armed_vs_plain(cuda, hyst, period, ttl):
     rng = np.random.default_rng(10 * hyst + ttl)
     n_ues, n_feat, n_slots = 32, len(SELECTED_KPMS), 200
     faults = FaultSpec(breaker_trips=2, breaker_window=4, breaker_cooldown=3)
-    pol = tcl.export_tree_tables([5, 1, 3], [0.1, -0.2, 0.3], [1.0, 0.0, 0.0, 1.0], cuda)
+    pol = tcl.export_tree_tables([5, 1, 3], [0.1, -0.2, 0.3], [1.0, 0.0, 0.0, 1.0], device=cuda)
     cfg = tcl.SwitchConfig(feature_names=SELECTED_KPMS, window_slots=8,
                            hysteresis_slots=hyst, period_slots=period, ttl_slots=ttl)
     shift = np.where((np.arange(n_slots) // 7) % 2 == 0, -1.0, 1.0)[:, None, None]
@@ -95,7 +95,7 @@ def test_cuda_policy_step_null_masks_is_the_fault_free_step(cuda):
 
     g = torch.Generator(device=cuda).manual_seed(3)
     n_ues, n_feat = 32, len(SELECTED_KPMS)
-    pol = tcl.export_tree_tables([5, 1, 3], [0.1, -0.2, 0.3], [1.0, 0.0, 0.0, 1.0], cuda)
+    pol = tcl.export_tree_tables([5, 1, 3], [0.1, -0.2, 0.3], [1.0, 0.0, 0.0, 1.0], device=cuda)
     cfg = tcl.SwitchConfig(feature_names=SELECTED_KPMS, window_slots=8)
     state = ref = tcl.init_device_switch(n_ues, n_feat, cfg, cuda)
     for s in range(40):

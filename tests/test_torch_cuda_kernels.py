@@ -49,10 +49,10 @@ def test_cuda_mmse_interp_vs_plain(cuda, n_prb, batch):
     w = WienerInterpolator.build(SlotConfig(n_prb=n_prb), device=cuda).w
     h = torch.complex(torch.randn(batch, w.shape[0], generator=g, device=cuda),
                       torch.randn(batch, w.shape[0], generator=g, device=cuda))
-    before = build.launch_counts["mmse_interp"]
+    before = build.launch_counts["mmse_interp_gauss"]
     got = mmse_interp(h, w)
     torch.cuda.synchronize()
-    assert build.launch_counts["mmse_interp"] == before + 1
+    assert build.launch_counts["mmse_interp_gauss"] == before + 1
     torch.testing.assert_close(got, mmse_interp_ref(h, w), rtol=0, atol=MMSE_ATOL)
     assert torch.equal(mmse_interp(h, w), got)
 
@@ -172,7 +172,7 @@ def test_cuda_policy_step_vs_plain(cuda, hyst, period, depth):
     n_ues, n_feat, window = 32, len(SELECTED_KPMS), 8
     feature, threshold, leaves = _random_tree(rng, depth, n_feat)
     leaves = leaves % 2
-    pol = tcl.export_tree_tables(feature, threshold * 0.3, leaves, cuda)
+    pol = tcl.export_tree_tables(feature, threshold * 0.3, leaves, device=cuda)
     cfg = tcl.SwitchConfig(feature_names=SELECTED_KPMS, window_slots=window,
                            hysteresis_slots=hyst, period_slots=period)
     shift = np.where((np.arange(200) // 7) % 2 == 0, -1.0, 1.0)[:, None, None]
@@ -263,7 +263,7 @@ def test_cuda_closed_loop_equals_host_replay(cuda):
     sess = ArchesSession(spec, device=cuda)
     build.reset_launch_counts()
     hist = sess.run()
-    for name in ("mmse_interp", "switch_select_batched", "tree_infer"):
+    for name in ("mmse_interp_gauss", "switch_select_batched", "tree_infer"):
         assert build.launch_counts[name] > 0, build.launch_counts
     np.testing.assert_array_equal(hist.modes, sess.host_replay(hist)["active_mode"])
 
@@ -511,7 +511,7 @@ def test_cuda_gated_closed_loop_equals_host_replay(cuda, fused):
     build.reset_launch_counts()
     hist = sess.run()
     kernel = "gated_expert" if fused else "switch_gather_batched"
-    assert build.launch_counts["mmse_interp"] == 9, build.launch_counts
+    assert build.launch_counts["mmse_interp_gauss"] == 9, build.launch_counts
     assert build.launch_counts["switch_select_batched"] == 0, build.launch_counts
     # the compact sub-batch has a static capacity: one launch every slot
     assert build.launch_counts[kernel] == 9, build.launch_counts
@@ -649,7 +649,7 @@ def test_cuda_host_slot_keeps_ai_estimate_unswitched(cuda):
         _, out, kpms = pipe.run_slot(jr.PRNGKey(3, cuda), mode, LinkState(), GOOD)
         torch.cuda.synchronize()
         assert build.launch_counts["switch_select"] == 1, build.launch_counts
-        assert build.launch_counts["mmse_interp"] == 1, build.launch_counts
+        assert build.launch_counts["mmse_interp_gauss"] == 1, build.launch_counts
         ai, mmse = out["rx"]["all_outputs"]
         sel = out["rx"]["h_selected"]
         assert torch.equal(sel, (ai, mmse)[mode])

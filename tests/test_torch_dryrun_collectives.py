@@ -91,7 +91,7 @@ def _ranks(rank):
 @pytest.fixture(scope="module")
 def gloo_counts():
     """Every rank's counts: the same on each (SPMD)."""
-    return ttopo.spawn_ranks(_ranks, 4)
+    return ttopo.spawn_ranks(_ranks, 4, device="cpu")
 
 
 @pytest.mark.parametrize("arch,cell", RUNS, ids=[f"{a}-{c.kind}" for a, c in RUNS])

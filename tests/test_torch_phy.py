@@ -55,7 +55,7 @@ def test_slot_config_and_dmrs_bitwise():
         assert getattr(CFG, f) == getattr(RCFG, f)
     assert CFG.n_data_re() == RCFG.n_data_re()
     np.testing.assert_array_equal(CFG.pilot_sc_indices, RCFG.pilot_sc_indices)
-    np.testing.assert_array_equal(tdmrs.dmrs_sequence(CFG).numpy(),
+    np.testing.assert_array_equal(tdmrs.dmrs_sequence(CFG, device="cpu").numpy(),
                                   np.asarray(rdmrs.dmrs_sequence(RCFG)))
 
 
@@ -63,7 +63,7 @@ def test_grid_map_and_extract_bitwise(rng):
     pilots = rdmrs.dmrs_sequence(RCFG)
     data = _cplx(rng, (3, CFG.n_data_re()))
     want = jax.vmap(lambda d: rdmrs.map_slot_grid(RCFG, d, pilots))(jnp.asarray(data))
-    got = tdmrs.map_slot_grid(CFG, _t(data), tdmrs.dmrs_sequence(CFG))
+    got = tdmrs.map_slot_grid(CFG, _t(data), tdmrs.dmrs_sequence(CFG, device="cpu"))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     grid = _cplx(rng, (3, 4, CFG.n_sc, CFG.n_sym))
     np.testing.assert_array_equal(tdmrs.extract_data_re(CFG, _t(grid)).numpy(),
@@ -172,7 +172,7 @@ def test_ls_estimate_and_wiener_w(rng):
     pilots = rdmrs.dmrs_sequence(RCFG)
     rx = _cplx(rng, (3, 4, CFG.n_sc, CFG.n_sym))
     want = jax.vmap(lambda g: rest.ls_estimate(RCFG, g, pilots))(jnp.asarray(rx))
-    got = test_.ls_estimate(CFG, _t(rx), tdmrs.dmrs_sequence(CFG))
+    got = test_.ls_estimate(CFG, _t(rx), tdmrs.dmrs_sequence(CFG, device="cpu"))
     # |pilot|^2 = 1 (+1e-12): complex-by-real division, a 1-ulp rounding at most
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-7, atol=1e-7)
     for spread in (30e-9, 100e-9):

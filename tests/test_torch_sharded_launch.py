@@ -48,7 +48,7 @@ def _leaves(directory):
 
 def test_sharded_launch_restarts_bitwise():
     with tempfile.TemporaryDirectory() as resumed, tempfile.TemporaryDirectory() as whole:
-        runs = ttopo.spawn_ranks(_launches, 4, (resumed, whole))
+        runs = ttopo.spawn_ranks(_launches, 4, (resumed, whole), device="cpu")
         assert all(r == runs[0] for r in runs)  # every rank sees the same replicated losses
         first, after_first, second, straight = runs[0]
         assert after_first == ["step_00000002", "step_00000003"]

@@ -331,7 +331,7 @@ def reference(cases):
 
 @pytest.fixture(scope="module")
 def sharded(reference):
-    return ttopo.spawn_ranks(_rank, 4, (MESH,))[0]
+    return ttopo.spawn_ranks(_rank, 4, (MESH,), device="cpu")[0]
 
 
 @pytest.fixture(scope="module")

@@ -30,7 +30,7 @@ def reference(cases):  # noqa: F811
 
 @pytest.fixture(scope="module")
 def sharded(reference):
-    return ttopo.spawn_ranks(base._rank, 4, (MESH, False))[0]
+    return ttopo.spawn_ranks(base._rank, 4, (MESH, False), device="cpu")[0]
 
 
 @pytest.fixture(scope="module")

@@ -177,18 +177,19 @@ def one_shard(reference):
 def two_ranks(reference):
     with tempfile.TemporaryDirectory() as d:
         return ttopo.spawn_ranks(
-            _rank, 2, (("closed", "open", "stream", "stream_resumed", "overflow"), d))
+            _rank, 2, (("closed", "open", "stream", "stream_resumed", "overflow"), d),
+            device="cpu")
 
 
 @pytest.fixture(scope="module")
 def four_ranks(reference):
-    return ttopo.spawn_ranks(_rank, 4, (("closed",),))
+    return ttopo.spawn_ranks(_rank, 4, (("closed",),), device="cpu")
 
 
 @pytest.fixture(scope="module")
 def three_ranks(reference):
     # 8 UEs resolve to 2 shards on 3 ranks: rank 2 holds no UEs
-    return ttopo.spawn_ranks(_rank, 3, (("closed", "stream"),))
+    return ttopo.spawn_ranks(_rank, 3, (("closed", "stream"),), device="cpu")
 
 
 def test_one_shard_issues_no_collective(one_shard):
