@@ -1,0 +1,164 @@
+"""Key-based threefry2x32 generator (``jax.random`` with partitionable
+threefry), in plain torch integer ops: a frozen copy of the port's
+generator, so the reference draws a campaign's channels, bits and CRC
+outcomes from the same seed as the program under test:
+
+* a key is an ``int64`` tensor whose last axis holds the two 32-bit words
+  (``(..., 2)``); every function is vectorised over the leading key axes, so
+  one call draws for all UEs of a slot at once;
+* ``split``/``fold_in``/``bits``/``uniform``/``bernoulli`` are bitwise equal
+  to ``jax.random``; ``normal`` applies XLA's float32 ``erf_inv``
+  polynomial and matches to within a few ulp (``log1p`` and the final
+  multiply round differently across libraries);
+* raw key arithmetic (``key + 1`` on a ``uint32`` key in the reference) is
+  ``add(key, 1)`` here.
+
+32-bit words live in ``int64`` so additions, shifts and rotations never hit
+signed overflow on either device; every result is masked back to 32 bits.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & MASK
+
+
+def threefry2x32(k1, k2, x1, x2) -> tuple[torch.Tensor, torch.Tensor]:
+    """The threefry2x32 hash (20 rounds) on broadcastable ``int64`` words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x1 + ks[0]) & MASK
+    b = (x2 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & MASK
+            b = _rotl(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & MASK
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return a, b
+
+
+def PRNGKey(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 64-bit types off, as the reference
+    runs: the seed is taken as a 32-bit integer, so the words are
+    ``(0, seed mod 2**32)``."""
+    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64, device=device)
+
+
+
+
+def add(key: torch.Tensor, n: int) -> torch.Tensor:
+    """Raw ``uint32`` key arithmetic: the reference's ``key + n``."""
+    return (key + n) & MASK
+
+
+def _words(key: torch.Tensor, ndim: int):
+    """Split ``key (..., 2)`` into its words, broadcastable over ``ndim``
+    trailing sample axes."""
+    shape = key.shape[:-1] + (1,) * ndim
+    return key[..., 0].reshape(shape), key[..., 1].reshape(shape)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``(..., 2)`` -> ``(..., num, 2)``."""
+    k1, k2 = _words(key, 1)
+    counts = torch.arange(num, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(counts), counts)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``; ``data`` broadcasts against the key's
+    leading axes (a single key folded with an ``(n,)`` vector gives
+    ``(n, 2)`` keys, as ``vmap(fold_in, (None, 0))`` does)."""
+    if isinstance(data, int):
+        data = torch.full((), data, dtype=torch.int64, device=key.device)
+    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK
+    k1, k2 = key[..., 0], key[..., 1]
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(data), data)
+    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
+
+
+def bits(key: torch.Tensor, shape: tuple[int, ...], *, offset: int = 0) -> torch.Tensor:
+    """32 random bits per element: ``(..., 2)`` keys -> ``(..., *shape)``
+    ``int64`` values in ``[0, 2**32)`` (``jax.random.bits``).
+
+    An element's bits depend only on the key and its flat index, so
+    ``offset`` draws the flat elements ``[offset, offset + prod(shape))`` of
+    a larger draw: a big tensor can be drawn in chunks with its bits."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=key.device).reshape(shape)
+    k1, k2 = _words(key, len(shape))
+    b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
+    return b1 ^ b2
+
+
+def uniform(
+    key: torch.Tensor,
+    shape: tuple[int, ...] = (),
+    minval: float = 0.0,
+    maxval: float = 1.0,
+    *,
+    offset: int = 0,
+) -> torch.Tensor:
+    """float32 uniforms on ``[minval, maxval)`` (``jax.random.uniform``);
+    ``offset`` as in ``bits``."""
+    b = bits(key, shape, offset=offset)
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+# XLA's single-precision erf_inv (Giles' approximation), coefficients in the
+# order the Horner recurrence consumes them.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function, XLA's polynomial (not ``torch.erfinv``)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = None
+    for c_lt, c_ge in zip(_ERFINV_LT5, _ERFINV_GE5):
+        c = torch.where(lt, c_lt, c_ge)  # Python floats: float32, no upload
+        p = c if p is None else c + p * w
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * float("inf"), out)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: torch.Tensor, shape: tuple[int, ...] = (), *,
+           offset: int = 0) -> torch.Tensor:
+    """float32 standard normals (``jax.random.normal``); ``offset`` as in
+    ``bits``."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, offset=offset)
+    return _SQRT2_F32 * erf_inv(u)
+
+
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: tuple[int, ...]) -> torch.Tensor:
+    """Boolean draws with mean ``p`` (``jax.random.bernoulli``, mode 'low')."""
+    return uniform(key, shape) < torch.full((), p, dtype=torch.float32,
+                                            device=key.device)
