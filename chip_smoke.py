@@ -193,9 +193,9 @@ Phases, each of which raises on failure (exit code != 0):
     profiler session slows
     every later launch on the host, so it runs after the timed paths);
 14. profile: one more run of each closed loop and of the host loop under
-    ``torch.profiler``: the device's busy share, the launches per slot,
-    the AI expert's device time per slot (on the fused GATED bank also
-    launch by launch, by the UEs each slot served), and kernel time by name;
+    ``torch.profiler``: the launches per slot, the AI expert's device time
+    per slot (on the fused GATED bank also launch by launch, by the UEs each
+    slot served), and kernel time by name;
     then one training step: the kernels cuDNN runs for the convolutions'
     forward and backward under deterministic algorithms; then one decode
     step and one switched step of the full-width decoder, by kernel; then
@@ -3873,9 +3873,9 @@ def phase_device_alone() -> None:
 
 def phase_profile(sess, label: str, ai_kernels: tuple[str, ...],
                   per_launch: bool = False) -> None:
-    """One more ``run()`` of a session under ``torch.profiler``: device busy
-    share, the launches per slot, the AI expert's device time per slot
-    (kernels whose name holds one of ``ai_kernels``) and kernel time by name.
+    """One more ``run()`` of a session under ``torch.profiler``: the launches
+    per slot, the AI expert's device time per slot (kernels whose name holds
+    one of ``ai_kernels``) and kernel time by name.
     With ``per_launch`` (a GATED bank: one AI launch a slot) the AI kernel's
     device time launch by launch, grouped by the UEs its slot served."""
     from torch.profiler import ProfilerActivity, profile
@@ -3887,13 +3887,11 @@ def phase_profile(sess, label: str, ai_kernels: tuple[str, ...],
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
     launches = sum(e.count for e in events)
     ai = [e for e in events if any(k in e.key.lower() for k in ai_kernels)]
     ai_ms = sum(e.self_device_time_total for e in ai) / 1e3
     n_slots = sess.spec.n_slots
-    log(f"profile {label}: loop wall {wall:.3f} s (under the profiler), device "
-        f"kernel time {busy:.3f} s, device busy share {busy / wall:.4f}, "
+    log(f"profile {label}: loop wall {wall:.3f} s (under the profiler), "
         f"{launches / n_slots:.0f} kernel launches per slot; AI expert ({ai_kernels}, "
         f"{sum(e.count for e in ai)} calls) {ai_ms / n_slots:.3f} ms of device time per slot")
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)

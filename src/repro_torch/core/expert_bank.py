@@ -36,6 +36,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import cached_const
 from repro_torch.ue_reduce import ue_sum
 from repro_torch.kernels.switch_select import (
@@ -179,6 +180,8 @@ class ExpertBank:
         self.gated_fused_apply = gated_fused_apply
         #: optional in-loop NMSE audit of the gated expert (GATED only)
         self.audit_threshold = audit_threshold
+        #: each expert's span (``bank.<name>``, ``repro_torch.tracing``)
+        self._span_names = tuple(f"bank.{e.name}" for e in self.experts)
 
     @property
     def n_experts(self) -> int:
@@ -211,13 +214,20 @@ class ExpertBank:
     def _host_counts(self, counts) -> torch.Tensor:
         return torch.as_tensor(np.asarray(counts, np.int32))
 
+    def _expert(self, i: int, *inputs):
+        """Expert ``i`` on ``inputs``, under its span."""
+        e = self.experts[i]
+        with tracing.span(self._span_names[i]):
+            return e.fn(e.params, *inputs)
+
     def _run_concurrent(self, mode, batched: bool, *inputs) -> BankOutput:
-        outputs = tuple(e.fn(e.params, *inputs) for e in self.experts)
+        outputs = tuple(self._expert(i, *inputs) for i in range(self.n_experts))
         if batched:
-            if self.use_pallas_switch:
-                selected = switch_select(mode, list(outputs))
-            else:
-                selected = switch_select_batched_ref(mode, list(outputs))
+            with tracing.span("bank.switch"):
+                if self.use_pallas_switch:
+                    selected = switch_select(mode, list(outputs))
+                else:
+                    selected = switch_select_batched_ref(mode, list(outputs))
             n_ues = mode.shape[0]
             return BankOutput(
                 selected=selected, all_outputs=outputs, mode=mode, served_by=mode,
@@ -264,34 +274,41 @@ class ExpertBank:
         dev = mode.device
         capacity = n_ues if self.gated_capacity is None else min(self.gated_capacity, n_ues)
 
-        is_gated = mode == 0
-        pos = torch.cumsum(is_gated.to(torch.int32), 0, dtype=torch.int32) - 1
-        within = is_gated & (pos < capacity)
-        overflow = is_gated & ~within
-        src = torch.where(within, pos, torch.full_like(pos, -1))
-        # overflow UEs fall back to the fail-safe expert for this slot
-        eff_mode = torch.where(overflow, torch.full_like(mode, self.default_mode), mode)
+        with tracing.span("bank.switch"):
+            is_gated = mode == 0
+            pos = torch.cumsum(is_gated.to(torch.int32), 0, dtype=torch.int32) - 1
+            within = is_gated & (pos < capacity)
+            overflow = is_gated & ~within
+            src = torch.where(within, pos, torch.full_like(pos, -1))
+            # overflow UEs fall back to the fail-safe expert for this slot
+            eff_mode = torch.where(overflow, torch.full_like(mode, self.default_mode), mode)
 
         # cheap experts run densely on all UEs
-        alt_outputs = [e.fn(e.params, *inputs) for e in self.experts[1:]]
+        alt_outputs = [self._expert(i, *inputs) for i in range(1, self.n_experts)]
         if len(alt_outputs) == 1:
             base = alt_outputs[0]
         else:
             # values at gated UEs are placeholders (overwritten below)
-            base = switch_select_batched_ref(torch.clamp(eff_mode, min=1) - 1, alt_outputs)
+            with tracing.span("bank.switch"):
+                base = switch_select_batched_ref(torch.clamp(eff_mode, min=1) - 1,
+                                                 alt_outputs)
 
         if capacity > 0:
-            order = torch.argsort((~is_gated).to(torch.int32), stable=True)
-            idx = order[:capacity].to(torch.int32)
+            with tracing.span("bank.switch"):
+                order = torch.argsort((~is_gated).to(torch.int32), stable=True)
+                idx = order[:capacity].to(torch.int32)
             if self.gated_fused_apply is not None:
-                selected = self.gated_fused_apply(idx, src, base, *inputs)
+                # gather, the designated expert and the scatter in one launch
+                with tracing.span(self._span_names[0]):
+                    selected = self.gated_fused_apply(idx, src, base, *inputs)
             else:
-                compact_inputs = [x.index_select(0, idx.to(torch.int64)) for x in inputs]
-                gated = self.experts[0]
-                compact_out = gated.fn(gated.params, *compact_inputs)
-                selected = switch_scatter(
-                    src, compact_out, base,
-                    backend="auto" if self.use_pallas_switch else "ref")
+                with tracing.span("bank.switch"):
+                    compact_inputs = [x.index_select(0, idx.to(torch.int64)) for x in inputs]
+                compact_out = self._expert(0, *compact_inputs)
+                with tracing.span("bank.switch"):
+                    selected = switch_scatter(
+                        src, compact_out, base,
+                        backend="auto" if self.use_pallas_switch else "ref")
         else:
             selected = base
 

@@ -26,6 +26,7 @@ from typing import Any, Callable, Iterable, Mapping
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.e3 import E3Agent, E3IndicationMessage
 from repro_torch.core.switch import (
     SlotSwitchState,
@@ -94,14 +95,17 @@ class BatchedRunHistory:
         """Build from ``BatchedPuschPipeline.run_closed_loop`` output:
         ``modes`` are the device-decided active modes."""
         extras = ("active_mode", "raw_decision", "pending_mode", "kpms")
-        kpms = {k: _np(v) for k, v in flatten_kpm_sources(traj["kpms"]).items()}
-        outputs = {k: _np(v) for k, v in traj.items() if k not in extras}
+        with tracing.span("campaign.history"):
+            kpms = {k: _np(v) for k, v in flatten_kpm_sources(traj["kpms"]).items()}
+            outputs = {k: _np(v) for k, v in traj.items() if k not in extras}
+            modes, decisions = _np(traj["active_mode"]), _np(traj["raw_decision"])
+            n_switches = None if final_switch is None else _np(final_switch.n_switches)
         return cls(
-            modes=_np(traj["active_mode"]),
+            modes=modes,
             kpms=kpms,
             outputs=outputs,
-            decisions=_np(traj["raw_decision"]),
-            n_switches=None if final_switch is None else _np(final_switch.n_switches),
+            decisions=decisions,
+            n_switches=n_switches,
             cell_of_ue=None if cell_of_ue is None else np.asarray(cell_of_ue),
             provisioned_capacity=provisioned_capacity,
         )

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch import tracing
 from repro_torch.core.closed_loop import SwitchConfig, per_ue_policy
 from repro_torch.core.expert_bank import ExecutionMode, coerce_enum
 from repro_torch.core.faults import FaultSpec
@@ -601,19 +602,24 @@ class ArchesSession:
         loop runs a full-capacity pre-pass and sizes from the demand its
         decisions realized (``suggest_gated_capacity``).  The history
         records the chosen capacity in ``provisioned_capacity``.
+
+        The campaign is a ``campaign`` span (``repro_torch.tracing``); in
+        the closed loop the engine's and the device policy's construction
+        is ``session.build``.
         """
-        if auto_capacity:
-            return self._run_auto_capacity()
-        if self.spec.churn is not None:
-            return self.run_streaming()
-        runner = {
-            ExecutionPath.HOST: self._run_host,
-            ExecutionPath.BATCHED: self._run_open_loop,
-            ExecutionPath.GATED: self._run_open_loop,
-            ExecutionPath.CLOSED_LOOP: self._run_closed_loop,
-            ExecutionPath.PERTURBED: self._run_perturbed,
-        }[self.path]
-        return runner()
+        with tracing.span("campaign", self.device):
+            if auto_capacity:
+                return self._run_auto_capacity()
+            if self.spec.churn is not None:
+                return self.run_streaming()
+            runner = {
+                ExecutionPath.HOST: self._run_host,
+                ExecutionPath.BATCHED: self._run_open_loop,
+                ExecutionPath.GATED: self._run_open_loop,
+                ExecutionPath.CLOSED_LOOP: self._run_closed_loop,
+                ExecutionPath.PERTURBED: self._run_perturbed,
+            }[self.path]
+            return runner()
 
     def _run_auto_capacity(self) -> BatchedRunHistory:
         spec = self.spec
@@ -707,18 +713,19 @@ class ArchesSession:
 
     def _run_closed_loop(self, provisioned_capacity: int | None = None) -> BatchedRunHistory:
         spec = self.spec
+        with tracing.span("session.build"):
+            engine, device_policy = self.engine, self.device_policy
         if self.cell_topology is not None:
             from repro_torch.core.topology import run_closed_loop_sharded
 
             _, final_switch, traj = run_closed_loop_sharded(
-                self.engine, self.cell_topology, self.schedule, self.device_policy,
+                engine, self.cell_topology, self.schedule, device_policy,
                 spec.switch.to_config(spec.feature_names), n_slots=spec.n_slots,
                 key=jr.PRNGKey(spec.seed, self.device), faults=spec.faults)
             return BatchedRunHistory.from_closed_loop(
                 traj, final_switch, cell_of_ue=self._cells,
                 provisioned_capacity=provisioned_capacity)
-        runtime = ArchesRuntime.from_spec(spec, engine=self.engine,
-                                          device_policy=self.device_policy)
+        runtime = ArchesRuntime.from_spec(spec, engine=engine, device_policy=device_policy)
         return runtime.run_batched(self.schedule, n_slots=spec.n_slots, n_ues=spec.n_ues,
                                    key=jr.PRNGKey(spec.seed, self.device),
                                    provisioned_capacity=provisioned_capacity,

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import tracing
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 KERNELS = ("mmse_interp", "switch_select", "tree_infer", "gated_expert")
 NVCC_FLAGS = (
@@ -35,12 +37,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: launches per kernel since the last ``reset_launch_counts``; each wrapper
-#: adds one where it launches its kernel, and nowhere else
-launch_counts: dict[str, int] = {
-    "mmse_interp": 0, "mmse_interp_gauss": 0, "switch_select_batched": 0, "tree_infer": 0,
-    "switch_gather_batched": 0, "gated_expert": 0, "switch_select": 0,
-}
+#: launches per kernel since the last ``reset_launch_counts``: the tracing
+#: module's launch counters (``kernel.launches.<name>``), the same dict
+launch_counts = tracing.launch_counts
 
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch import tracing
 from repro_torch.core.closed_loop import (
     DevicePolicy,
     SwitchConfig,
@@ -522,26 +523,29 @@ class BatchedPuschPipeline:
     def _ue_pre(self, profile: TdlProfile, p: ChannelParams, snr_db, olla_db, keys):
         """Link adaptation + TX + channel + LS for every UE."""
         cfg = self.cfg
-        ks = jr.split(keys, 4)
-        k_tx, k_ch, k_n, k_crc = ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
-        n_ues = keys.shape[0]
+        with tracing.span("slot.tx"):
+            ks = jr.split(keys, 4)
+            k_tx, k_ch, k_n, k_crc = ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
+            n_ues = keys.shape[0]
 
-        mcs_idx = select_mcs_index(snr_db + olla_db)
-        qm_idx = self._qm_idx_by_mcs[mcs_idx]
-        qm = self._qm_by_mcs[mcs_idx].to(torch.float32)
-        code_rate = self._rate_by_mcs[mcs_idx]
-        tbs = self._tbs_table[mcs_idx].to(torch.float32)
+            mcs_idx = select_mcs_index(snr_db + olla_db)
+            qm_idx = self._qm_idx_by_mcs[mcs_idx]
+            qm = self._qm_by_mcs[mcs_idx].to(torch.float32)
+            code_rate = self._rate_by_mcs[mcs_idx]
+            tbs = self._tbs_table[mcs_idx].to(torch.float32)
 
-        # bits drawn once at the widest order and prefix-sliced per order
-        n_re = cfg.n_data_re()
-        bits = jr.bernoulli(k_tx, 0.5, (n_re * max(QM_VALUES),)).to(torch.uint8)
-        syms_all = torch.stack([qam.modulate(bits[:, : n_re * q], q) for q in QM_VALUES])
-        syms = syms_all[qm_idx, torch.arange(n_ues, device=keys.device)]
+            # bits drawn once at the widest order and prefix-sliced per order
+            n_re = cfg.n_data_re()
+            bits = jr.bernoulli(k_tx, 0.5, (n_re * max(QM_VALUES),)).to(torch.uint8)
+            syms_all = torch.stack([qam.modulate(bits[:, : n_re * q], q) for q in QM_VALUES])
+            syms = syms_all[qm_idx, torch.arange(n_ues, device=keys.device)]
 
-        tx_grid = dmrs_mod.map_slot_grid(cfg, syms, self._pilots)
-        fields = simulate_slot_channel_traced(k_ch, cfg, profile, p)
-        rx_grid = apply_channel(k_n, tx_grid, fields)
-        h_ls = ls_estimate(cfg, rx_grid, self._pilots)
+            tx_grid = dmrs_mod.map_slot_grid(cfg, syms, self._pilots)
+        with tracing.span("slot.channel"):
+            fields = simulate_slot_channel_traced(k_ch, cfg, profile, p)
+            rx_grid = apply_channel(k_n, tx_grid, fields)
+        with tracing.span("slot.ls"):
+            h_ls = ls_estimate(cfg, rx_grid, self._pilots)
         return {
             "mcs_idx": mcs_idx, "qm_idx": qm_idx, "qm": qm, "code_rate": code_rate,
             "tbs": tbs, "syms": syms, "rx_grid": rx_grid, "h_ls": h_ls,
@@ -693,24 +697,27 @@ class BatchedPuschPipeline:
         pre = self._ue_pre(profile, p, link.reported_snr_db, link.olla_offset_db, keys)
         zeros = torch.zeros(n_ues, dtype=torch.int32, device=keys.device)
         overflow = audit_tripped = health_tripped = zeros
-        if rho is None:
-            out = self.bank(modes.to(torch.int32), pre["h_ls"])
-            h_sel = out.selected
-            exec_flops = self.bank.executed_flops_per_ue(out)
-            if out.overflow is not None:
-                overflow = out.overflow.to(torch.int32)
-            if out.audit_tripped is not None:
-                audit_tripped = out.audit_tripped.to(torch.int32)
-            if faults is not None:
-                h_sel, health_tripped = self._corrupt_and_screen(out, h_sel, modes, corrupt,
-                                                                 faults)
-        else:
-            h_mmse = self._mmse_from_ls_batched(pre["h_ls"])
-            h_sel = perturb_estimate(h_mmse, rho, jr.fold_in(keys, 0x9E7))
-            exec_flops = torch.full(
-                (n_ues,), self.bank.experts[self.bank.default_mode].flops,
-                dtype=torch.float32, device=keys.device)
-        new_link, outputs = self._ue_post(link, pre, h_sel)
+        with tracing.span("slot.bank"):
+            if rho is None:
+                out = self.bank(modes.to(torch.int32), pre["h_ls"])
+                h_sel = out.selected
+                exec_flops = self.bank.executed_flops_per_ue(out)
+                if out.overflow is not None:
+                    overflow = out.overflow.to(torch.int32)
+                if out.audit_tripped is not None:
+                    audit_tripped = out.audit_tripped.to(torch.int32)
+                if faults is not None:
+                    h_sel, health_tripped = self._corrupt_and_screen(out, h_sel, modes,
+                                                                     corrupt, faults)
+            else:
+                with tracing.span("bank.mmse"):
+                    h_mmse = self._mmse_from_ls_batched(pre["h_ls"])
+                h_sel = perturb_estimate(h_mmse, rho, jr.fold_in(keys, 0x9E7))
+                exec_flops = torch.full(
+                    (n_ues,), self.bank.experts[self.bank.default_mode].flops,
+                    dtype=torch.float32, device=keys.device)
+        with tracing.span("slot.receiver"):
+            new_link, outputs = self._ue_post(link, pre, h_sel)
         outputs["executed_flops"] = exec_flops
         outputs["gated_overflow"] = overflow
         outputs["audit_tripped"] = audit_tripped
@@ -839,13 +846,15 @@ class BatchedPuschPipeline:
             exec_modes = committed
         link, out = self._slot_core(profile, link, exec_modes, keys, p, active=active,
                                     faults=faults, corrupt=cor, cells=cells)
-        vecs = trajectory_kpm_matrix(out["kpms"], sw_cfg.feature_names)
-        decide = sw_cfg.period_slots == 1 or slot_idx % sw_cfg.period_slots == 0
-        if faults is not None:
-            trip = (out["health_tripped"] > 0) | (out["audit_tripped"] > 0)
-        new_sw, raw, reg = policy_step(
-            sw, vecs, policy, sw_cfg, decide=decide, decision_valid=dv, telemetry_valid=tv,
-            trip=trip, active=active, slot_idx=slot_idx, faults=faults, return_register=True)
+        with tracing.span("slot.decision"):
+            vecs = trajectory_kpm_matrix(out["kpms"], sw_cfg.feature_names)
+            decide = sw_cfg.period_slots == 1 or slot_idx % sw_cfg.period_slots == 0
+            if faults is not None:
+                trip = (out["health_tripped"] > 0) | (out["audit_tripped"] > 0)
+            new_sw, raw, reg = policy_step(
+                sw, vecs, policy, sw_cfg, decide=decide, decision_valid=dv,
+                telemetry_valid=tv, trip=trip, active=active, slot_idx=slot_idx,
+                faults=faults, return_register=True)
         if active is not None:
             zero = torch.zeros_like(committed)
             committed = torch.where(active, committed, zero)
@@ -863,12 +872,14 @@ class BatchedPuschPipeline:
         bool tensors."""
         outs = []
         for s in range(n_slots):
-            fs = None if fault_masks is None else tuple(m[s] for m in fault_masks)
-            link, sw, out = self._closed_step(profile, sw_cfg, policy, ue_keys, link, sw,
-                                              slot0 + s, params.at(s), active=active,
-                                              faults=faults, fault_s=fs, cells=cells)
+            with tracing.span("slot", self.device, slot=slot0 + s):
+                fs = None if fault_masks is None else tuple(m[s] for m in fault_masks)
+                link, sw, out = self._closed_step(profile, sw_cfg, policy, ue_keys, link, sw,
+                                                  slot0 + s, params.at(s), active=active,
+                                                  faults=faults, fault_s=fs, cells=cells)
             outs.append(out)
-        return link, sw, _stack_tree(outs)
+        with tracing.span("campaign.history"):
+            return link, sw, _stack_tree(outs)
 
     def run_closed_loop(self, schedule: Callable[[int], ChannelConfig],
                         policy: DevicePolicy, sw_cfg: SwitchConfig, *, n_slots: int,

@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import cached_const
 
 MASK = 0xFFFFFFFF
@@ -80,22 +81,24 @@ def _words(key: torch.Tensor, ndim: int):
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``(..., 2)`` -> ``(..., num, 2)``."""
-    k1, k2 = _words(key, 1)
-    counts = torch.arange(num, dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(counts), counts)
-    return torch.stack([b1, b2], dim=-1)
+    with tracing.span("rng", key):
+        k1, k2 = _words(key, 1)
+        counts = torch.arange(num, dtype=torch.int64, device=key.device)
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(counts), counts)
+        return torch.stack([b1, b2], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``; ``data`` broadcasts against the key's
     leading axes (a single key folded with an ``(n,)`` vector gives
     ``(n, 2)`` keys, as ``vmap(fold_in, (None, 0))`` does)."""
-    if isinstance(data, int):
-        data = torch.full((), data, dtype=torch.int64, device=key.device)
-    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK
-    k1, k2 = key[..., 0], key[..., 1]
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(data), data)
-    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
+    with tracing.span("rng", key):
+        if isinstance(data, int):
+            data = torch.full((), data, dtype=torch.int64, device=key.device)
+        data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK
+        k1, k2 = key[..., 0], key[..., 1]
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(data), data)
+        return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
 def bits(key: torch.Tensor, shape: tuple[int, ...], *, offset: int = 0) -> torch.Tensor:
@@ -105,13 +108,16 @@ def bits(key: torch.Tensor, shape: tuple[int, ...], *, offset: int = 0) -> torch
     An element's bits depend only on the key and its flat index, so
     ``offset`` draws the flat elements ``[offset, offset + prod(shape))`` of
     a larger draw: a big tensor can be drawn in chunks with its bits."""
-    shape = tuple(int(s) for s in shape)
-    n = math.prod(shape)
-    idx = torch.arange(offset, offset + n, dtype=torch.int64,
-                       device=key.device).reshape(shape)
-    k1, k2 = _words(key, len(shape))
-    b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
-    return b1 ^ b2
+    with tracing.span("rng", key):
+        shape = tuple(int(s) for s in shape)
+        n = math.prod(shape)
+        idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                           device=key.device).reshape(shape)
+        k1, k2 = _words(key, len(shape))
+        b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
+        out = b1 ^ b2
+        tracing.counters["rng.words"] += out.numel()
+        return out
 
 
 def uniform(
@@ -124,11 +130,12 @@ def uniform(
 ) -> torch.Tensor:
     """float32 uniforms on ``[minval, maxval)`` (``jax.random.uniform``);
     ``offset`` as in ``bits``."""
-    b = bits(key, shape, offset=offset)
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
-    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, f * (hi - lo) + lo)
+    with tracing.span("rng", key):
+        b = bits(key, shape, offset=offset)
+        f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+        lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+        hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
+        return torch.maximum(lo, f * (hi - lo) + lo)
 
 
 # XLA's single-precision erf_inv (Giles' approximation), coefficients in the
@@ -162,8 +169,9 @@ def normal(key: torch.Tensor, shape: tuple[int, ...] = (), *,
            offset: int = 0) -> torch.Tensor:
     """float32 standard normals (``jax.random.normal``); ``offset`` as in
     ``bits``."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0, offset=offset)
-    return _SQRT2_F32 * erf_inv(u)
+    with tracing.span("rng", key):
+        u = uniform(key, shape, _NORMAL_LO, 1.0, offset=offset)
+        return _SQRT2_F32 * erf_inv(u)
 
 
 def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
@@ -174,16 +182,18 @@ def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
     a power of 2, as there)."""
     if not -2**31 <= minval <= maxval <= 2**31 - 1:
         raise ValueError(f"randint takes int32 bounds, got [{minval}, {maxval})")
-    ks = split(key)
-    hi, lo = bits(ks[..., 0, :], shape), bits(ks[..., 1, :], shape)
-    span = (maxval - minval) & MASK if maxval > minval else 1
-    mult = (2**16) % span
-    mult = ((mult * mult) & MASK) % span
-    off = ((((hi % span) * mult) & MASK) + lo % span) & MASK
-    return (minval + off % span).to(torch.int32)
+    with tracing.span("rng", key):
+        ks = split(key)
+        hi, lo = bits(ks[..., 0, :], shape), bits(ks[..., 1, :], shape)
+        span = (maxval - minval) & MASK if maxval > minval else 1
+        mult = (2**16) % span
+        mult = ((mult * mult) & MASK) % span
+        off = ((((hi % span) * mult) & MASK) + lo % span) & MASK
+        return (minval + off % span).to(torch.int32)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: tuple[int, ...]) -> torch.Tensor:
     """Boolean draws with mean ``p`` (``jax.random.bernoulli``, mode 'low')."""
-    return uniform(key, shape) < torch.full((), p, dtype=torch.float32,
-                                            device=key.device)
+    with tracing.span("rng", key):
+        return uniform(key, shape) < torch.full((), p, dtype=torch.float32,
+                                                device=key.device)
