@@ -52,6 +52,13 @@ Phases, each of which raises on failure (exit code != 0):
    ``mmse_interp(use_gauss=False)`` on 32 UEs' LS estimates, the 4-multiply
    kernel's path, one launch; the scalar and per-UE switches and the scatter over a two-leaf
    pytree bitwise, one launch a leaf;
+3c. threefry: the generator's kernel on 256 UEs' strided keys at the slot
+   loop's shapes (the TX bits' ``bernoulli`` at 127,200 a UE, the AWGN's
+   ``normal`` at (4, 1,272, 14), ``uniform``, ``bits``, ``split``,
+   ``fold_in``), each bitwise against its plain form on the card, one
+   launch and the plain form's ``rng.words`` each, timed in turns against
+   the plain form; ``bernoulli`` and ``normal`` against the least time for
+   the hash's integer operations and the store's bytes;
 4. main path: ``ArchesSession(...).run()`` of the closed-loop campaign at
    the paper's 106-PRB slot with 32 UEs and the estimator's default width,
    on a CONCURRENT bank (its AI expert one ``gated_expert`` launch a slot
@@ -236,6 +243,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
+#: the SMs' full issue: 4 warp-instructions a cycle on each of 132 SMs at 1.98
+#: GHz, 32 threads each (32-bit integer operations over the ALU and FMA pipes)
+PEAK_ISSUE_OPS = 4 * 32 * 132 * 1.98e9
+#: threefry2x32's 32-bit integer operations a word: 20 rounds of an add, a
+#: rotation (one funnel shift) and a xor, 12 key additions (two before the
+#: rounds and two at each of 5 injections, whose key schedule a thread forms
+#: once) and the xor of the two output words
+THREEFRY_OPS_PER_WORD = 73
 
 #: mmse_interp kernel vs its plain version: both accumulate 636 fp32 products
 #: per output in different orders, and the Gauss form's p3 - p1 - p2
@@ -264,6 +279,8 @@ AGREE_MIN = 0.95
 REF_KPM_RTOL = 1e-3
 
 N_UES, N_PRB, N_SLOTS = 32, 106, 40
+#: the generator's kernel at the benchmark cells' UEs a slot
+THREEFRY_UES = 256
 CHANNELS, N_RES = 32, 4
 #: estimators wider than the paper's: the fused GATED kernel's widest CP form
 #: (64), and its wide form (chunks of 32 channels) at 96 and 128
@@ -889,6 +906,79 @@ def phase_scalar_switch() -> dict:
         launches=0, max_abs_err=0.0, ms=copy, plain_ms=plain, bound_ms=bms, bound_by=by,
         library_ms=lib_copy, shape=f"{shape} complex64, copy path",
     )
+
+
+def phase_threefry() -> list[dict]:
+    """The generator's kernel (``csrc/threefry.cu``) at the slot loop's
+    shapes for ``THREEFRY_UES`` UEs, on strided keys as the slot splits them:
+    each public draw bitwise against its plain form on the card, one
+    ``threefry`` launch and the plain form's ``rng.words`` each; every draw
+    timed in turns against its plain form; the TX bits' ``bernoulli`` and
+    the AWGN's ``normal`` against the least time for the hash's integer
+    operations (``THREEFRY_OPS_PER_WORD`` at ``PEAK_ISSUE_OPS``) and the
+    store's bytes, and queued for device time alone."""
+    from repro_torch import random as jr
+    from repro_torch import tracing
+    from repro_torch.kernels import build
+    from repro_torch.phy.mcs import QM_VALUES
+    from repro_torch.phy.nr import SlotConfig
+
+    dev = torch.device("cuda")
+    cfg = SlotConfig(n_prb=N_PRB)
+    ks = jr.split_ref(jr.split_ref(jr.PRNGKey(2_900_000_029, dev), THREEFRY_UES), 4)
+    k_tx, k_ch = ks[:, 0], ks[:, 1]
+    tx_shape, noise_shape = (cfg.n_data_re() * max(QM_VALUES),), (cfg.n_ant, cfg.n_sc, cfg.n_sym)
+    # name: (kernel, plain form, words, timed calls)
+    draws = {
+        "bernoulli": (lambda: jr.bernoulli(k_tx, 0.5, tx_shape),
+                      lambda: jr.bernoulli_ref(k_tx, 0.5, tx_shape), 20),
+        "normal": (lambda: jr.normal(k_ch, noise_shape),
+                   lambda: jr.normal_ref(k_ch, noise_shape), 20),
+        "uniform": (lambda: jr.uniform(k_ch, (cfg.n_sym,)),
+                    lambda: jr.uniform_ref(k_ch, (cfg.n_sym,)), 200),
+        "bits": (lambda: jr.bits(k_ch, (cfg.n_sc,)), lambda: jr.bits_ref(k_ch, (cfg.n_sc,)), 200),
+        "split": (lambda: jr.split(k_ch, 4), lambda: jr.split_ref(k_ch, 4), 200),
+        "fold_in": (lambda: jr.fold_in(k_ch, 7), lambda: jr.fold_in_ref(k_ch, 7), 200),
+    }
+    times = {}
+    for name, (kernel, plain, iters) in draws.items():
+        launches, words = build.launch_counts["threefry"], tracing.counters["rng.words"]
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        counted = 0 if name in ("split", "fold_in") else want.numel()
+        if build.launch_counts["threefry"] != launches + 1:
+            raise AssertionError(f"threefry {name}: {build.launch_counts['threefry'] - launches} "
+                                 f"launches for one draw")
+        if tracing.counters["rng.words"] != words + counted:
+            raise AssertionError(f"threefry {name}: rng.words grew by "
+                                 f"{tracing.counters['rng.words'] - words}, not {counted}")
+        same = got.shape == want.shape and got.dtype == want.dtype and torch.equal(
+            *(t.view(torch.int32) if t.dtype.is_floating_point else t for t in (got, want)))
+        if not same:
+            raise AssertionError(f"threefry {name} differs from its plain form at {tuple(got.shape)}")
+        times[name] = turns(kernel, plain, iters) + (got.numel(),)
+        del got, want
+    rows = []
+    for name, shape, store in (("bernoulli", tx_shape, 1), ("normal", noise_shape, 4)):
+        ms, plain, reading, n = times[name]
+        bms, by = bound_ms(store * n, THREEFRY_OPS_PER_WORD * n, PEAK_ISSUE_OPS)
+        device_alone(f"threefry {name}", draws[name][0], "draw_kernel")
+        log(f"kernel threefry {name} at {THREEFRY_UES} x {shape}: bitwise; call {reading} "
+            f"(plain); {ms * 1e9 / n:.2f} ps a word (plain {plain * 1e9 / n:.1f}); bound "
+            f"{bms * 1e3:.2f} us by {by} ({THREEFRY_OPS_PER_WORD} integer operations a word "
+            f"at {PEAK_ISSUE_OPS / 1e12:.1f} T/s, {store} B a word stored), "
+            f"{bms / ms * 100:.1f} % of it")
+        rows.append(dict(
+            name="threefry" if name == "bernoulli" else f"threefry_{name}", counter="threefry",
+            route="cuda", source="src/repro_torch/csrc/threefry.cu",
+            replaces="none: the port's own generator (the reference draws through jax.random)",
+            launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+            library_ms=None, shape=f"{name} {THREEFRY_UES} x {shape}"))
+    log("kernel threefry, launch-bound draws at " + f"{THREEFRY_UES} keys: " + "; ".join(
+        f"{name} {times[name][0] * 1e3:.2f} us against plain {times[name][1] * 1e3:.2f} us"
+        for name in ("uniform", "bits", "split", "fold_in")) + "; bitwise, one launch each")
+    return rows
 
 
 def _compaction(mode: torch.Tensor, capacity: int):
@@ -2454,7 +2544,8 @@ def phase_train() -> None:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dict(build.launch_counts)
-    if any(launches.values()):
+    # the sampler's draws run the threefry kernel; no expert kernel may run
+    if any(v for k, v in launches.items() if k != "threefry"):
         raise AssertionError(f"train: the training path launched a kernel: {launches}")
     first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
     if not (np.isfinite(losses).all() and last < first):
@@ -3922,13 +4013,15 @@ def main() -> int:
             + phase_lm_switch_kernels())
     gauss_row, four_launches = phase_surface()
     rows.insert(1, gauss_row)
+    rows += phase_threefry()
     conc, conc_hist, launches = run_path(
         "main path CONCURRENT", _main_spec(),
-        ("mmse_interp_gauss", "switch_select_batched", "tree_infer", "gated_expert"))
+        ("mmse_interp_gauss", "switch_select_batched", "tree_infer", "gated_expert",
+         "threefry"))
     gated, gated_hist, gated_launches = run_path(
         "main path GATED fused", _main_spec(execution_mode="gated", fused=True,
                                             gated_capacity=GATED_CAPACITY),
-        ("gated_expert", "mmse_interp_gauss", "tree_infer"))
+        ("gated_expert", "mmse_interp_gauss", "tree_infer", "threefry"))
     for label, counts in (("CONCURRENT", launches), ("GATED fused", gated_launches)):
         if counts["tree_infer"] != N_SLOTS:  # the whole decision phase in one launch
             raise AssertionError(f"{label}: {counts['tree_infer']} policy-step launches in "

@@ -605,7 +605,7 @@ class ArchesSession:
 
         The campaign is a ``campaign`` span (``repro_torch.tracing``); in
         the closed loop the engine's and the device policy's construction
-        is ``session.build``.
+        is ``session.build``, and the loop's set-up ``campaign.init``.
         """
         with tracing.span("campaign", self.device):
             if auto_capacity:

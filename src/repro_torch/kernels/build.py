@@ -1,7 +1,11 @@
 """Build the hand-written Hopper kernels and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into its own shared library, at first use, into
+Five kernels (``KERNELS``): ``mmse_interp``, ``switch_select`` (the scalar
+and per-UE switches and the GATED scatter), ``tree_infer`` (and the fused
+decision phase), ``gated_expert`` and ``threefry`` (``repro_torch.random``'s
+draws on the card).  Each ``csrc/<name>.cu`` exposes a plain C interface
+and is compiled by ``nvcc`` for ``sm_90a`` into its own shared library, at
+first use, into
 ``build/repro_torch/`` at the repository root (override with
 ``REPRO_TORCH_BUILD_DIR``).  Libraries are named by a hash of their source,
 so an edited kernel rebuilds and an unchanged one loads from the cache.
@@ -31,7 +35,7 @@ import torch
 from repro_torch import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("mmse_interp", "switch_select", "tree_infer", "gated_expert")
+KERNELS = ("mmse_interp", "switch_select", "tree_infer", "gated_expert", "threefry")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -897,15 +897,19 @@ class BatchedPuschPipeline:
         corruption, the health screen and the breaker, telemetry loss.
         """
         dev = self.device
-        profile, params = resolve_schedule(self.cfg, schedule, n_slots, n_ues, dev)
-        ue_keys = self._ue_keys(key, ue_keys, n_ues)
-        fault_masks = None
-        if faults is not None:
-            rf = faults.resolve(n_slots, n_ues)
-            fault_masks = tuple(torch.as_tensor(m, device=dev) for m in (
-                rf.decision_valid, rf.corrupt, rf.telemetry_valid))
-        link = init_device_link(n_ues, dev)
-        sw = init_device_switch(n_ues, len(sw_cfg.feature_names), sw_cfg, dev, faults=faults)
+        # the loop's set-up: the schedule, the UEs' keys, the fault masks' uploads
+        # and the link's and the switch's initial state
+        with tracing.span("campaign.init"):
+            profile, params = resolve_schedule(self.cfg, schedule, n_slots, n_ues, dev)
+            ue_keys = self._ue_keys(key, ue_keys, n_ues)
+            fault_masks = None
+            if faults is not None:
+                rf = faults.resolve(n_slots, n_ues)
+                fault_masks = tuple(torch.as_tensor(m, device=dev) for m in (
+                    rf.decision_valid, rf.corrupt, rf.telemetry_valid))
+            link = init_device_link(n_ues, dev)
+            sw = init_device_switch(n_ues, len(sw_cfg.feature_names), sw_cfg, dev,
+                                    faults=faults)
         return self._run_closed(profile, sw_cfg, link, sw, ue_keys, params, policy, n_slots,
                                 faults=faults, fault_masks=fault_masks)
 

@@ -22,10 +22,10 @@ no-op: it allocates nothing, records no event and calls no
 past it they are dropped and counted under ``tracing.dropped``.
 
 Counters are plain ints that only grow: ``counters`` (``rng.words``, the
-32-bit words that ``random.bits`` draws) and ``launch_counts``, each
-hand-written kernel's launches (reported as ``kernel.launches.<name>``;
-``kernels.build.launch_counts`` is this same dict, and
-``build.reset_launch_counts`` zeroes it).
+32-bit words that ``random``'s draws hash, on the kernel's path or the
+plain one) and ``launch_counts``, each hand-written kernel's launches
+(reported as ``kernel.launches.<name>``; ``kernels.build.launch_counts`` is
+this same dict, and ``build.reset_launch_counts`` zeroes it).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ counters: dict[str, int] = {"rng.words": 0, "tracing.dropped": 0}
 #: wrapper adds one where it launches its kernel, and nowhere else
 launch_counts: dict[str, int] = {
     "mmse_interp": 0, "mmse_interp_gauss": 0, "switch_select_batched": 0, "tree_infer": 0,
-    "switch_gather_batched": 0, "gated_expert": 0, "switch_select": 0,
+    "switch_gather_batched": 0, "gated_expert": 0, "switch_select": 0, "threefry": 0,
 }
 
 _profiler_enabled = torch._C._autograd._profiler_enabled

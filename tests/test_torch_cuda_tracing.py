@@ -82,6 +82,11 @@ def test_cuda_spans_cover_the_traced_campaign(cuda, workload):
     assert tracing.take().spans == []
     on, on_trace = profile_campaign(campaign, torch.cuda.synchronize)
     taken = tracing.take()
+    for name in ("modes", "decisions"):
+        np.testing.assert_array_equal(getattr(off, name), getattr(on, name))
+    for group in ("kpms", "outputs"):
+        for k, v in getattr(off, group).items():
+            np.testing.assert_array_equal(v, getattr(on, group)[k], err_msg=k)
 
     tl = spans.build(taken.spans, on_trace.ops, on_trace.wall_s)
     assert tl is not None
@@ -92,11 +97,6 @@ def test_cuda_spans_cover_the_traced_campaign(cuda, workload):
     owners = [tl.names[k] for k, (name, _, _) in zip(tl.op_span, on_trace.ops)
               if "policy_step" in name]
     assert owners == ["slot.decision"] * spec.n_slots, owners
-    for name in ("modes", "decisions"):
-        np.testing.assert_array_equal(getattr(off, name), getattr(on, name))
-    for group in ("kpms", "outputs"):
-        for k, v in getattr(off, group).items():
-            np.testing.assert_array_equal(v, getattr(on, group)[k], err_msg=k)
 
 
 @pytest.mark.cuda

@@ -124,3 +124,97 @@ def test_erf_inv_tails():
     assert np.array_equal(np.isfinite(got), finite)
     assert _ulp(got[finite], want[finite]).max() <= NORMAL_MAX_ULP
     np.testing.assert_array_equal(np.sign(got[~finite]), np.sign(want[~finite]))
+
+
+# -- the two paths: a CPU key takes the plain form, never the kernel ---------
+
+#: every public draw on a key ``k`` (a (3, 2) batch), and the words it counts
+_PUBLIC = {
+    "split": (lambda k: jr.split(k, 4), lambda k: jr.split_ref(k, 4), 0),
+    "fold_in_int": (lambda k: jr.fold_in(k, 2**31 + 3), lambda k: jr.fold_in_ref(k, 2**31 + 3),
+                    0),
+    "fold_in_vector": (lambda k: jr.fold_in(k[0], torch.arange(5)),
+                       lambda k: jr.fold_in_ref(k[0], torch.arange(5)), 0),
+    "bits": (lambda k: jr.bits(k, (2, 5), offset=9), lambda k: jr.bits_ref(k, (2, 5), offset=9),
+             30),
+    "uniform": (lambda k: jr.uniform(k, (7,), -2.0, 3.0),
+                lambda k: jr.uniform_ref(k, (7,), -2.0, 3.0), 21),
+    "normal": (lambda k: jr.normal(k, (4, 3)), lambda k: jr.normal_ref(k, (4, 3)), 36),
+    "bernoulli": (lambda k: jr.bernoulli(k, 0.3, (11,)), lambda k: jr.bernoulli_ref(k, 0.3, (11,)),
+                  33),
+    "randint": (lambda k: jr.randint(k, (6,), -4, 99), None, 36),
+}
+
+
+@pytest.mark.parametrize("name", list(_PUBLIC))
+def test_cpu_keys_never_load_the_kernel(monkeypatch, name):
+    """A CPU key takes the plain form (the path held to ``jax.random``
+    above): the kernel library is never asked for, no launch is counted,
+    and ``rng.words`` grows by the draw's words."""
+    from repro_torch import tracing
+    from repro_torch.kernels import build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU key asked for the threefry kernel")
+
+    monkeypatch.setattr(build, "library", refuse)
+    monkeypatch.setattr(build, "function", refuse)
+    public, plain, words = _PUBLIC[name]
+    key = jr.split(jr.PRNGKey(21), 3)
+    launches, counted = build.launch_counts["threefry"], tracing.counters["rng.words"]
+    got = public(key)
+    assert build.launch_counts["threefry"] == launches
+    assert tracing.counters["rng.words"] == counted + words
+    if plain is not None:
+        assert torch.equal(got, plain(key))
+
+
+def _threefry_scalar(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
+    """threefry2x32 on Python ints, written from the Random123 rounds."""
+    m = 0xFFFFFFFF
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    a, b = (x0 + ks[0]) & m, (x1 + ks[1]) & m
+    for i in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+            a = (a + b) & m
+            b = (((b << r) | (b >> (32 - r))) & m) ^ a
+        a = (a + ks[(i + 1) % 3]) & m
+        b = (b + ks[(i + 2) % 3] + i + 1) & m
+    return a, b
+
+
+@pytest.mark.parametrize("offset", [0, 2**32 - 3, 5 * 2**32 + 1])
+def test_bits_counter_high_word(offset):
+    """Element ``j`` of a draw hashes the counter ``(idx >> 32, idx mod
+    2**32)`` of ``idx = offset + j`` (jax's partitionable threefry): at
+    offset 0 against ``jax.random.bits`` too, past 2**32 with the high word
+    non-zero."""
+    kj, kt = _key_pair(77)
+    k0, k1 = (int(w) for w in kt)
+    want = [np.bitwise_xor(*_threefry_scalar(k0, k1, idx >> 32, idx & 0xFFFFFFFF))
+            for idx in range(offset, offset + 6)]
+    got = jr.bits(kt, (6,), offset=offset)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.int64))
+    if offset == 0:
+        _eq(got, jax.random.bits(kj, (6,)))
+
+
+def test_kernel_constants_are_the_plain_forms():
+    """``csrc/threefry.cu`` spells the erf_inv coefficients and sqrt(2) as
+    float32 hex literals: each is the plain form's Python float rounded to
+    float32, and the rounds rotate as ``_ROTATIONS`` does."""
+    import re
+    from pathlib import Path
+
+    src = (Path(jr.__file__).parent / "csrc" / "threefry.cu").read_text()
+
+    def table(name):
+        body = re.search(name + r"\[9\] = \{(.*?)\};", src, re.S).group(1)
+        return [float.fromhex(v.strip().rstrip("f")) for v in body.split(",")]
+
+    for name, coeffs in (("ERFINV_LT5", jr._ERFINV_LT5), ("ERFINV_GE5", jr._ERFINV_GE5)):
+        assert table(name) == [float(np.float32(c)) for c in coeffs], name
+    sqrt2 = re.search(r"SQRT2_F32 = (\S+)f;", src).group(1)
+    assert float.fromhex(sqrt2) == jr._SQRT2_F32
+    rounds = [int(r) for r in re.findall(r"TF_ROUND\((\d+)\)", src.split("hash(")[1])]
+    assert rounds == [r for i in range(5) for r in jr._ROTATIONS[i % 2]]

@@ -184,6 +184,7 @@ def test_closed_loop_campaign_span_tree_and_same_bits(bank):
     n = spec.n_slots
     assert tree[("campaign", None)] == 1
     assert tree[("session.build", "campaign")] == 1
+    assert tree[("campaign.init", "campaign")] == 1
     assert tree[("slot", "campaign")] == n
     assert tree[("campaign.history", "campaign")] == 2  # the stack, the host copies
     for stage in ("slot.tx", "slot.channel", "slot.ls", "slot.bank", "slot.receiver",
