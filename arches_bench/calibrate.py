@@ -20,25 +20,26 @@ import os
 import sys
 import time
 
-from arches_bench import cells, harness, judge
+from arches_bench import cells, harness
 
 
 def readings(cell: cells.Cell, seeds: list[int], control_seeds: list[int], device: str,
              emit=print) -> list[dict]:
+    program = harness.load_program(cell.program)
     out = []
     for kind, seed in [("program", s) for s in seeds] + [("control", s) for s in control_seeds]:
         t = time.perf_counter()
         params_seed = cells.derive_seed(seed, "params")
         campaign_seed = cells.derive_seed(seed, "campaign0")
         if kind == "program":
-            prog = harness.Program(cell, params_seed, device)
+            prog = program.Program(cell, params_seed, device)
             prog.fit_policy(cells.derive_seed(seed, "warmup"))
             got = prog.campaign(campaign_seed)
             del prog
         else:
-            got = harness.reference_campaign(cell, campaign_seed, params_seed, device, tf32=True)
-        want = harness.reference_campaign(cell, campaign_seed, params_seed, device)
-        row = {"workload": cell.name, "kind": kind, "seed": seed, **judge.compare(got, want),
+            got = program.reference(cell, campaign_seed, params_seed, device, tf32=True)
+        want = program.reference(cell, campaign_seed, params_seed, device)
+        row = {"workload": cell.name, "kind": kind, "seed": seed, **program.compare(got, want),
                "ai_served_share": float(((got["modes"] == 0)
                                          & (got["gated_overflow"] == 0)).mean()),
                "seconds": time.perf_counter() - t}

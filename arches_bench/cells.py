@@ -1,10 +1,12 @@
 """Cells by name: ``BENCHMARK.json`` names each workload's configuration and
 traffic, and the files ``configs/<configuration>.json`` and
-``traffic/<traffic>.json`` hold them.  A configuration holds the
-``CampaignSpec`` fields that are not traffic (the slot, the expert bank,
-the switch and the policy); a traffic file holds the scenario and its
-arguments and the campaign's UEs and slots.  Seeds: ``--seed`` gives the
-AI expert's ``params_seed`` and one campaign seed per window campaign.
+``traffic/<traffic>.json`` hold them.  A configuration's ``"program"`` key
+names the program that runs it (``programs/<program>.py``), by default
+``arches_campaign``, whose configurations hold the ``CampaignSpec`` fields
+that are not traffic (the slot, the expert bank, the switch and the
+policy) and whose traffic files hold the scenario and its arguments and
+the campaign's UEs and slots.  Seeds: ``--seed`` gives the program's
+``params_seed`` and one campaign seed per window campaign.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Any
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
+#: the program of a configuration without a ``"program"`` key
+DEFAULT_PROGRAM = "arches_campaign"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +32,10 @@ class Cell:
     @property
     def name(self) -> str:
         return self.workload["name"]
+
+    @property
+    def program(self) -> str:
+        return self.config.get("program", DEFAULT_PROGRAM)
 
     @property
     def n_ues(self) -> int:

@@ -1,15 +1,19 @@
 """One benchmark run of one cell: set-up, the window, the traced campaign,
 the check against the reference, and the result line.
 
-``Run`` carries what a run measured; the readers in ``metrics/<name>.py``
-(one per metric of ``BENCHMARK.json``, each a ``read(run)`` that returns a
-number or ``None``) turn it into the line's metrics.
+The cell's configuration names its program (``programs/<program>.py``,
+``load_program``); the harness drives it and knows nothing of what it
+computes.  ``Run`` carries what a run measured; the readers in
+``metrics/<name>.py`` (one per metric of ``BENCHMARK.json``, each a
+``read(run)`` that returns a number or ``None``) turn it into the line's
+metrics.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
 import os
@@ -24,6 +28,8 @@ from arches_bench import cells, judge
 #: top-level module names that may not be loaded in a run: JAX and the JAX
 #: package the port was made from (compared whole: ``repro_torch`` is not ``repro``)
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+#: the programs a configuration's ``"program"`` key names, one file each
+PROGRAMS = cells.BENCH / "programs"
 
 
 def process_age_s() -> float:
@@ -44,32 +50,47 @@ class Run:
     cell: cells.Cell
     setup_s: float = 0.0
     spans: dict = dataclasses.field(default_factory=dict)
-    campaigns: list = dataclasses.field(default_factory=list)  # each judge.program_leaves
+    campaigns: list = dataclasses.field(default_factory=list)  # each ``program.campaign``'s
     campaign_seeds: list = dataclasses.field(default_factory=list)
     window_s: float = 0.0
     energy_j: float | None = None
     trace: Any = None  # trace.Trace of the profiled campaign
     traced: dict | None = None  # that campaign's leaves
 
+    @functools.cached_property
+    def program(self):
+        """The cell's program module (``programs/<program>.py``)."""
+        return load_program(self.cell.program)
+
     @property
     def slot_ues(self) -> int:
-        return len(self.campaigns) * self.cell.n_slots * self.cell.n_ues
+        """The window's work: each campaign serves ``program.units(cell)``."""
+        return len(self.campaigns) * self.program.units(self.cell)
 
-    def ai_rows(self, leaves: dict) -> np.ndarray:
-        """UEs the AI expert ran on, per slot: every UE on a CONCURRENT
-        bank, the selected ones within capacity on a GATED bank."""
-        n_slots, n_ues = leaves["modes"].shape
-        if not self.cell.gated:
-            return np.full(n_slots, n_ues)
-        return ((leaves["modes"] == 0) & (leaves["gated_overflow"] == 0)).sum(axis=1)
+
+def _load(path, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def load_reader(name: str) -> Callable[[Run], float | None]:
-    path = cells.BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"arches_bench_metric_{name}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(cells.BENCH / "metrics" / f"{name}.py", f"arches_bench_metric_{name}").read
+
+
+@functools.cache
+def _program_at(path):
+    return _load(path, f"arches_bench_program_{path.stem}")
+
+
+def load_program(name: str):
+    """``programs/<name>.py``, loaded once a process: ``Program(cell,
+    params_seed, device)`` with ``load_kernels()``, ``fit_policy(seed)`` and
+    ``campaign(seed) -> dict``; ``reference(cell, seed, params_seed,
+    device) -> dict``; ``compare(got, want) -> dict``; ``units(cell) ->
+    int``; ``HOME``, the kernels that run in one span alone."""
+    return _program_at(PROGRAMS / f"{name}.py")
 
 
 def metric_entries(bench: dict, workload: str, trace: bool) -> list[dict]:
@@ -83,35 +104,6 @@ def limits(workload: str) -> dict:
     return json.loads((cells.BENCH / "limits" / f"{workload}.json").read_text())
 
 
-class Program:
-    """The system under test, ``repro_torch``, reached through its public
-    entry: a fitted policy, then one fresh ``ArchesSession`` a campaign."""
-
-    def __init__(self, cell: cells.Cell, params_seed: int, device: str):
-        self.cell, self.params_seed, self.device = cell, params_seed, device
-        self.policies = None
-
-    def load_kernels(self) -> None:
-        from repro_torch.kernels import build
-
-        build.build_all()
-        for name in build.KERNELS:
-            build.library(name)
-
-    def fit_policy(self, seed: int) -> None:
-        from repro_torch.core.session import ArchesSession
-
-        spec = cells.campaign_spec(self.cell, seed, self.params_seed)
-        self.policies = ArchesSession(spec, device=self.device).host_policies
-
-    def campaign(self, seed: int) -> dict:
-        from repro_torch.core.session import ArchesSession
-
-        spec = cells.campaign_spec(self.cell, seed, self.params_seed)
-        hist = ArchesSession(spec, device=self.device, host_policies=self.policies).run()
-        return judge.program_leaves(hist)
-
-
 def sync(device: str) -> None:
     if device == "cuda":
         import torch
@@ -119,37 +111,18 @@ def sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
-def reference_campaign(cell: cells.Cell, seed: int, params_seed: int, device: str, *,
-                       tf32: bool = False) -> dict:
-    """The reference's trajectory of one campaign, in float32 with TF32 off,
-    or (``tf32``, the control) with TF32 on for its products and convolutions."""
-    import torch
-
-    from arches_bench.reference import campaign
-
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
-    try:
-        with torch.no_grad():
-            return campaign.run_campaign(cell.config, cell.traffic, seed,
-                                         params_seed=params_seed, device=device)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
-
 def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, *, bench: dict,
-        check_limits: dict, device: str = "cuda", program: type = Program, log=print) -> dict:
+        check_limits: dict, device: str = "cuda", log=print) -> dict:
     """One run of ``cell``; returns the result line's object (``checks``
     last).  ``bench`` is ``BENCHMARK.json``; ``check_limits`` the cell's
-    limits; ``program`` the system under test (tests put a broken one in)."""
+    limits."""
     import torch
 
     from arches_bench import power
     from arches_bench import trace as trace_mod
 
     r = Run(cell=cell)
-    prog = program(cell, cells.derive_seed(seed, "params"), device)
+    prog = r.program.Program(cell, cells.derive_seed(seed, "params"), device)
     gpu = device == "cuda"
     if gpu:
         t = time.perf_counter()
@@ -199,9 +172,9 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, *, bench: dict
         torch.cuda.empty_cache()
     pick = cells.derive_seed(seed, "check") % len(r.campaigns)
     t = time.perf_counter()
-    want = reference_campaign(cell, r.campaign_seeds[pick], cells.derive_seed(seed, "params"),
-                              device)
-    numbers = judge.compare(r.campaigns[pick], want)
+    want = r.program.reference(cell, r.campaign_seeds[pick], cells.derive_seed(seed, "params"),
+                               device)
+    numbers = r.program.compare(r.campaigns[pick], want)
     correct, rows = judge.verdict(numbers, check_limits)
     log(f"reference: campaign {pick} of {len(r.campaigns)} (seed {r.campaign_seeds[pick]}) "
         f"in {time.perf_counter() - t:.2f} s; readings {numbers}")
@@ -215,8 +188,8 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, *, bench: dict
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
-    ap = argparse.ArgumentParser(description="Run one cell of the ARCHES benchmark on the card "
-                                             "and print its result as the last line.")
+    ap = argparse.ArgumentParser(description="Run one cell of BENCHMARK.json on the card and "
+                                             "print its result as the last line.")
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)

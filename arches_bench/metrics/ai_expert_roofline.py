@@ -18,5 +18,5 @@ def read(run):
     bound = sum(counts.bound_s(*counts.ai_expert(n_prb, run.cell.n_ant, run.cell.n_dmrs_sym,
                                                   bank["channels"],
                                                   bank["n_res_blocks"], int(n)))
-                for n in run.ai_rows(run.traced) if n > 0)
+                for n in run.program.ai_rows(run.cell, run.traced) if n > 0)
     return 100.0 * bound / t if bound > 0 else None

@@ -10,4 +10,4 @@ def read(run):
     tl = spans.timeline(run)
     if tl is None:
         return None
-    return spans.idle_us(tl)[1] / tl.wall_us
+    return spans.idle_us(tl, "slot")[1] / tl.wall_us

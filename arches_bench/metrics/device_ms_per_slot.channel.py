@@ -4,9 +4,11 @@ operations inside the ``slot.tx`` and ``slot.channel`` spans that no
 
 from arches_bench import spans
 
+STAGES = ("slot.tx", "slot.channel")
+
 
 def read(run):
     tl = spans.timeline(run)
     if tl is None:
         return None
-    return tl.device_us(spans.stage_ops(tl, "channel")) / 1e3 / run.cell.n_slots
+    return tl.device_us(spans.under(tl, STAGES, skip=("rng",))) / 1e3 / run.cell.n_slots

@@ -5,9 +5,11 @@ equalizer, the KPMs, the TB outcome and OLLA): the operations inside the
 
 from arches_bench import spans
 
+STAGES = ("slot.ls", "slot.receiver")
+
 
 def read(run):
     tl = spans.timeline(run)
     if tl is None:
         return None
-    return tl.device_us(spans.stage_ops(tl, "receiver")) / 1e3 / run.cell.n_slots
+    return tl.device_us(spans.under(tl, STAGES, skip=("rng",))) / 1e3 / run.cell.n_slots

@@ -11,6 +11,8 @@ import pytest
 
 from arches_bench import cells, harness, judge
 
+PROGRAM = harness.load_program("arches_campaign")
+
 WORKLOADS = [w["name"] for w in cells.benchmark()["workloads"]]
 
 
@@ -24,9 +26,9 @@ def _small(workload: str) -> cells.Cell:
 def test_control_fails_and_program_passes(workload, card):
     cell, lim = _small(workload), harness.limits(workload)
     seed, params_seed = 2**31 + 5, 77
-    want = harness.reference_campaign(cell, seed, params_seed, card)
-    control = harness.reference_campaign(cell, seed, params_seed, card, tf32=True)
-    assert judge.verdict(judge.compare(control, want), lim)[0] is False
-    prog = harness.Program(cell, params_seed, card)
+    want = PROGRAM.reference(cell, seed, params_seed, card)
+    control = PROGRAM.reference(cell, seed, params_seed, card, tf32=True)
+    assert judge.verdict(PROGRAM.compare(control, want), lim)[0] is False
+    prog = PROGRAM.Program(cell, params_seed, card)
     prog.fit_policy(seed)
-    assert judge.verdict(judge.compare(prog.campaign(seed), want), lim)[0] is True
+    assert judge.verdict(PROGRAM.compare(prog.campaign(seed), want), lim)[0] is True

@@ -9,6 +9,7 @@ from arches_bench import cells, harness
 from arches_bench.tests.conftest import tiny
 
 WORKLOADS = [w["name"] for w in cells.benchmark()["workloads"]]
+PROGRAM = harness.load_program("arches_campaign")
 
 
 def _state_unchanged(monkeypatch):
@@ -58,7 +59,7 @@ def _answer_altered(monkeypatch):
     return calls
 
 
-class Broken(harness.Program):
+class Broken(PROGRAM.Program):
     plant = None
     monkeypatch = None
 
@@ -73,7 +74,8 @@ class Broken(harness.Program):
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_planted_fault_is_not_correct(workload, fault, monkeypatch):
     Broken.plant, Broken.monkeypatch = staticmethod(fault), monkeypatch
+    monkeypatch.setattr(PROGRAM, "Program", Broken)  # the module the run loads
     res = harness.run(tiny(workload), 2**31 + 7, 0.0, False, bench=cells.benchmark(),
-                      check_limits=harness.limits(workload), device="cpu", program=Broken,
+                      check_limits=harness.limits(workload), device="cpu",
                       log=lambda m: None)
     assert res["correct"] is False, res["checks"]

@@ -2,8 +2,11 @@
 
 ``profile_campaign`` runs one campaign under ``torch.profiler`` (CUDA
 activity only) and keeps every device operation, kernels, copies and
-fills alike, as ``(name, start_us, end_us)``.  The per-layer readers in
-``arches_bench/metrics`` read it through ``Trace``.
+fills alike, as ``(name, start_us, end_us)`` from the trace's start, and
+beside each the host start of the runtime call that launched it (matched
+by the profiler's correlation id, on ``time.time_ns()``'s clock, the
+program's spans' clock).  The per-layer readers in ``arches_bench/metrics``
+read it through ``Trace``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ from typing import Callable, Iterable
 class Trace:
     ops: list[tuple[str, float, float]]  # (name, start us, end us), in start order
     wall_s: float  # the profiled campaign on the host clock, under the profiler
+    #: per operation: the host start (ns) of the call that launched it, or
+    #: ``None`` where the trace holds no such call
+    launch_ns: list[int | None]
 
     def busy_s(self) -> float:
         """Seconds in which at least one device operation ran (the union)."""
@@ -72,7 +78,18 @@ def profile_campaign(run_campaign: Callable[[], object], sync: Callable[[], None
         result = run_campaign()
         sync()
         wall = time.perf_counter() - t0
-    ops = sorted(((e.name, float(e.time_range.start), float(e.time_range.end))
-                  for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda op: op[1])
-    return result, Trace(ops=ops, wall_s=wall)
+    results = prof.profiler.kineto_results
+    events = [e for e in results.events() if not e.is_hidden_event()]
+    # a call's correlation id is the launch's, and an overhead record the
+    # profiler files under it (a full command buffer) starts inside the call
+    launch: dict[int, int] = {}
+    for e in events:
+        if e.device_type() == DeviceType.CPU and e.correlation_id():
+            t = launch.get(e.correlation_id())
+            launch[e.correlation_id()] = e.start_ns() if t is None else min(t, e.start_ns())
+    base = results.trace_start_ns()
+    device = sorted((e for e in events if e.device_type() == DeviceType.CUDA),
+                    key=lambda e: e.start_ns())
+    ops = [(e.name(), (e.start_ns() - base) / 1e3, (e.end_ns() - base) / 1e3) for e in device]
+    return result, Trace(ops=ops, wall_s=wall,
+                         launch_ns=[launch.get(e.correlation_id()) for e in device])
